@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # one H100; exits non-zero on any failure
+
+Phases, each printed on its own line:
+
+1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
+2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, in parallel), with its time;
+3. each kernel against its plain PyTorch version on the card, at the main
+   path's shapes (transformer-wmt, 8 nodes) and at ragged / q4 pack4 /
+   q16 / average=False / matched-mask / bf16 / Nesterov+weight-decay
+   variants: codes, scales and floats must match bitwise (the kernels are
+   built with contraction off). Each kernel's time (CUDA events, median of
+   20 runs) is printed beside its byte bound, the plain version's time and,
+   for sgd_update, ``torch.optim.SGD(fused=True).step()``;
+4. a small-input reference: three exact and three q8 supersteps of a
+   reduced model on the card (kernels), each restarted from the state the
+   CPU (plain versions) reached before it, against the CPU's, from
+   identical weights, batches, matchings and uniforms; planted faults of
+   the exchange must fail the same bound;
+5. the main path: 4 supersteps of ``repro_torch.launch.train --arch
+   transformer-wmt --nodes 8 --H 2 --quantize`` at full width and depth in
+   bf16, with every launch counter at 0 just before; it asserts finite
+   losses and exactly 8 / 4 / 4 launches of sgd_update / quantize_mod /
+   decode_avg, and prints the superstep time and peak device memory;
+6. one exact-mode superstep, in which quantize_mod and decode_avg must not
+   launch.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. With no CUDA device, or without the rest
+of the repository beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+TPU_KERNELS = {
+    "sgd_update": "src/repro/kernels/sgd_update.py:43",
+    "quantize_mod": "src/repro/kernels/quantize_mod.py:48",
+    "decode_avg": "src/repro/kernels/decode_avg.py:66",
+}
+SOURCES = {n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in TPU_KERNELS}
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def log(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """Median of `reps` CUDA-event-timed calls, after two warm-up calls."""
+    import torch
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(n_bytes: int, n_ops: int):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two tensors (any dtype, uint16 included)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def bitwise(kernel_out, plain_out, what: str) -> float:
+    """Hold a kernel's output to its plain version's, bit for bit; -> the
+    max abs error (0.0: anything else fails the phase, naming the error)."""
+    import torch
+    if same_bits(kernel_out, plain_out):
+        return 0.0
+    a, b = (x.view(torch.int16).to(torch.int32) & 0xFFFF
+            if x.dtype == torch.uint16 else x.float()
+            for x in (kernel_out, plain_out))
+    err = float((a - b).abs().max()) if a.shape == b.shape else math.inf
+    raise PhaseError(f"{what}: kernel != plain (max abs err {err})")
+
+
+def main_path_layout(n_nodes: int):
+    """The flat-buffer layout of the main path (transformer-wmt, full
+    width, node-stacked), built from meta tensors."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucket as B
+    from repro_torch.models import param_template
+    from repro_torch.tree import tree_map
+    cfg = get_config("transformer-wmt")
+    meta = tree_map(lambda i: torch.empty((n_nodes,) + i.shape,
+                                          dtype=torch.bfloat16, device="meta"),
+                    param_template(cfg))
+    return cfg, B.build_layout(meta)
+
+
+def phase_kernels():
+    """Every kernel against its plain version on the card; -> records."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    n_nodes = 8
+    _, layout = main_path_layout(n_nodes)
+    n_padded = layout.n_padded
+    rows = n_nodes * n_padded // 256
+    records = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # -- sgd_update ------------------------------------------------------
+    p, g, m = (randn(n_nodes * n_padded // 512, 512) for _ in range(3))
+    lr = torch.tensor(0.05, device=dev)
+    kp, km = ops.sgd_fused_update(p, g, m, lr=lr, mu=0.9)
+    rp, rm = ref.sgd_update(p, g, m, lr=lr, mu=0.9)
+    errs = [bitwise(kp, rp, "sgd_update p' (main-path shape)"),
+            bitwise(km, rm, "sgd_update m' (main-path shape)")]
+    del kp, km, rp, rm
+    ms = time_ms(lambda: ops.sgd_fused_update(p, g, m, lr=lr, mu=0.9))
+    plain_ms = time_ms(lambda: ref.sgd_update(p, g, m, lr=lr, mu=0.9))
+    n = p.numel()
+    b_ms, b_by = bound(5 * 4 * n, 4 * n)
+    # the one PyTorch call with the same semantics (after its first step,
+    # which seeds the buffer with g instead of mu*0 + g)
+    w = p.clone()
+    w.grad = g
+    opt = torch.optim.SGD([w], lr=0.05, momentum=0.9, fused=True)
+    opt.step()
+    lib_ms = time_ms(opt.step)
+    del w, opt
+    for mu, wd, nest, size in ((0.9, 1e-4, True, 3 * 512 * 8 + 100),
+                               (0.0, 0.0, False, 1000),
+                               (0.9, 5e-4, False, 512 * 8)):
+        a, b, c = (randn(size) for _ in range(3))
+        kp, km = ops.sgd_fused_update(a, b, c, lr=lr, mu=mu, wd=wd,
+                                      nesterov=nest)
+        rp, rm = ref.sgd_update(a, b, c, lr=lr, mu=mu, wd=wd, nesterov=nest)
+        what = f"sgd_update (mu={mu} wd={wd} nesterov={nest} n={size})"
+        errs += [bitwise(kp, rp, what), bitwise(km, rm, what)]
+    records["sgd_update"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms,
+                                 max_abs_err=max(errs),
+                                 shape=list(p.shape))
+    log("kernel", name="sgd_update", **records["sgd_update"])
+    del p, g, m
+
+    # -- quantize_mod / decode_avg at the main-path shape (q8, node mask) --
+    x = randn(rows, 256)
+    r = x + 0.01 * randn(rows, 256)
+    u = torch.rand((rows, 256), generator=gen, device=dev)
+    kq, ks, _ = ops.quantize_mod(x, r, u)
+    rq, rs = ref.quantize_mod(x, r, u)
+    q_errs = [bitwise(kq, rq, "quantize_mod codes (main-path shape, q8)"),
+              bitwise(ks, rs, "quantize_mod scales (main-path shape, q8)")]
+    del rq, rs
+    ms = time_ms(lambda: ops.quantize_mod(x, r, u))
+    plain_ms = time_ms(lambda: ref.quantize_mod(x, r, u))
+    b_ms, b_by = bound(nbytes(x, r, u, kq, ks), 7 * x.numel())
+    records["quantize_mod"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None,
+                                   shape=[rows, 256])
+
+    matched = (torch.arange(n_nodes, device=dev) % 4 != 3) \
+        .repeat_interleave(rows // n_nodes)
+    y = r
+    kd = ops.decode_avg(kq, ks, y, matched=matched)
+    rd = ref.decode_avg(kq, ks, y, matched=matched)
+    d_errs = [bitwise(kd, rd, "decode_avg (main-path shape, q8, mask)")]
+    del kd, rd
+    ms = time_ms(lambda: ops.decode_avg(kq, ks, y, matched=matched))
+    plain_ms = time_ms(lambda: ref.decode_avg(kq, ks, y, matched=matched))
+    b_ms, b_by = bound(nbytes(kq, ks, y, matched) + nbytes(y),
+                       9 * y.numel())
+    records["decode_avg"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None,
+                                 shape=[rows, 256])
+    del x, r, u, y, kq, ks, matched
+
+    # -- variants: ragged, q4 pack4, q16, average=False, bf16 y, no mask --
+    for bits, size, y_dtype, average, masked in (
+            (8, 256 * 37 + 5, torch.float32, True, True),
+            (4, 256 * 64, torch.float32, True, True),
+            (2, 256 * 24 + 100, torch.bfloat16, False, False),
+            (16, 256 * 64, torch.float32, True, True),
+            (12, 256 * 40, torch.bfloat16, True, False),
+            (8, 256 * 64, torch.float32, False, False),
+            (8, 256 * 64, torch.bfloat16, True, True)):
+        pack4 = bits <= 4
+        xs = randn(size)
+        rs_ = xs + 0.02 * randn(size)
+        us = torch.rand((size,), generator=gen, device=dev)
+        kq, ks, pad = ops.quantize_mod(xs, rs_, us, bits=bits, pack4=pack4)
+        xb, _ = ops._to_blocks(xs, 256, 8)
+        rb, _ = ops._to_blocks(rs_, 256, 8)
+        ub, _ = ops._to_blocks(us, 256, 8)
+        rq, rsc = ref.quantize_mod(xb, rb, ub, bits=bits, pack4=pack4)
+        what = f"quantize_mod (bits={bits} size={size})"
+        q_errs += [bitwise(kq, rq, what), bitwise(ks, rsc, what)]
+        ys = rs_.to(y_dtype)
+        mk = (torch.arange(kq.shape[0], device=dev) % 3 != 0) \
+            if masked else None
+        kd = ops.decode_avg(kq, ks, ys, bits=bits, pack4=pack4,
+                            average=average, matched=mk)
+        yb, _ = ops._to_blocks(ys, 256, 8)
+        rd = ref.decode_avg(kq, ks, yb, bits=bits, pack4=pack4,
+                            average=average, matched=mk).reshape(-1)
+        rd = rd[:rd.numel() - pad] if pad else rd
+        d_errs.append(bitwise(
+            kd, rd.reshape(ys.shape),
+            f"decode_avg (bits={bits} size={size} {y_dtype} "
+            f"average={average} masked={masked})"))
+    records["quantize_mod"]["max_abs_err"] = max(q_errs)
+    records["decode_avg"]["max_abs_err"] = max(d_errs)
+    log("kernel", name="quantize_mod", **records["quantize_mod"])
+    log("kernel", name="decode_avg", **records["decode_avg"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return records
+
+
+def _reduced_engine(device, quantize: bool, fault: str = ""):
+    """A superstep of a reduced transformer-wmt swarm on `device`, its
+    q8 codec (which remembers the scale of every encode) and a function
+    that runs superstep t from a state on any device. `fault` plants a
+    known-wrong exchange, to show the reference's bounds reject it:
+    "one_step_off" (every received code one lattice step up) or
+    "average_dropped" (a node takes its partner's model)."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.exchange import GossipTransport
+    from repro_torch.core.swarm import SwarmConfig, SwarmState
+    from repro_torch.core.swarm import make_swarm_step
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import make_optimizer
+    from repro_torch.quant.codecs import LatticeCodec
+    from repro_torch.quant.schemes import ModularQuantConfig
+    from repro_torch.tree import tree_map
+
+    class Codec(LatticeCodec):
+        def __init__(self):
+            super().__init__(ModularQuantConfig())
+            self.scales = []
+
+        def encode(self, *a, **kw):
+            q, sc = super().encode(*a, **kw)
+            self.scales.append(sc.reshape(-1).cpu())
+            return q, sc
+
+        def decode_avg(self, wire, ybuf, matched_rows=None, **kw):
+            q, sc = wire
+            if fault == "average_dropped":
+                return self.decode(wire, ybuf, **kw)
+            if fault == "one_step_off":
+                q = ((q.to(torch.int32) + 1) % 256).to(torch.uint8)
+            return super().decode_avg((q, sc), ybuf, matched_rows, **kw)
+
+    class Transport(GossipTransport):
+        def mix_pair(self, tree, perm, matched, *, quantize=False, **kw):
+            if fault == "average_dropped" and not quantize:
+                return tree_map(lambda x: x[perm], tree)
+            return super().mix_pair(tree, perm, matched, quantize=quantize,
+                                    **kw)
+
+    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
+    codec = Codec()
+    opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
+    step = make_swarm_step(SwarmConfig(n_nodes=4, H=2, quantize=quantize),
+                           TransformerLM(cfg).functional_loss, opt.update,
+                           lambda s: 0.05, transport=Transport(4, codec=codec))
+
+    def move(tree):
+        return None if tree is None else tree_map(lambda x: x.to(device),
+                                                  tree)
+
+    def run(state, t, inputs):
+        perms, batches, us = inputs
+        state = SwarmState(move(state.params), move(state.opt),
+                           move(state.prev), t)
+        batch = {k: torch.from_numpy(v[t]).to(device)
+                 for k, v in batches.items()}
+        return step(state, batch, perms[t], [2] * 4, None,
+                    u=torch.from_numpy(us[t]).to(device))
+
+    return run, codec, opt
+
+
+def _readings(card_params, cpu_params, scales):
+    """The card's parameters after one superstep against the CPU's: max
+    abs difference, share within 2e-5 and, for q8, the max difference in
+    units of its row's lattice step s and the count of coordinates beyond
+    s + 2e-5."""
+    from repro_torch.core import bucket as B
+    bufs = [B.pack(B.build_layout(p), p).cpu() for p in (card_params,
+                                                          cpu_params)]
+    d = (bufs[0] - bufs[1]).abs()
+    r = {"max_abs": float(d.max()),
+         "share_within_2e-5": float((d <= 2e-5).double().mean())}
+    if scales is not None:
+        d, s = d.reshape(-1, 256), scales[:, None]
+        r["max_in_steps"] = float((d / s).max())
+        r["beyond_one_step"] = int((d > s + 2e-5).sum())
+    return r
+
+
+def _within_bound(r) -> bool:
+    """Exact: every coordinate within 2e-5. q8: every coordinate within
+    one lattice step of its row beyond that, and >= 99.9% within 2e-5."""
+    if "beyond_one_step" in r:
+        return r["beyond_one_step"] == 0 and r["share_within_2e-5"] >= 0.999
+    return r["max_abs"] <= 2e-5
+
+
+def phase_reference():
+    """The engine on the card (kernels) against the engine on the CPU
+    (plain versions), at a small size. The CPU runs three supersteps from
+    one model; each card superstep restarts from the CPU's state before it
+    (parameters, momentum, comm copy), with the same batches, matching and
+    uniforms, and is held to the bound of `_within_bound`: the card's
+    matmuls sum in another order than the CPU's, and a q8 code flips where
+    x/s + u lies within an ulp of an integer (moving its coordinate by
+    about s/2). Planted faults of the exchange must fail the same bound."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import bucket as B
+    from repro_torch.core.graph import complete, sample_matching
+    from repro_torch.core.swarm import SwarmState
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.data import make_node_batches
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+    n, steps = 4, 3
+    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
+    g = torch.Generator()
+    g.manual_seed(0)
+    params = tree_map(lambda x: x[None].repeat((n,) + (1,) * x.ndim),
+                      init_params(g, cfg, "cpu"))
+    rng = np.random.default_rng(0)
+    perms = np.stack([sample_matching(complete(n), rng)
+                      for _ in range(steps)])
+    ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, 32, seed=0), n)
+    nbs = [make_node_batches(ds, t, 2 * 2) for t in range(steps)]
+    batches = {k: np.stack([nb[k].reshape(n, 2, 2, 32) for nb in nbs])
+               for k in nbs[0]}
+    us = rng.random((steps, n, B.build_layout(params).n_padded),
+                    dtype=np.float32)
+    inputs = (perms, batches, us)
+    out = {}
+    for quantize in (False, True):
+        run, _, opt = _reduced_engine("cpu", quantize)
+        states = [SwarmState(params, opt.init(params),
+                             tree_map(torch.clone, params) if quantize
+                             else None, 0)]
+        loss_cpu, loss_card, readings = [], [], []
+        for t in range(steps):
+            state, m = run(states[t], t, inputs)
+            states.append(state)
+            loss_cpu.append(float(m["loss"]))
+        for t in range(steps):
+            run, codec, _ = _reduced_engine("cuda", quantize)
+            state, m = run(states[t], t, inputs)
+            loss_card.append(float(m["loss"]))
+            readings.append(_readings(state.params, states[t + 1].params,
+                                      codec.scales[-1] if quantize else None))
+        rec = dict(loss_card=loss_card, loss_cpu=loss_cpu, readings=readings,
+                   planted={})
+        for fault in (("one_step_off", "average_dropped") if quantize
+                      else ("average_dropped",)):
+            run, codec, _ = _reduced_engine("cuda", quantize, fault)
+            state, _ = run(states[0], 0, inputs)
+            rec["planted"][fault] = _readings(
+                state.params, states[1].params,
+                codec.scales[-1] if quantize else None)
+        mode = "q8" if quantize else "exact"
+        out[mode] = rec
+        check(all(math.isfinite(x) for x in loss_card),
+              f"{mode}: non-finite loss on card")
+        check(np.allclose(loss_card, loss_cpu, rtol=1e-4, atol=0),
+              f"{mode}: card loss {loss_card} != CPU loss {loss_cpu}")
+        check(all(_within_bound(r) for r in readings),
+              f"{mode}: card vs CPU beyond the bound: {readings}")
+        check(not any(_within_bound(r) for r in rec["planted"].values()),
+              f"{mode}: a planted fault passes the bound: {rec['planted']}")
+    log("reference", **out)
+
+
+def phase_main_path():
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    hist = train.main(["--arch", "transformer-wmt", "--nodes", "8",
+                       "--H", "2", "--steps", "4", "--quantize",
+                       "--log-every", "1", "--out",
+                       os.path.join(OUT_DIR, "chip_smoke_train_q8.json")])
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(hist) == 4 and all(math.isfinite(h["loss"])
+                                 and math.isfinite(h["gamma"])
+                                 for h in hist),
+          f"main path: non-finite or missing records {hist}")
+    check(counts == {"sgd_update": 8, "quantize_mod": 4, "decode_avg": 4},
+          f"main path launch counts {counts}")
+    walls = [h["wall_s"] for h in hist]
+    steady = [b - a for a, b in zip(walls, walls[1:])]
+    log("main_path", records=hist, launches=counts,
+        first_superstep_s=walls[0], superstep_s=steady,
+        superstep_median_s=statistics.median(steady),
+        max_memory_allocated_bytes=peak)
+    return counts
+
+
+def phase_exact():
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    reset_launch_counts()
+    hist = train.main(["--arch", "transformer-wmt", "--nodes", "8",
+                       "--H", "2", "--steps", "1", "--log-every", "1"])
+    counts = dict(LAUNCHES)
+    check(math.isfinite(hist[-1]["loss"]), "exact superstep: non-finite")
+    check(counts == {"sgd_update": 2, "quantize_mod": 0, "decode_avg": 0},
+          f"exact superstep launch counts {counts}")
+    log("exact_superstep", record=hist[-1], launches=counts)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    log("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi[0],
+        torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.time()
+    build.build_all()
+    log("build", seconds=time.time() - t0,
+        libraries=[str(build.library_path(n)) for n in build.KERNELS])
+
+    records = phase_kernels()
+    phase_reference()
+    counts = phase_main_path()
+    phase_exact()
+    kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
+                "replaces": TPU_KERNELS[n], "launches": counts[n],
+                **{k: records[n][k] for k in
+                   ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}} for n in TPU_KERNELS]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

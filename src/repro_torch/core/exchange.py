@@ -1,0 +1,103 @@
+"""Gossip exchange layer (gather slice of ``repro/core/exchange.py``).
+
+``make_local_steps`` is every node's loop of h_i <= h_max local SGD steps;
+:class:`GossipTransport` owns the pairwise model exchange over the bucketed
+flat buffer (``core/bucket.py``): an fp32 gather, or the codec's encode /
+permute / fused decode-average through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.core import bucket as B
+from repro_torch.quant.codecs import LatticeCodec, WireCodec
+from repro_torch.quant.schemes import ModularQuantConfig
+from repro_torch.tree import tree_flatten, tree_map
+
+
+def _rows(mask: torch.Tensor, ndim: int):
+    return mask.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def make_local_steps(loss_fn, opt_update, h_max: int):
+    """Returns local_steps(params, opt, batch, h_counts, lr) -> (params,
+    opt, per-node mean loss over the h_i active steps).
+
+    params/opt are node-stacked; batch leaves are [n_nodes, h_max, ...];
+    h_counts is a host-side int array. Step q computes every node's loss
+    and gradient in one ``torch.func.vmap`` over the node axis (the
+    reference vmaps the same way), then ONE optimizer sweep updates every
+    node; nodes past their h_i (``q >= h_i``, the reference's masked loop)
+    keep their parameters and momentum."""
+    node_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+
+    def local_steps(params, opt, batch, h_counts, lr):
+        h = [int(x) for x in h_counts]
+        n = len(h)
+        device = tree_flatten(params)[0][0].device
+        hc = torch.tensor(h, dtype=torch.float32, device=device)
+        lsum = torch.zeros((n,), dtype=torch.float32, device=device)
+        for q in range(h_max):
+            if not any(q < hi for hi in h):
+                continue
+            with record_function("swarm.grad"):
+                grads, losses = node_grads(
+                    params, {k: v[:, q] for k, v in batch.items()})
+            active = q < hc
+            lsum = lsum + torch.where(active, losses.to(torch.float32), 0.0)
+            with record_function("swarm.sgd"):
+                p2, o2 = opt_update(params, grads, opt, lr)
+            del grads
+            if all(q < hi for hi in h):
+                params, opt = p2, o2
+            else:
+                sel = lambda a, b: torch.where(_rows(active, b.ndim), b, a)  # noqa: E731
+                params = tree_map(sel, params, p2)
+                opt = tree_map(sel, opt, o2)
+        return params, opt, lsum / torch.clamp_min(hc, 1.0)
+    return local_steps
+
+
+def masked_mean_loss(losses, mask):
+    """Loss over participants; the plain mean for mask=None."""
+    if mask is None:
+        return torch.mean(losses)
+    m = mask.to(torch.float32)
+    return torch.sum(torch.where(mask, losses, 0.0)) / \
+        torch.clamp_min(torch.sum(m), 1.0)
+
+
+class GossipTransport:
+    """The pairwise exchange over the flat buffer, gather transport (all
+    nodes in one process on one device). The codec owns the quantized wire
+    format; `quant` seeds the lattice family when no codec is given."""
+
+    def __init__(self, n_nodes: int, *,
+                 quant: Optional[ModularQuantConfig] = None,
+                 codec: Optional[WireCodec] = None):
+        self.n_nodes = n_nodes
+        self.codec = codec if codec is not None \
+            else LatticeCodec(quant or ModularQuantConfig())
+
+    def mix_pair(self, tree, perm, matched, *, quantize: bool = False,
+                 prev=None, rng=None, u=None):
+        """Average each node's `tree` entry with its partner's (`perm` an
+        involution [n_nodes], fixed points unmatched). Quantized, each node
+        encodes against its comm copy `prev` (the sender-local distance
+        proxy) with uniforms `u` (drawn from `rng` unless given), and the
+        receiver decodes against its own model."""
+        layout = B.build_layout(tree, block=self.codec.block)
+        with record_function("gossip.pack"):
+            buf = B.pack(layout, tree)
+            pbuf = B.pack(layout, prev) if quantize else None
+        if quantize:
+            out = B.gossip_flat_coded(self.codec, buf, pbuf, perm, matched,
+                                      rng, u=u)
+        else:
+            out = B.gossip_flat_exact(buf, perm)
+        del buf, pbuf
+        with record_function("gossip.unpack"):
+            return B.unpack(layout, out)

@@ -1,0 +1,126 @@
+"""Where one superstep's time goes, on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile --arch transformer-wmt \
+      --nodes 8 --H 2 --quantize --trace chiprun_out/superstep_trace.json
+
+Builds the training driver's run (same flags as ``repro_torch.launch.train``),
+runs ``--warmup`` supersteps, then one superstep under ``torch.profiler``
+and prints one JSON object: the superstep's wall time (host clock, ending
+in a device sync), the device's busy time (union of kernel, memcpy and
+memset intervals in the trace) and idle share, the device-busy time inside
+each engine span's device range (``swarm.grad``, ``swarm.sgd``,
+``sgd.pack``, ``gossip.encode``, ... — the ``record_function`` ranges of
+``core/swarm.py``, ``core/exchange.py``, ``core/bucket.py`` and
+``optim/sgd.py``; the profiler gives a span the device work launched
+directly in it, not in a nested span) with its host time, and the kernels
+that took the most device time.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+from repro_torch.launch.train import build, build_parser
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _union_ms(intervals) -> float:
+    """Length of the union of [start, end) intervals (µs in, ms out)."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def summarize(trace: dict, wall_ms: float, top: int = 12) -> dict:
+    """Busy/idle and per-span device time from a chrome trace."""
+    events = [e for e in trace.get("traceEvents", [])
+              if e.get("ph") == "X" and "dur" in e]
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") in DEVICE_CATS]
+    busy = _union_ms(dev)
+    spans = defaultdict(lambda: {"count": 0, "host_ms": 0.0,
+                                 "device_busy_ms": 0.0})
+    for e in events:
+        cat, name = e.get("cat"), e.get("name", "")
+        if cat == "user_annotation":
+            spans[name]["count"] += 1
+            spans[name]["host_ms"] += e["dur"] / 1e3
+        elif cat == "gpu_user_annotation":
+            a, b = e["ts"], e["ts"] + e["dur"]
+            spans[name]["device_busy_ms"] += _union_ms(
+                [(max(a, x), min(b, y)) for x, y in dev if x < b and y > a])
+    kernels = defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]][0] += 1
+            kernels[e["name"]][1] += e["dur"] / 1e3
+    top_k = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy,
+        "idle_share": (1.0 - busy / wall_ms) if wall_ms else None,
+        "n_kernels": sum(c for c, _ in kernels.values()),
+        "spans": dict(sorted(spans.items())),
+        "top_kernels": [{"name": n[:120], "count": c, "ms": ms}
+                        for n, (c, ms) in top_k],
+    }
+
+
+def main(argv=None) -> dict:
+    ap = build_parser()
+    ap.add_argument("--warmup", type=int, default=1,
+                    help="supersteps run before the profiled one")
+    ap.add_argument("--trace", default=None,
+                    help="where to write the chrome trace (default: a file "
+                         "next to --out, or not kept)")
+    args = ap.parse_args(argv)
+    args.steps = args.warmup + 1
+    tr = build(args)
+    on_card = tr.device.type == "cuda"
+    for t in range(args.warmup):
+        float(tr.superstep(t)["loss"])
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        m = tr.superstep(args.warmup)
+        loss = float(m["loss"])
+        if on_card:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = args.trace or os.path.join(
+        os.path.dirname(args.out or "") or ".", "superstep_trace.json")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        summary = summarize(json.load(f), wall_ms)
+    if args.trace is None:
+        os.remove(path)
+    if not on_card:
+        # no device in this run: its device metrics were not measured
+        summary.update(device_busy_ms=None, idle_share=None)
+        for sp in summary["spans"].values():
+            sp["device_busy_ms"] = None
+    summary.update(step=args.warmup, loss=loss, device=str(tr.device),
+                   device_name=(torch.cuda.get_device_name(0) if on_card
+                                else "cpu"))
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,357 @@
+"""The port's whole slice against the JAX package, on the CPU: three
+blocking supersteps of a reduced transformer-wmt swarm from carried-over
+weights, identical batches and matchings, and JAX's own uniforms ``u``
+injected into the port's q8 encode.
+
+* Exact gossip: parameters within atol 2e-5 after each superstep (jitted
+  XLA vs eager torch differ by a few ulp per step; three supersteps of
+  SGD carry that).
+* q8 gossip: every superstep restarts from JAX's state before it, and
+  after each every coordinate is within one lattice step (its row's
+  scale) and at least 99.9% within 2e-5. A code flips where x/s + u lies
+  within an ulp of an integer, which moves that coordinate by about s/2.
+  Two planted decode faults (every code one step off; the average
+  dropped) must fail that bound.
+
+Also: the driver's matchings equal the JAX driver's for the same seed, the
+CLI runs on the CPU and refuses to run without a card unless asked, and no
+module of the port (nor chip_smoke.py) imports jax or the JAX package.
+"""
+import ast
+import functools
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config, reduced as jreduced
+from repro.core import bucket as JB
+from repro.core.graph import complete as jcomplete
+from repro.core.graph import sample_matching as jsample_matching
+from repro.core.potential import gamma_potential as jgamma
+from repro.core.swarm import SwarmConfig as JSwarmConfig
+from repro.core.swarm import make_swarm_step as jmake_swarm_step
+from repro.core.swarm import swarm_init as jswarm_init
+from repro.data import DataConfig, SyntheticLMDataset, make_node_batches
+from repro.launch.train import presample_inputs as jpresample
+from repro.models import init_params as jinit_params
+from repro.models import loss_fn as jloss_fn
+from repro.optim import make_optimizer as jmake_optimizer
+from repro_torch.configs import get_config, reduced
+from repro_torch.core import bucket as TB
+from repro_torch.core.exchange import GossipTransport
+from repro_torch.core.graph import complete, sample_matching
+from repro_torch.core.potential import gamma_potential
+from repro_torch.core.swarm import SwarmConfig, SwarmState, make_swarm_step
+from repro_torch.launch import train as ttrain
+from repro_torch.models import TransformerLM
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.optim import make_optimizer
+from repro_torch.quant.codecs import LatticeCodec
+from repro_torch.quant.schemes import ModularQuantConfig
+from repro_torch.tree import tree_map
+
+ROOT = Path(__file__).resolve().parents[1]
+N, H, STEPS, SEQ, BATCH, LR = 4, 2, 3, 16, 2, 0.05
+
+
+class RecordingCodec(LatticeCodec):
+    """The q8 lattice codec, remembering the scales of every encode."""
+
+    def __init__(self):
+        super().__init__(ModularQuantConfig())
+        self.scales = []
+
+    def encode(self, buf, prev_buf, rng, *, u=None, tile_rows: int = 8):
+        q, s = super().encode(buf, prev_buf, rng, u=u, tile_rows=tile_rows)
+        self.scales.append(s.reshape(-1).clone())
+        return q, s
+
+
+class OneStepOffCodec(RecordingCodec):
+    """A planted fault: every received code one lattice step up."""
+
+    def decode_avg(self, wire, ybuf, matched_rows=None, *, tile_rows=8):
+        q, s = wire
+        q = ((q.to(torch.int32) + 1) % 256).to(torch.uint8)
+        return super().decode_avg((q, s), ybuf, matched_rows,
+                                  tile_rows=tile_rows)
+
+
+class AverageDroppedCodec(RecordingCodec):
+    """A planted fault: the receiver takes the decoded partner model."""
+
+    def decode_avg(self, wire, ybuf, matched_rows=None, *, tile_rows=8):
+        return self.decode(wire, ybuf, tile_rows=tile_rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(quantize: bool):
+    """STEPS JAX supersteps; -> (states, batches, perms, us, losses), with
+    states[t] = (params, opt, prev) in numpy before superstep t."""
+    jcfg = jreduced(jget_config("transformer-wmt"), n_layers=1, d_model=32)
+    jscfg = JSwarmConfig(n_nodes=N, H=H, quantize=quantize, codec=None,
+                         gossip_impl="gather")
+    jopt = jmake_optimizer("sgd", lr=LR, momentum=0.9)
+    jstep = jax.jit(jmake_swarm_step(jscfg, lambda p, mb: jloss_fn(jcfg, p, mb),
+                                     jopt.update, lambda s: LR))
+    jstate = jswarm_init(jax.random.PRNGKey(0), jscfg,
+                         lambda k: jinit_params(k, jcfg), jopt.init)
+    ds = SyntheticLMDataset(DataConfig(vocab_size=jcfg.vocab_size,
+                                       seq_len=SEQ, seed=0), N)
+    graph = jcomplete(N)
+    rng_np = np.random.default_rng(0)
+    key = jax.random.PRNGKey(1)
+    n_padded = JB.build_layout(jstate.params).n_padded
+    states, batches, perms, us, losses = [], [], [], [], []
+    for t in range(STEPS):
+        states.append(jax.device_get((jstate.params, jstate.opt,
+                                      jstate.prev)))
+        nb = make_node_batches(ds, t, BATCH * H)
+        batch = {k: v.reshape(N, H, BATCH, SEQ) for k, v in nb.items()}
+        perm = jsample_matching(graph, rng_np)
+        h = np.full((N,), H, np.int32)
+        key, sub = jax.random.split(key)
+        jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch),
+                           jnp.asarray(perm), jnp.asarray(h), sub)
+        us.append(np.asarray(jax.random.uniform(sub, (N, n_padded),
+                                                jnp.float32)))
+        batches.append(batch)
+        perms.append(perm)
+        losses.append(float(jm["loss"]))
+    states.append(jax.device_get((jstate.params, jstate.opt, jstate.prev)))
+    return states, batches, perms, us, losses
+
+
+def _port(quantize: bool, codec=None):
+    """The port's superstep and a state maker from a JAX numpy state."""
+    tcfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=32)
+    topt = make_optimizer("sgd", lr=LR, momentum=0.9)
+    step = make_swarm_step(SwarmConfig(n_nodes=N, H=H, quantize=quantize),
+                           TransformerLM(tcfg).functional_loss, topt.update,
+                           lambda s: LR,
+                           transport=GossipTransport(N, codec=codec))
+
+    def state(np_state, t):
+        params, opt, prev = (params_from_numpy(x, "cpu") if x is not None
+                             else None for x in np_state)
+        return SwarmState(params, opt, prev if quantize else None, t)
+
+    return step, state
+
+
+def _port_superstep(step, tstate, t, quantize):
+    _, batches, perms, us, _ = _jax_run(quantize)
+    return step(tstate, {k: torch.from_numpy(v)
+                         for k, v in batches[t].items()},
+                perms[t], np.full((N,), H, np.int32), None,
+                u=torch.from_numpy(us[t].copy()))
+
+
+def _flat(params):
+    """A port parameter tree, or a JAX numpy one, packed flat."""
+    if not isinstance(jax.tree.leaves(params)[0], torch.Tensor):
+        params = params_from_numpy(params, "cpu")
+    return TB.pack(TB.build_layout(params), params).numpy()
+
+
+def test_slice_exact_matches_jax():
+    """Three supersteps run on from JAX's initial state: parameters
+    within atol 2e-5 of JAX's after each."""
+    states, _, _, _, jl = _jax_run(False)
+    step, make = _port(False)
+    tstate, tl = make(states[0], 0), []
+    for t in range(STEPS):
+        tstate, m = _port_superstep(step, tstate, t, False)
+        tl.append(float(m["loss"]))
+        np.testing.assert_allclose(_flat(tstate.params),
+                                   _flat(states[t + 1][0]),
+                                   atol=2e-5, rtol=0)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    np.testing.assert_allclose(
+        float(gamma_potential(tstate.params)),
+        float(jgamma(jax.tree.map(jnp.asarray, states[-1][0]))),
+        rtol=1e-4, atol=1e-9)
+
+
+def _q8_readings(tparams, jparams, scales):
+    """Port vs JAX after one q8 superstep: the max abs difference, the
+    share within 2e-5, the max difference in units of its row's lattice
+    step s, and the count of coordinates beyond s + 2e-5."""
+    d = np.abs(_flat(tparams) - _flat(jparams)).reshape(N, -1, 256)
+    s = scales.numpy().reshape(N, -1, 1)
+    return {"max_abs": float(d.max()),
+            "share_within_2e-5": float((d <= 2e-5).mean()),
+            "max_in_steps": float((d / s).max()),
+            "beyond_one_step": int((d > s + 2e-5).sum())}
+
+
+def _q8_ok(r):
+    """The slice's q8 bound: every coordinate within one lattice step of
+    its row (beyond the 2e-5 that exact gossip allows) and >= 99.9%
+    within 2e-5."""
+    return r["beyond_one_step"] == 0 and r["share_within_2e-5"] >= 0.999
+
+
+def test_slice_q8_matches_jax():
+    """Each of the three supersteps restarts from JAX's state before it
+    (params, momentum, comm copy), so every one is held to the full bound:
+    a code flips only where x/s + u lies within an ulp of an integer."""
+    states, _, _, _, jl = _jax_run(True)
+    codec = RecordingCodec()
+    step, make = _port(True, codec)
+    for t in range(STEPS):
+        tstate, m = _port_superstep(step, make(states[t], t), t, True)
+        np.testing.assert_allclose(float(m["loss"]), jl[t], rtol=1e-5)
+        r = _q8_readings(tstate.params, states[t + 1][0], codec.scales[-1])
+        assert _q8_ok(r), (t, r)
+        # the comm copy refreshed to the post-interaction model (all matched)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(jax.tree.leaves(tstate.prev),
+                       jax.tree.leaves(tstate.params)))
+    assert len(codec.scales) == STEPS
+
+
+@pytest.mark.parametrize("fault", [OneStepOffCodec, AverageDroppedCodec],
+                         ids=["one_step_off", "average_dropped"])
+def test_slice_q8_bound_rejects_a_planted_decode_fault(fault):
+    states, _, _, _, _ = _jax_run(True)
+    codec = fault()
+    step, make = _port(True, codec)
+    tstate, _ = _port_superstep(step, make(states[0], 0), 0, True)
+    r = _q8_readings(tstate.params, states[1][0], codec.scales[-1])
+    assert not _q8_ok(r), r
+
+
+def test_matchings_equal_jax_driver():
+    jscfg = JSwarmConfig(n_nodes=8, H=2, gossip_impl="gather", codec=None)
+    jperms, jhs = jpresample(jscfg, jcomplete(8), np.random.default_rng(5),
+                             5, 6)
+    tperms, ths = ttrain.presample_inputs(SwarmConfig(n_nodes=8, H=2),
+                                          complete(8),
+                                          np.random.default_rng(5), 6)
+    np.testing.assert_array_equal(tperms, jperms)
+    np.testing.assert_array_equal(ths, jhs)
+    g, jg = complete(6), jcomplete(6)
+    np.testing.assert_array_equal(g.edges, jg.edges)
+    assert g.lambda2 == jg.lambda2
+    r1, r2 = np.random.default_rng(9), np.random.default_rng(9)
+    for frac in (1.0, 0.5):
+        np.testing.assert_array_equal(sample_matching(g, r1, fraction=frac),
+                                      jsample_matching(jg, r2, fraction=frac))
+
+
+def test_local_steps_respect_h_counts():
+    """A node with h_i = 0 keeps its model and momentum bitwise; the
+    others take their steps in the same optimizer sweep."""
+    tcfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=32)
+    opt = make_optimizer("sgd", lr=LR, momentum=0.9)
+    step = make_swarm_step(SwarmConfig(n_nodes=2, H=2),
+                           TransformerLM(tcfg).functional_loss, opt.update,
+                           lambda s: LR)
+    from repro_torch.models import init_params
+    g = torch.Generator()
+    g.manual_seed(0)
+    one = init_params(g, tcfg, "cpu")
+    params = tree_map(lambda x: torch.stack([x, x]), one)
+    state = SwarmState(params, opt.init(params), None, 0)
+    ds = SyntheticLMDataset(DataConfig(tcfg.vocab_size, SEQ, seed=0), 2)
+    nb = make_node_batches(ds, 0, BATCH * 2)
+    batch = {k: torch.from_numpy(v.reshape(2, 2, BATCH, SEQ))
+             for k, v in nb.items()}
+    new, m = step(state, batch, np.array([0, 1]), np.array([2, 0]), None)
+    assert all(torch.equal(a[1], b[1]) for a, b in
+               zip(jax.tree.leaves(new.params), jax.tree.leaves(params)))
+    assert not torch.equal(new.params["embed"][0], params["embed"][0])
+    assert all(torch.equal(a[1], torch.zeros_like(a[1]))
+               for a in jax.tree.leaves(new.opt))
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_cli_smoke_cpu(tmp_path):
+    out = tmp_path / "m.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--reduced", "--layers", "1", "--d-model", "32", "--nodes", "4",
+         "--steps", "2", "--quantize", "--log-every", "1", "--seq", "16",
+         "--out", str(out)],
+        capture_output=True, text=True, env=_env(), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    recs = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [r["step"] for r in recs] == [0, 1]
+    for r in recs:
+        assert set(r) == {"step", "loss", "gamma", "wall_s"}
+        assert np.isfinite(r["loss"]) and np.isfinite(r["gamma"])
+    assert json.loads(out.read_text())["history"] == recs
+
+
+def test_cli_refuses_other_algos_and_flags():
+    for argv in (["--algo", "adpsgd"], ["--nonblocking"], ["--codec", "q4"]):
+        with pytest.raises(SystemExit) as e:
+            ttrain.build_parser().parse_args(argv)
+        assert e.value.code == 2
+
+
+def test_cli_without_device_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(SystemExit) as e:
+        ttrain.main(["--reduced", "--layers", "1", "--d-model", "32",
+                     "--steps", "1"])
+    assert e.value.code not in (0, None)
+    assert "--device cpu" in str(e.value.code)
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), \
+                f"{f.relative_to(ROOT)} imports {mod}"
+
+
+def test_profile_summary_counts_device_busy_and_spans():
+    """The profiler summary: busy time is the union of device intervals,
+    and a span's device time is the busy time inside it."""
+    from repro_torch.launch.profile import summarize
+    ev = [
+        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 0, "dur": 1000},
+        {"ph": "X", "cat": "kernel", "name": "k2", "ts": 500, "dur": 1000},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 3000,
+         "dur": 500},
+        {"ph": "X", "cat": "user_annotation", "name": "swarm.sgd", "ts": 0,
+         "dur": 200},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "swarm.sgd",
+         "ts": 1000, "dur": 2200},
+    ]
+    s = summarize({"traceEvents": ev}, wall_ms=4.0)
+    assert s["device_busy_ms"] == pytest.approx(2.0)
+    assert s["idle_share"] == pytest.approx(0.5)
+    sp = s["spans"]["swarm.sgd"]
+    assert sp["count"] == 1 and sp["host_ms"] == pytest.approx(0.2)
+    assert sp["device_busy_ms"] == pytest.approx(0.7)
+    assert [k["name"] for k in s["top_kernels"]] == ["k1", "k2"]
