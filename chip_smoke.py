@@ -15,18 +15,33 @@ Phases, each printed on its own line:
    built with contraction off). Each kernel's time (CUDA events, median of
    20 runs) is printed beside its byte bound, the plain version's time and,
    for sgd_update, ``torch.optim.SGD(fused=True).step()``;
-4. a small-input reference: three exact and three q8 supersteps of a
-   reduced model on the card (kernels), each restarted from the state the
-   CPU (plain versions) reached before it, against the CPU's, from
-   identical weights, batches, matchings and uniforms; planted faults of
+4. a small-input reference: three supersteps of a reduced model on the
+   card (kernels), each restarted from the state the CPU (plain versions)
+   reached before it, against the CPU's, from identical weights, batches,
+   matchings and uniforms — blocking exact and q8, non-blocking q8 and
+   overlapped q8 (the latter restarted with its in-flight payload), and
+   overlapped q8 with geometric per-node local steps; planted faults of
    the exchange must fail the same bound;
-5. the main path: 4 supersteps of ``repro_torch.launch.train --arch
-   transformer-wmt --nodes 8 --H 2 --quantize`` at full width and depth in
-   bf16, with every launch counter at 0 just before; it asserts finite
-   losses and exactly 8 / 4 / 4 launches of sgd_update / quantize_mod /
-   decode_avg, and prints the superstep time and peak device memory;
+5. the blocking main path: 4 supersteps of ``repro_torch.launch.train
+   --arch transformer-wmt --nodes 8 --H 2 --quantize`` at full width and
+   depth in bf16, with every launch counter at 0 just before; it asserts
+   finite losses and exactly 8 / 4 / 4 launches of sgd_update /
+   quantize_mod / decode_avg, and prints the superstep time and peak
+   device memory;
 6. one exact-mode superstep, in which quantize_mod and decode_avg must not
-   launch.
+   launch;
+7. overlap exact: the overlapped exact run equals the non-blocking exact
+   run bitwise on the card (3 supersteps, 8 nodes, transformer-wmt cut to
+   2 layers at its full width, fp32), which a race of the side stream
+   would break;
+8. the overlapped main path: 4 supersteps of the same driver with
+   ``--h-mode geometric --h-max 8 --quantize --nonblocking --overlap
+   --non-iid 0.5 --eval-mean --ckpt --ckpt-every 4`` at full width, launch
+   counters at 0 just before; it asserts finite loss, Γ and mean-model
+   losses, sgd_update = Σ_t max_i h_{t,i} / quantize_mod 5 / decode_avg 4
+   launches and the checkpoint's files, and prints superstep times, peak
+   memory and checkpoint bytes (the checkpoint is deleted after);
+9. a reduced checkpoint written on the card and reloaded bitwise.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the rest
@@ -257,13 +272,16 @@ def phase_kernels():
     return records
 
 
-def _reduced_engine(device, quantize: bool, fault: str = ""):
-    """A superstep of a reduced transformer-wmt swarm on `device`, its
-    q8 codec (which remembers the scale of every encode) and a function
-    that runs superstep t from a state on any device. `fault` plants a
-    known-wrong exchange, to show the reference's bounds reject it:
-    "one_step_off" (every received code one lattice step up) or
-    "average_dropped" (a node takes its partner's model)."""
+def _reduced_engine(device, quantize: bool, fault: str = "",
+                    mode: str = "blocking", h_mode: str = "fixed"):
+    """A superstep of a reduced transformer-wmt swarm on `device` in
+    `mode` (blocking | nonblocking | overlap) with fixed or geometric
+    local-step counts (h_max 4), its q8 codec (which
+    remembers the scale of every encode) and a function that runs
+    superstep t from a state on any device. `fault` plants a known-wrong
+    exchange, to show the reference's bounds reject it: "one_step_off"
+    (every received code one lattice step up) or "average_dropped" (a node
+    takes its partner's model)."""
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.exchange import GossipTransport
@@ -303,31 +321,40 @@ def _reduced_engine(device, quantize: bool, fault: str = ""):
     cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
     codec = Codec()
     opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
-    step = make_swarm_step(SwarmConfig(n_nodes=4, H=2, quantize=quantize),
-                           TransformerLM(cfg).functional_loss, opt.update,
-                           lambda s: 0.05, transport=Transport(4, codec=codec))
+    scfg = SwarmConfig(n_nodes=4, H=2, quantize=quantize,
+                       nonblocking=mode != "blocking",
+                       overlap=mode == "overlap", h_mode=h_mode, h_max=4)
+    step = make_swarm_step(scfg, TransformerLM(cfg).functional_loss,
+                           opt.update, lambda s: 0.05,
+                           transport=Transport(4, codec=codec))
 
-    def move(tree):
-        return None if tree is None else tree_map(lambda x: x.to(device),
-                                                  tree)
+    def move(x):
+        if x is None or isinstance(x, torch.Tensor):
+            return None if x is None else x.to(device)
+        if isinstance(x, tuple):
+            return tuple(move(v) for v in x)
+        return {k: move(v) for k, v in x.items()}
 
     def run(state, t, inputs):
-        perms, batches, us = inputs
+        perms, batches, us, hs = inputs
         state = SwarmState(move(state.params), move(state.opt),
-                           move(state.prev), t)
+                           move(state.prev), t, move(state.inflight))
         batch = {k: torch.from_numpy(v[t]).to(device)
-                 for k, v in batches.items()}
-        return step(state, batch, perms[t], [2] * 4, None,
+                 for k, v in batches[scfg.h_loop_bound].items()}
+        return step(state, batch, perms[t], hs[h_mode][t], None,
                     u=torch.from_numpy(us[t]).to(device))
 
-    return run, codec, opt
+    return run, codec, opt, scfg
 
 
-def _readings(card_params, cpu_params, scales):
+def _readings(card_params, cpu_params, scales, perm):
     """The card's parameters after one superstep against the CPU's: max
     abs difference, share within 2e-5 and, for q8, the max difference in
     units of its row's lattice step s and the count of coordinates beyond
-    s + 2e-5."""
+    s + 2e-5. A node's row takes the step of the payload it decoded, its
+    partner perm[i]'s: a flipped code of the sender moves the receiver's
+    average by s/2."""
+    import torch
     from repro_torch.core import bucket as B
     bufs = [B.pack(B.build_layout(p), p).cpu() for p in (card_params,
                                                           cpu_params)]
@@ -335,7 +362,9 @@ def _readings(card_params, cpu_params, scales):
     r = {"max_abs": float(d.max()),
          "share_within_2e-5": float((d <= 2e-5).double().mean())}
     if scales is not None:
-        d, s = d.reshape(-1, 256), scales[:, None]
+        n = len(perm)
+        d = d.reshape(n, -1, 256)
+        s = scales.reshape(n, -1, 1)[torch.as_tensor(perm, dtype=torch.long)]
         r["max_in_steps"] = float((d / s).max())
         r["beyond_one_step"] = int((d > s + 2e-5).sum())
     return r
@@ -349,21 +378,37 @@ def _within_bound(r) -> bool:
     return r["max_abs"] <= 2e-5
 
 
+REFERENCE_MODES = (("exact", False, "blocking", "fixed"),
+                   ("q8", True, "blocking", "fixed"),
+                   ("nonblocking_q8", True, "nonblocking", "fixed"),
+                   ("overlap_q8", True, "overlap", "fixed"),
+                   ("overlap_q8_geometric", True, "overlap", "geometric"))
+
+
 def phase_reference():
     """The engine on the card (kernels) against the engine on the CPU
-    (plain versions), at a small size. The CPU runs three supersteps from
-    one model; each card superstep restarts from the CPU's state before it
-    (parameters, momentum, comm copy), with the same batches, matching and
-    uniforms, and is held to the bound of `_within_bound`: the card's
-    matmuls sum in another order than the CPU's, and a q8 code flips where
-    x/s + u lies within an ulp of an integer (moving its coordinate by
-    about s/2). Planted faults of the exchange must fail the same bound."""
+    (plain versions), at a small size, for the blocking exact and q8
+    supersteps and the non-blocking and overlapped q8 ones, the latter
+    also with heterogeneous local steps (geometric h_i, batch depth
+    h_max 4, so nodes below max_i h_i take masked steps). The CPU runs
+    three supersteps from one model (the overlapped run from its primed
+    pipeline); each card superstep restarts from the CPU's state before it
+    (parameters, momentum, comm copy, in-flight payload), with the same
+    batches, matching and uniforms, and is held to the bound of
+    `_within_bound`: the card's matmuls sum in another order than the
+    CPU's, and a q8 code flips where x/s + u lies within an ulp of an
+    integer (moving its coordinate by about s/2). The overlapped step
+    decodes the payload of the state it restarts from, so its rows' steps
+    are that payload's scales. Planted faults of the exchange must fail the
+    same bound; the non-blocking modes plant them in superstep 1, since in
+    superstep 0 every node still averages the one initial model."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import bucket as B
     from repro_torch.core.graph import complete, sample_matching
-    from repro_torch.core.swarm import SwarmState
+    from repro_torch.core.swarm import SwarmConfig, SwarmState
+    from repro_torch.core.swarm import pipeline_prologue, sample_h_counts
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.data import make_node_batches
     from repro_torch.models import init_params
@@ -378,48 +423,71 @@ def phase_reference():
     perms = np.stack([sample_matching(complete(n), rng)
                       for _ in range(steps)])
     ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, 32, seed=0), n)
-    nbs = [make_node_batches(ds, t, 2 * 2) for t in range(steps)]
-    batches = {k: np.stack([nb[k].reshape(n, 2, 2, 32) for nb in nbs])
-               for k in nbs[0]}
-    us = rng.random((steps, n, B.build_layout(params).n_padded),
+    batches = {}
+    for depth in (2, 4):       # H, and h_max of the geometric mode
+        nbs = [make_node_batches(ds, t, 2 * depth) for t in range(steps)]
+        batches[depth] = {k: np.stack([nb[k].reshape(n, depth, 2, 32)
+                                       for nb in nbs]) for k in nbs[0]}
+    us = rng.random((steps + 1, n, B.build_layout(params).n_padded),
                     dtype=np.float32)
-    inputs = (perms, batches, us)
+    geo = SwarmConfig(n_nodes=n, H=2, h_mode="geometric", h_max=4)
+    hs = {"fixed": np.full((steps, n), 2, np.int32),
+          "geometric": np.stack([sample_h_counts(geo, rng)
+                                 for _ in range(steps)])}
+    check(any(len(set(h.tolist())) > 1 for h in hs["geometric"]),
+          f"geometric h counts are not heterogeneous: {hs['geometric']}")
+    inputs = (perms, batches, us, hs)
     out = {}
-    for quantize in (False, True):
-        run, _, opt = _reduced_engine("cpu", quantize)
-        states = [SwarmState(params, opt.init(params),
-                             tree_map(torch.clone, params) if quantize
-                             else None, 0)]
+    for name, quantize, mode, h_mode in REFERENCE_MODES:
+        run, _, opt, scfg = _reduced_engine("cpu", quantize, mode=mode,
+                                            h_mode=h_mode)
+        state = SwarmState(params, opt.init(params),
+                           tree_map(torch.clone, params)
+                           if quantize and mode != "overlap" else None, 0)
+        if mode == "overlap":
+            # the prologue's uniforms are the last row of `us`
+            state = pipeline_prologue(scfg, state, None,
+                                      u=torch.from_numpy(us[steps]))
+        states = [state]
         loss_cpu, loss_card, readings = [], [], []
         for t in range(steps):
             state, m = run(states[t], t, inputs)
             states.append(state)
             loss_cpu.append(float(m["loss"]))
+
+        def scales(codec, t):
+            if not quantize:
+                return None
+            if mode == "overlap":
+                return states[t].inflight["wire"][1].reshape(-1)
+            return codec.scales[-1]
         for t in range(steps):
-            run, codec, _ = _reduced_engine("cuda", quantize)
+            run, codec, _, _ = _reduced_engine("cuda", quantize, mode=mode,
+                                               h_mode=h_mode)
             state, m = run(states[t], t, inputs)
             loss_card.append(float(m["loss"]))
             readings.append(_readings(state.params, states[t + 1].params,
-                                      codec.scales[-1] if quantize else None))
+                                      scales(codec, t), perms[t]))
         rec = dict(loss_card=loss_card, loss_cpu=loss_cpu, readings=readings,
-                   planted={})
+                   hs=hs[h_mode].tolist(), planted={})
+        t_fault = 0 if mode == "blocking" else 1
         for fault in (("one_step_off", "average_dropped") if quantize
                       else ("average_dropped",)):
-            run, codec, _ = _reduced_engine("cuda", quantize, fault)
-            state, _ = run(states[0], 0, inputs)
+            run, codec, _, _ = _reduced_engine("cuda", quantize, fault, mode,
+                                               h_mode)
+            state, _ = run(states[t_fault], t_fault, inputs)
             rec["planted"][fault] = _readings(
-                state.params, states[1].params,
-                codec.scales[-1] if quantize else None)
-        mode = "q8" if quantize else "exact"
-        out[mode] = rec
+                state.params, states[t_fault + 1].params,
+                scales(codec, t_fault), perms[t_fault])
+        out[name] = rec
         check(all(math.isfinite(x) for x in loss_card),
-              f"{mode}: non-finite loss on card")
+              f"{name}: non-finite loss on card")
         check(np.allclose(loss_card, loss_cpu, rtol=1e-4, atol=0),
-              f"{mode}: card loss {loss_card} != CPU loss {loss_cpu}")
+              f"{name}: card loss {loss_card} != CPU loss {loss_cpu}")
         check(all(_within_bound(r) for r in readings),
-              f"{mode}: card vs CPU beyond the bound: {readings}")
+              f"{name}: card vs CPU beyond the bound: {readings}")
         check(not any(_within_bound(r) for r in rec["planted"].values()),
-              f"{mode}: a planted fault passes the bound: {rec['planted']}")
+              f"{name}: a planted fault passes the bound: {rec['planted']}")
     log("reference", **out)
 
 
@@ -467,11 +535,191 @@ def phase_exact():
     log("exact_superstep", record=hist[-1], launches=counts)
 
 
+def _fresh_memory():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_overlap_exact():
+    """The overlapped exact run against the non-blocking exact run, bitwise
+    on the card, superstep by superstep: 3 supersteps of 8 nodes of
+    transformer-wmt cut to 2 layers, at its full width (d_model 1024,
+    vocab 32768; 58.7 M parameters a node) in fp32, so the side stream
+    carries the same rows a full-width run puts in flight. The pipeline
+    only reschedules the exchange, so any difference is a race of its
+    side stream. Both runs use PyTorch's deterministic algorithms
+    (the cuBLAS workspace is pinned in `main`), so that the two runs'
+    local steps themselves reproduce."""
+    import dataclasses
+    import warnings
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    argv = ["--arch", "transformer-wmt", "--nodes", "8", "--H", "2",
+            "--steps", "3"]
+    cfg = dataclasses.replace(get_config("transformer-wmt"), n_layers=2,
+                              dtype="float32", opt_state_dtype="float32")
+    _fresh_memory()
+    runs, counts = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for mode in ("--nonblocking", "--overlap"):
+                reset_launch_counts()
+                tr = train.build(train.build_parser().parse_args(
+                    argv + [mode]), cfg)
+                runs[mode] = []
+                per_node = sum(x[0].numel()
+                               for x in tree_leaves(tr.state.params))
+                for t in range(3):
+                    m = tr.superstep(t)
+                    runs[mode].append((tree_leaves(tr.state.params),
+                                       float(m["loss"])))
+                counts[mode] = dict(LAUNCHES)
+                del tr
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal, max_abs = [], []
+    for (a, la), (b, lb) in zip(runs["--nonblocking"], runs["--overlap"]):
+        equal.append(all(same_bits(x, y) for x, y in zip(a, b))
+                     and la == lb)
+        max_abs.append(max(float((x.float() - y.float()).abs().max())
+                           for x, y in zip(a, b)))
+    nondet = sorted({str(w.message)[:160] for w in caught})
+    log("overlap_exact", n_layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, dtype=cfg.dtype, params_per_node=per_node,
+        bitwise_equal=equal, max_abs_diff=max_abs,
+        losses=[l for _, l in runs["--overlap"]], launches=counts,
+        nondeterministic_op_warnings=nondet)
+    del runs
+    check(all(equal), f"overlap exact != non-blocking exact on the card: "
+          f"per superstep {equal}, max abs {max_abs}")
+    check(all(c["sgd_update"] == 6 and c["quantize_mod"] == 0
+              for c in counts.values()), f"launch counts {counts}")
+
+
+FULL_WIDTH_ARGV = ["--arch", "transformer-wmt", "--nodes", "8", "--H", "2",
+                   "--h-mode", "geometric", "--h-max", "8", "--quantize",
+                   "--nonblocking", "--overlap", "--non-iid", "0.5",
+                   "--eval-mean", "--steps", "4", "--log-every", "1"]
+
+
+def phase_full_width():
+    """This slice's main path: the overlapped q8 run with geometric local
+    steps, non-iid data, --eval-mean and checkpoints, 4 supersteps at full
+    transformer-wmt width and depth (bf16, 8 nodes), every launch counter
+    at 0 just before."""
+    import numpy as np
+    import shutil
+    import torch
+    from repro_torch.checkpoint import load_metadata
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = os.path.join(OUT_DIR, "chip_smoke_train_overlap_q8.json")
+    disk_free = shutil.disk_usage(ROOT).free
+    _fresh_memory()
+    reset_launch_counts()
+    t0 = time.time()
+    hist = train.main(FULL_WIDTH_ARGV + ["--ckpt", ckpt, "--ckpt-every", "4",
+                                         "--out", out])
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with open(out) as f:
+        hs = np.asarray(json.load(f)["hs"])
+    want = {"sgd_update": int(hs.max(axis=1).sum()), "quantize_mod": 5,
+            "decode_avg": 4}
+    keys = ("loss", "gamma", "loss_mean_model", "loss_node_mean",
+            "loss_node_worst")
+    check(len(hist) == 4 and all(math.isfinite(h[k]) for h in hist
+                                 for k in keys),
+          f"full width: non-finite or missing records {hist}")
+    check(counts == want, f"full width launch counts {counts} != {want} "
+          f"(hs {hs.tolist()})")
+    files = sorted(os.listdir(ckpt))
+    meta = load_metadata(os.path.join(ckpt, "step_000004"))
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+    shutil.rmtree(ckpt)
+    check(files == ["step_000004.json", "step_000004.npz"]
+          and meta["step"] == 4 and meta["codec"]["state"] == ["params",
+                                                               "prev"],
+          f"full width checkpoint {files} {meta}")
+    walls = [h["wall_s"] for h in hist]
+    steady = [b - a for a, b in zip(walls, walls[1:])]
+    log("full_width", argv=FULL_WIDTH_ARGV, records=hist, hs=hs.tolist(),
+        launches=counts, first_superstep_s=walls[0], superstep_s=steady,
+        superstep_median_s=statistics.median(steady),
+        superstep_note="wall deltas include each step's --eval-mean",
+        max_memory_allocated_bytes=peak, run_s=run_s,
+        checkpoint_files=files, checkpoint_bytes=ckpt_bytes,
+        disk_free_bytes=disk_free)
+    return counts
+
+
+def phase_checkpoint():
+    """A reduced-size checkpoint written on the card (an overlapped q8 run,
+    drained on a copy) and reloaded onto the card bitwise; a bf16 copy of
+    it too, which the file stores widened."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.swarm import (
+        codec_checkpoint_tree, pipeline_epilogue, pipeline_prologue,
+        restore_codec_state,
+    )
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves, tree_map
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt_small")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _fresh_memory()
+    tr = train.build(train.build_parser().parse_args(
+        ["--reduced", "--layers", "2", "--d-model", "256", "--nodes", "4",
+         "--steps", "2", "--quantize", "--overlap", "--h-mode", "geometric",
+         "--h-max", "4", "--batch", "2", "--seq", "64"]))
+    for t in range(2):
+        tr.superstep(t)
+    path = os.path.join(ckpt, "step_000002")
+    tr.write_ckpt(path, 2)
+    like = codec_checkpoint_tree(pipeline_epilogue(tr.scfg, tr.state))
+    back = load_checkpoint(path, like)
+    same = all(same_bits(a, b) and a.device == b.device
+               for a, b in zip(tree_leaves(back), tree_leaves(like)))
+    resumed = pipeline_prologue(
+        tr.scfg, restore_codec_state(pipeline_epilogue(tr.scfg, tr.state),
+                                     back), tr.enc_gen)
+    prev_same = same_bits(resumed.inflight["prev"], tr.state.inflight["prev"])
+    half = {"params": tree_map(lambda x: x.to(torch.bfloat16),
+                               like["params"])}
+    save_checkpoint(path + "_bf16", half)
+    back16 = load_checkpoint(path + "_bf16", half)
+    same16 = all(same_bits(a, b) for a, b in zip(tree_leaves(back16),
+                                                 tree_leaves(half)))
+    shutil.rmtree(ckpt)
+    log("checkpoint", reload_bitwise=same, prologue_prev_bitwise=prev_same,
+        bf16_reload_bitwise=same16,
+        n_leaves=len(tree_leaves(like)))
+    check(same and prev_same and same16, "checkpoint reload on the card is "
+          f"not bitwise: {same} {prev_same} {same16}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # one fixed cuBLAS workspace, set before the first cuBLAS call, so the
+    # deterministic algorithms of phase_overlap_exact reproduce
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -491,10 +739,15 @@ def main() -> int:
 
     records = phase_kernels()
     phase_reference()
-    counts = phase_main_path()
+    blocking = phase_main_path()
     phase_exact()
+    phase_overlap_exact()
+    counts = phase_full_width()
+    phase_checkpoint()
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": TPU_KERNELS[n], "launches": counts[n],
+                "launches_by_path": {"overlap_q8_geometric": counts[n],
+                                     "blocking_q8": blocking[n]},
                 **{k: records[n][k] for k in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}} for n in TPU_KERNELS]

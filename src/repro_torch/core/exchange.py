@@ -3,11 +3,13 @@
 ``make_local_steps`` is every node's loop of h_i <= h_max local SGD steps;
 :class:`GossipTransport` owns the pairwise model exchange over the bucketed
 flat buffer (``core/bucket.py``): an fp32 gather, or the codec's encode /
-permute / fused decode-average through the kernels.
+permute / fused decode-average through the kernels, and the wire half of
+the overlapped pipeline (``permute_inflight``), which on the card runs on
+a side CUDA stream under the local-step loop.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -57,8 +59,18 @@ def make_local_steps(loss_fn, opt_update, h_max: int):
                 sel = lambda a, b: torch.where(_rows(active, b.ndim), b, a)  # noqa: E731
                 params = tree_map(sel, params, p2)
                 opt = tree_map(sel, opt, o2)
+            # a partial step's unselected update must not live on through
+            # the next step's optimizer sweep (a full model + momentum)
+            del p2, o2
         return params, opt, lsum / torch.clamp_min(hc, 1.0)
     return local_steps
+
+
+def land(ready) -> None:
+    """Order the current stream after an in-flight permute
+    (``GossipTransport.permute_inflight``'s `ready`; None on the CPU)."""
+    if ready is not None:
+        torch.cuda.current_stream().wait_event(ready)
 
 
 def masked_mean_loss(losses, mask):
@@ -81,6 +93,54 @@ class GossipTransport:
         self.n_nodes = n_nodes
         self.codec = codec if codec is not None \
             else LatticeCodec(quant or ModularQuantConfig())
+        self._side_streams = {}     # CUDA device -> permute_inflight stream
+
+    def check_overlap(self, quantize: bool):
+        """The pipelined superstep encodes before it learns the next
+        matching, so a codec whose residual updates against the matched
+        mask at encode time cannot ride it."""
+        if quantize and self.codec.carries_residual:
+            raise ValueError(
+                f"codec {self.codec.name}: the error-feedback residual "
+                "updates at encode time against the matched mask, which the "
+                "pipelined superstep only learns one interaction later")
+
+    def resolve_perm(self, perm) -> Tuple[torch.Tensor, None]:
+        """The node -> partner permutation of the engine input `perm`, and
+        the pool index (None: the gather transport takes the perm itself)."""
+        return perm, None
+
+    def permute_inflight(self, payload: Sequence[torch.Tensor], perm):
+        """The wire half of the overlapped pipeline: ONE ``permute_rows``
+        per already-encoded payload tensor -> (received tuple, ready). On
+        the card the gathers run on a side stream, so they overlap the
+        local steps the caller launches next on the current stream; the
+        caller makes the current stream wait on `ready` (:func:`land`)
+        before it reads the received tensors. On the CPU, ready is None."""
+        node_perm, _ = self.resolve_perm(perm)
+        if node_perm.device.type != "cuda":
+            return tuple(B.permute_rows(x, node_perm, self.n_nodes)
+                         for x in payload), None
+        dev = node_perm.device
+        current = torch.cuda.current_stream(dev)
+        side = self._side_streams.get(dev)
+        if side is None:
+            side = self._side_streams[dev] = torch.cuda.Stream(device=dev)
+        # the wire (and the perm) were produced on the current stream
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            recv = tuple(B.permute_rows(x, node_perm, self.n_nodes)
+                         for x in payload)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        # the allocator may hand the inputs' memory on only after the side
+        # stream's reads, and the outputs' only after the current stream's
+        for x in payload:
+            x.record_stream(side)
+        node_perm.record_stream(side)
+        for y in recv:
+            y.record_stream(current)
+        return recv, ready
 
     def mix_pair(self, tree, perm, matched, *, quantize: bool = False,
                  prev=None, rng=None, u=None):

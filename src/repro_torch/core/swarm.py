@@ -1,17 +1,28 @@
-"""SwarmSGD training engine: the blocking superstep (Algorithm 1), the
-slice of ``repro/core/swarm.py`` the port runs.
+"""SwarmSGD training engine (counterpart of ``repro/core/swarm.py``): the
+blocking superstep (Algorithm 1), the non-blocking one (Algorithm 2) and
+the overlapped pipeline of the non-blocking one.
 
 Node state is node-stacked (every parameter and optimizer leaf has a
 leading [n_nodes] dim). A superstep is
 
-  1. every node's h_i <= H local momentum-SGD steps (gradients per node,
-     one fused ``sgd_update`` sweep over all nodes per step);
+  1. every node's h_i <= h_max local momentum-SGD steps (gradients per
+     node, one fused ``sgd_update`` sweep over all nodes per step); h_i is
+     H (``h_mode="fixed"``) or a clipped geometric draw of mean H;
   2. one uniformly sampled matching of the interaction graph: matched
-     pairs average their post-local-step models over the flat-buffer
-     transport — fp32 exact, or with ``quantize`` the lattice codec
-     (``quantize_mod`` encode, permute, fused ``decode_avg``);
+     pairs average over the flat-buffer transport — fp32 exact, or with
+     ``quantize`` the lattice codec (``quantize_mod`` encode, permute,
+     fused ``decode_avg``). Blocking averages the post-local-step models;
+     non-blocking averages the superstep-start models S and adds each
+     node's own local delta: X_i <- (S_i + S_j) / 2 + (X_i - S_i);
   3. matched nodes refresh their comm copy ``prev`` (the quantized
-     encode's distance proxy) to the post-interaction model.
+     encode's distance proxy): blocking to the post-interaction model,
+     non-blocking to S, the value it sent.
+
+With ``overlap`` the non-blocking superstep is software-pipelined: the
+payload of interaction t is encoded at the end of superstep t-1 and rides
+in ``SwarmState.inflight``; its permute is dispatched before the local
+steps (on a side CUDA stream on the card) and lands against the stale
+packed S. ``pipeline_prologue`` primes it, ``pipeline_epilogue`` drains it.
 """
 from __future__ import annotations
 
@@ -22,20 +33,42 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch.core import bucket as B
 from repro_torch.core.exchange import (
-    GossipTransport, _rows, make_local_steps, masked_mean_loss,
+    GossipTransport, _rows, land, make_local_steps, masked_mean_loss,
 )
 from repro_torch.core.potential import gamma_potential
+from repro_torch.quant.codecs import LatticeCodec
 from repro_torch.quant.schemes import ModularQuantConfig
 from repro_torch.tree import tree_leaves, tree_map
+
+H_MODES = ("fixed", "geometric")
 
 
 @dataclass(frozen=True)
 class SwarmConfig:
     n_nodes: int
-    H: int = 2                   # local steps per interaction (fixed H)
+    H: int = 2                   # (mean) local steps per interaction
+    h_mode: str = "fixed"        # fixed | geometric (h_i ~ Geom(1/H))
+    h_max: int = 8               # loop bound (and clip) of the geometric mode
+    nonblocking: bool = False    # Algorithm 2 semantics
+    overlap: bool = False        # pipelined non-blocking superstep
     quantize: bool = False       # Extension 3: lattice gossip at quant.bits
     quant: ModularQuantConfig = ModularQuantConfig()
+
+    def __post_init__(self):
+        if self.h_mode not in H_MODES:
+            raise ValueError(f"h_mode={self.h_mode!r}: the port samples "
+                             f"{H_MODES}")
+        if self.overlap and not self.nonblocking:
+            raise ValueError("overlap=True pipelines Algorithm 2: set "
+                             "nonblocking=True")
+
+    @property
+    def h_loop_bound(self) -> int:
+        """Bound of the local-step loop and depth of a superstep's batch:
+        H for fixed h, h_max for the geometric mode."""
+        return self.H if self.h_mode == "fixed" else self.h_max
 
 
 @dataclass
@@ -44,64 +77,250 @@ class SwarmState:
     opt: Any                     # node-stacked optimizer state
     prev: Any                    # comm copy: params at last interaction
     step: int
+    # overlap only: {"sbuf": packed params at the last superstep boundary,
+    # and when quantized "prev": the packed comm copy, "wire": the encoded
+    # payload in flight}
+    inflight: Any = None
 
 
 def swarm_init(gen: torch.Generator, cfg: SwarmConfig,
                param_init: Callable, opt_init: Callable) -> SwarmState:
-    """Every node starts from the same model, drawn once from `gen`."""
+    """Every node starts from the same model, drawn once from `gen`. In
+    overlap mode the pipeline is primed here (its encode draws from
+    `gen`)."""
     one = param_init(gen)
     params = tree_map(lambda x: x.unsqueeze(0).repeat(
         (cfg.n_nodes,) + (1,) * x.ndim), one)
     del one
     opt = opt_init(params)
-    prev = tree_map(torch.clone, params) if cfg.quantize else None
+    if cfg.overlap:
+        # pipelined mode: the comm copy lives packed in `inflight`
+        return pipeline_prologue(cfg, SwarmState(params, opt, None, 0), gen)
+    prev = tree_map(torch.clone, params) \
+        if cfg.quantize or cfg.nonblocking else None
     return SwarmState(params, opt, prev, 0)
+
+
+def pipeline_prologue(cfg: SwarmConfig, state: SwarmState, rng, *,
+                      u: Optional[torch.Tensor] = None) -> SwarmState:
+    """Prime the pipeline: pack (and, quantized, encode against the comm
+    copy with the lattice codec of `cfg.quant`, with uniforms `u` or drawn
+    from `rng`) the first in-flight payload. `swarm_init` calls it in
+    overlap mode; it is also the re-entry point after
+    `pipeline_epilogue`."""
+    if not cfg.nonblocking:
+        raise ValueError("overlap pipelining implements Algorithm 2: set "
+                         "nonblocking=True")
+    codec = LatticeCodec(cfg.quant)
+    layout = B.build_layout(state.params, block=codec.block)
+    buf = B.pack(layout, state.params)
+    if cfg.quantize:
+        # the first comm copy is a distinct buffer even when it equals the
+        # model: the superstep replaces sbuf and prev independently
+        prev_buf = B.pack(layout, state.prev) if state.prev is not None \
+            else buf.clone()
+        wire = codec.encode(buf, prev_buf, rng, u=u)
+        infl = {"sbuf": buf, "prev": prev_buf, "wire": wire}
+    else:
+        infl = {"sbuf": buf}
+    return SwarmState(state.params, state.opt, None, state.step, infl)
+
+
+def pipeline_epilogue(cfg: SwarmConfig, state: SwarmState) -> SwarmState:
+    """Drain the pipeline: drop the in-flight payload (the model is already
+    final) and unpack the packed comm copy back into `prev`, so a later
+    `pipeline_prologue` re-primes with a live distance proxy. Returns a
+    new state; `state` itself is left as it was."""
+    prev = state.prev
+    if state.inflight is not None and "prev" in state.inflight:
+        layout = B.build_layout(state.params, block=cfg.quant.block)
+        prev = B.unpack(layout, state.inflight["prev"])
+    return SwarmState(state.params, state.opt, prev, state.step, None)
+
+
+def codec_checkpoint_tree(state: SwarmState) -> dict:
+    """What a quantized run persists to resume its codec state: params and
+    the comm copy (drain an overlapped state with `pipeline_epilogue`
+    first). Feed to ``checkpoint.save_checkpoint``."""
+    tree = {"params": state.params}
+    if state.prev is not None:
+        tree["prev"] = state.prev
+    return tree
+
+
+def restore_codec_state(state: SwarmState, tree: dict) -> SwarmState:
+    """Inverse of `codec_checkpoint_tree`: overlay the persisted codec
+    state onto a freshly initialized SwarmState (same config)."""
+    return SwarmState(tree["params"], state.opt,
+                      tree.get("prev", state.prev), state.step,
+                      state.inflight)
 
 
 def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                     lr_fn: Callable,
                     transport: Optional[GossipTransport] = None):
     """Returns superstep(state, batch, perm, h_counts, rng, *, u=None) ->
-    (state, metrics). batch leaves are [n_nodes, H, local_batch, ...]
-    tensors on the device; perm is an involution [n_nodes]; h_counts the
-    per-node local-step counts; rng the torch.Generator of the encode's
-    uniforms, or `u` the uniforms themselves ([n_nodes, n_padded])."""
+    (state, metrics). batch leaves are [n_nodes, h_loop_bound,
+    local_batch, ...] tensors on the device; perm is an involution
+    [n_nodes]; h_counts the per-node local-step counts; rng the
+    torch.Generator of the encode's uniforms, or `u` the uniforms
+    themselves ([n_nodes, n_padded]). With cfg.overlap the step is the
+    pipelined steady state and needs a primed state."""
     tr = transport or GossipTransport(cfg.n_nodes, quant=cfg.quant)
-    local_steps = make_local_steps(loss_fn, opt_update, cfg.H)
+    if cfg.overlap:
+        tr.check_overlap(cfg.quantize)
+    local_steps = make_local_steps(loss_fn, opt_update, cfg.h_loop_bound)
 
-    def superstep(state: SwarmState, batch, perm, h_counts, rng, *, u=None):
+    def start(state):
         device = tree_leaves(state.params)[0].device
         lr = torch.tensor(lr_fn(state.step), dtype=torch.float32,
                           device=device)
-        params, opt, losses = local_steps(state.params, state.opt, batch,
-                                          h_counts, lr)
+        return device, lr
+
+    def matching(perm, device):
         perm_t = torch.as_tensor(np.asarray(perm), dtype=torch.int64,
                                  device=device)
-        matched = perm_t != torch.arange(cfg.n_nodes, device=device)
-        with record_function("swarm.gossip"):
-            params = tr.mix_pair(params, perm_t, matched,
-                                 quantize=cfg.quantize, prev=state.prev,
-                                 rng=rng, u=u)
-        new_prev = None
-        if state.prev is not None:
-            # refresh the comm copy on interaction, to the post-interaction
-            # model: the next encode input is H local steps away from it,
-            # so the distance proxy |x - prev| stays live
-            with record_function("swarm.prev"):
-                new_prev = tree_map(
-                    lambda pv, p: torch.where(_rows(matched, p.ndim), p, pv),
-                    state.prev, params)
+        node_perm, _ = tr.resolve_perm(perm_t)
+        return perm_t, node_perm != torch.arange(cfg.n_nodes, device=device)
+
+    def finish(state, params, opt, prev, inflight, losses, matched, lr):
         metrics = {"loss": masked_mean_loss(losses, None), "lr": lr,
                    "matched_frac": torch.mean(matched.to(torch.float32))}
         with record_function("swarm.gamma"):
             metrics["gamma"] = gamma_potential(params)
-        return SwarmState(params, opt, new_prev, state.step + 1), metrics
+        return SwarmState(params, opt, prev, state.step + 1,
+                          inflight), metrics
 
-    return superstep
+    def superstep(state: SwarmState, batch, perm, h_counts, rng, *, u=None):
+        device, lr = start(state)
+        S = state.params                      # superstep-start models
+        params, opt, losses = local_steps(S, state.opt, batch, h_counts, lr)
+        perm_t, matched = matching(perm, device)
+        with record_function("swarm.gossip"):
+            if cfg.nonblocking:
+                # Algorithm 2: X_i <- (S_i + X_j')/2 + (X_i - S_i), the
+                # partner's contribution its superstep-start model. The
+                # averaged base is in the leaf dtype before the fp32 delta
+                # is added, as the reference's tree-level combine does
+                base = tr.mix_pair(S, perm_t, matched, quantize=cfg.quantize,
+                                   prev=state.prev, rng=rng, u=u)
+                params = tree_map(
+                    lambda b, p, s: torch.where(
+                        _rows(matched, p.ndim),
+                        (b.to(torch.float32) + (p.to(torch.float32) -
+                                                s.to(torch.float32))
+                         ).to(p.dtype), p),
+                    base, params, S)
+                del base
+            else:
+                # Algorithm 1: average the post-local-step models
+                params = tr.mix_pair(params, perm_t, matched,
+                                     quantize=cfg.quantize, prev=state.prev,
+                                     rng=rng, u=u)
+        new_prev = None
+        if state.prev is not None:
+            # refresh the comm copy on interaction. Blocking: to the
+            # post-interaction model (the next encode input is h local
+            # steps away from it, so the distance proxy |x - prev| stays
+            # live). Non-blocking: to S, the value exchanged — the next
+            # encode input IS the post-interaction model, so refreshing to
+            # it would collapse the proxy for matched nodes and wrap every
+            # decode
+            src = S if cfg.nonblocking else params
+            with record_function("swarm.prev"):
+                new_prev = tree_map(
+                    lambda pv, p: torch.where(_rows(matched, p.ndim), p, pv),
+                    state.prev, src)
+        return finish(state, params, opt, new_prev, None, losses, matched,
+                      lr)
+
+    def pipelined_superstep(state: SwarmState, batch, perm, h_counts, rng, *,
+                            u=None):
+        """The steady state of the overlapped pipeline: the in-flight
+        payload's permute is dispatched first (a side stream on the card),
+        the local steps run under it, the decode + average lands against
+        the stale packed S, and the next payload is encoded from the
+        post-interaction model on the way out."""
+        infl = state.inflight
+        if infl is None:
+            raise ValueError("the overlapped superstep needs a primed "
+                             "pipeline (pipeline_prologue)")
+        device, lr = start(state)
+        codec = tr.codec
+        layout = B.build_layout(state.params, block=codec.block)
+        perm_t, matched = matching(perm, device)
+
+        # 1. the in-flight payload's permute, before any local compute
+        payload = infl["wire"] if cfg.quantize else (infl["sbuf"],)
+        with record_function("gossip.permute"):
+            recv, ready = tr.permute_inflight(payload, perm_t)
+
+        # 2. local steps, overlapping the permute
+        params, opt, losses = local_steps(state.params, state.opt, batch,
+                                          h_counts, lr)
+
+        # 3. land: decode + average against the STALE packed model S
+        sbuf = infl["sbuf"]
+        with record_function("swarm.gossip"):
+            land(ready)
+            if cfg.quantize:
+                m_rows = matched.repeat_interleave(layout.rows_per_node)
+                with record_function("gossip.decode"):
+                    base_buf = codec.decode_avg(recv, sbuf, m_rows)
+            else:
+                base_buf = (sbuf + recv[0]) * 0.5
+            del recv
+            # X_i <- (S_i + X_j')/2 + (X_i - S_i) in fp32 buffer space
+            # (d + base is base + d bitwise: addition commutes)
+            with record_function("gossip.pack"):
+                post_buf = B.pack(layout, params)
+            m_col = matched[:, None]
+            new_buf = torch.where(
+                m_col, (post_buf - sbuf).add_(base_buf), post_buf)
+            del post_buf, base_buf
+            with record_function("gossip.unpack"):
+                params = B.unpack(layout, new_buf)
+
+        # 4. refresh the packed comm copy to the value SENT (S, in sbuf)
+        # and encode the next payload
+        if cfg.quantize:
+            with record_function("swarm.prev"):
+                prev_buf = torch.where(m_col, sbuf, infl["prev"])
+            with record_function("gossip.encode"):
+                wire = codec.encode(new_buf, prev_buf, rng, u=u)
+            new_infl = {"sbuf": new_buf, "prev": prev_buf, "wire": wire}
+        else:
+            new_infl = {"sbuf": new_buf}
+        return finish(state, params, opt, None, new_infl, losses, matched,
+                      lr)
+
+    return pipelined_superstep if cfg.overlap else superstep
+
+
+def make_mean_model_eval(loss_fn: Callable):
+    """The swarm's true average model μ against the per-node models (the
+    paper's §5 check). μ comes from ``checkpoint.mean_model_tree``, the
+    one mean-model path. -> evaluate(params_stacked, batch_single) ->
+    {loss_mean_model, loss_node_mean, loss_node_worst} (0-d tensors)."""
+    from repro_torch.checkpoint import mean_model_tree
+    node_losses = torch.func.vmap(loss_fn, in_dims=(0, None))
+
+    @torch.no_grad()
+    def evaluate(params_stacked, batch_single):
+        mu = mean_model_tree(params_stacked)
+        loss_mu = loss_fn(mu, batch_single)
+        del mu
+        losses = node_losses(params_stacked, batch_single)
+        return {"loss_mean_model": loss_mu,
+                "loss_node_mean": torch.mean(losses),
+                "loss_node_worst": torch.max(losses)}
+    return evaluate
 
 
 def sample_h_counts(cfg: SwarmConfig, rng: np.random.Generator) -> np.ndarray:
     """Host-side per-node local-step counts for this superstep: fixed H
-    (draws nothing from `rng`, as the JAX driver's fixed mode)."""
-    del rng
-    return np.full((cfg.n_nodes,), cfg.H, np.int32)
+    (draws nothing from `rng`), or Geom(1/H) clipped to [1, h_max]."""
+    if cfg.h_mode == "fixed":
+        return np.full((cfg.n_nodes,), cfg.H, np.int32)
+    h = rng.geometric(1.0 / cfg.H, size=cfg.n_nodes)
+    return np.clip(h, 1, cfg.h_max).astype(np.int32)

@@ -1,11 +1,12 @@
 """Deterministic synthetic LM data (numpy copy of
 ``repro/data/synthetic.py``): tokens follow a hidden bigram Markov chain,
 fully determined by (seed, node, step), so both packages draw identical
-batches. The iid stream only (the JAX package's non-iid mixture is not
-ported)."""
+batches. ``non_iid_alpha`` skews each node's mixture over the hidden chains
+(a Dirichlet draw per node, the non-iid setting of Theorem 4.2)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -15,6 +16,8 @@ class DataConfig:
     vocab_size: int
     seq_len: int
     seed: int = 0
+    # non-iid: Dirichlet-mixture of k hidden chains per node (alpha<inf skews)
+    non_iid_alpha: Optional[float] = None
     n_chains: int = 8
     branch: int = 4   # out-degree of the bigram chain (lower = easier)
 
@@ -28,7 +31,13 @@ class SyntheticLMDataset:
         rng = np.random.default_rng(cfg.seed)
         v, b = cfg.vocab_size, cfg.branch
         self.succ = rng.integers(0, v, size=(cfg.n_chains, v, b), dtype=np.int64)
-        self.mix = np.full((n_nodes, cfg.n_chains), 1.0 / cfg.n_chains)
+        # the mixture is drawn AFTER the tables, from the same generator,
+        # as the JAX package does: either order change moves both
+        if cfg.non_iid_alpha is not None:
+            self.mix = rng.dirichlet([cfg.non_iid_alpha] * cfg.n_chains,
+                                     size=n_nodes)
+        else:
+            self.mix = np.full((n_nodes, cfg.n_chains), 1.0 / cfg.n_chains)
 
     def batch(self, node: int, step: int, batch_size: int) -> np.ndarray:
         """[batch, seq_len+1] tokens; inputs = [:, :-1], targets = [:, 1:]."""

@@ -1,7 +1,8 @@
 """Where one superstep's time goes, on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile --arch transformer-wmt \
-      --nodes 8 --H 2 --quantize --trace chiprun_out/superstep_trace.json
+      --nodes 8 --H 2 --quantize --overlap \
+      --trace superstep_trace.json
 
 Builds the training driver's run (same flags as ``repro_torch.launch.train``),
 runs ``--warmup`` supersteps, then one superstep under ``torch.profiler``
@@ -12,8 +13,15 @@ each engine span's device range (``swarm.grad``, ``swarm.sgd``,
 ``sgd.pack``, ``gossip.encode``, ... — the ``record_function`` ranges of
 ``core/swarm.py``, ``core/exchange.py``, ``core/bucket.py`` and
 ``optim/sgd.py``; the profiler gives a span the device work launched
-directly in it, not in a nested span) with its host time, and the kernels
-that took the most device time.
+directly in it, not in a nested span) with its host time and the CUDA
+streams its device work ran on, and the kernels that took the most device
+time. ``permute_overlap`` says how much of ``gossip.permute``'s device time
+(the overlapped pipeline's in-flight gather, on its side stream) ran at the
+same time as ``swarm.grad`` / ``swarm.sgd`` device work on another stream,
+and as any device work on another stream. A device event belongs to every
+span whose host range holds its launch (matched by correlation id, on the
+launching thread); the backward of the vmapped model launches from
+autograd's thread and so belongs to no span.
 """
 from __future__ import annotations
 
@@ -30,28 +38,87 @@ from repro_torch.launch.train import build, build_parser
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+def _union(intervals) -> list:
+    """Sorted disjoint union of [start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 def _union_ms(intervals) -> float:
     """Length of the union of [start, end) intervals (µs in, ms out)."""
-    total, end = 0.0, None
-    for a, b in sorted(intervals):
-        if end is None or a > end:
+    return sum(b - a for a, b in _union(intervals)) / 1e3
+
+
+def _overlap_ms(xs, ys) -> float:
+    """Length of union(xs) ∩ union(ys) (µs in, ms out)."""
+    xs, ys = _union(xs), _union(ys)
+    i = j = 0
+    total = 0.0
+    while i < len(xs) and j < len(ys):
+        a, b = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        if b > a:
             total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
     return total / 1e3
 
 
+def _device_events(events) -> list:
+    """(start, end, stream, names of the spans that launched it) for every
+    kernel / memcpy / memset."""
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    annos = [e for e in events if e.get("cat") == "user_annotation"]
+    out = []
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        args = e.get("args", {})
+        launch = launches.get(args.get("correlation"))
+        names = frozenset(
+            a["name"] for a in annos if launch is not None
+            and a.get("tid") == launch.get("tid")
+            and a["ts"] <= launch["ts"] <= a["ts"] + a["dur"])
+        out.append((e["ts"], e["ts"] + e["dur"],
+                    args.get("stream", e.get("tid")), names))
+    return out
+
+
+def permute_overlap(devs) -> dict:
+    """gossip.permute's device time, and how much of it overlapped
+    swarm.grad / swarm.sgd device work (and any device work) on another
+    stream."""
+    perm = [d for d in devs if "gossip.permute" in d[3]]
+    streams = {d[2] for d in perm}
+    other = [d for d in devs if d[2] not in streams]
+    local = [(a, b) for a, b, _, n in other
+             if n & {"swarm.grad", "swarm.sgd"}]
+    pi = [(a, b) for a, b, _, _ in perm]
+    return {"device_ms": _union_ms(pi), "streams": sorted(streams),
+            "with_local_steps_ms": _overlap_ms(pi, local),
+            "with_any_other_stream_ms": _overlap_ms(
+                pi, [(a, b) for a, b, _, _ in other])}
+
+
 def summarize(trace: dict, wall_ms: float, top: int = 12) -> dict:
-    """Busy/idle and per-span device time from a chrome trace."""
+    """Busy/idle, per-span device time and streams, and the in-flight
+    permute's overlap, from a chrome trace."""
     events = [e for e in trace.get("traceEvents", [])
               if e.get("ph") == "X" and "dur" in e]
     dev = [(e["ts"], e["ts"] + e["dur"]) for e in events
            if e.get("cat") in DEVICE_CATS]
     busy = _union_ms(dev)
+    devs = _device_events(events)
     spans = defaultdict(lambda: {"count": 0, "host_ms": 0.0,
-                                 "device_busy_ms": 0.0})
+                                 "device_busy_ms": 0.0, "streams": []})
     for e in events:
         cat, name = e.get("cat"), e.get("name", "")
         if cat == "user_annotation":
@@ -61,6 +128,8 @@ def summarize(trace: dict, wall_ms: float, top: int = 12) -> dict:
             a, b = e["ts"], e["ts"] + e["dur"]
             spans[name]["device_busy_ms"] += _union_ms(
                 [(max(a, x), min(b, y)) for x, y in dev if x < b and y > a])
+    for name, sp in spans.items():
+        sp["streams"] = sorted({d[2] for d in devs if name in d[3]})
     kernels = defaultdict(lambda: [0, 0.0])
     for e in events:
         if e.get("cat") == "kernel":
@@ -73,6 +142,7 @@ def summarize(trace: dict, wall_ms: float, top: int = 12) -> dict:
         "idle_share": (1.0 - busy / wall_ms) if wall_ms else None,
         "n_kernels": sum(c for c, _ in kernels.values()),
         "spans": dict(sorted(spans.items())),
+        "permute_overlap": permute_overlap(devs),
         "top_kernels": [{"name": n[:120], "count": c, "ms": ms}
                         for n, (c, ms) in top_k],
     }
@@ -115,6 +185,7 @@ def main(argv=None) -> dict:
         summary.update(device_busy_ms=None, idle_share=None)
         for sp in summary["spans"].values():
             sp["device_busy_ms"] = None
+        summary["permute_overlap"] = None
     summary.update(step=args.warmup, loss=loss, device=str(tr.device),
                    device_name=(torch.cuda.get_device_name(0) if on_card
                                 else "cpu"))

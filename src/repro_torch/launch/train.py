@@ -1,12 +1,16 @@
-"""Training driver for the port: SwarmSGD (blocking, gather transport) on
-the synthetic LM stream, on the card by default.
+"""Training driver for the port: SwarmSGD (gather transport) on the
+synthetic LM stream, on the card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch transformer-wmt \
-      --nodes 8 --H 2 --steps 4 --quantize
+      --nodes 8 --H 2 --h-mode geometric --h-max 8 --quantize \
+      --nonblocking --overlap --non-iid 0.5 --eval-mean --steps 4 \
+      --ckpt ckpts --ckpt-every 2
 
 prints one JSON record per logged superstep with the JAX driver's keys
-(``step``, ``loss``, ``gamma``, ``wall_s``). ``--device cpu`` runs the plain
-kernel versions on the CPU; without it a machine with no GPU exits non-zero.
+(``step``, ``loss``, ``gamma``, ``wall_s``, and with ``--eval-mean`` the
+mean-model losses) and writes checkpoints in the JAX package's format.
+``--device cpu`` runs the plain kernel versions on the CPU; without it a
+machine with no GPU exits non-zero.
 """
 from __future__ import annotations
 
@@ -16,15 +20,17 @@ import os
 import sys
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.graph import complete, sample_matching
 from repro_torch.core.swarm import (
-    SwarmConfig, SwarmState, make_swarm_step, sample_h_counts, swarm_init,
+    SwarmConfig, SwarmState, codec_checkpoint_tree, make_mean_model_eval,
+    make_swarm_step, pipeline_epilogue, sample_h_counts, swarm_init,
 )
 from repro_torch.data import DataConfig, SyntheticLMDataset, make_node_batches
 from repro_torch.models import TransformerLM, init_params
@@ -39,7 +45,7 @@ def sample_gossip_perm(scfg: SwarmConfig, graph, rng_np) -> np.ndarray:
 def presample_inputs(scfg: SwarmConfig, graph, rng_np, n_steps: int):
     """The whole run's (perm, h) streams as [n_steps, n_nodes] int32,
     drawn from `rng_np` in the JAX driver's order (perm, then h, step by
-    step), so a seed gives the JAX driver's matchings."""
+    step), so a seed gives the JAX driver's matchings and counts."""
     perms = np.empty((n_steps, scfg.n_nodes), np.int32)
     hs = np.empty((n_steps, scfg.n_nodes), np.int32)
     for t in range(n_steps):
@@ -63,6 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--algo", default="swarm", choices=["swarm"])
     ap.add_argument("--nodes", type=int, default=8)
     ap.add_argument("--H", type=int, default=2)
+    ap.add_argument("--h-mode", default="fixed",
+                    choices=["fixed", "geometric"])
+    ap.add_argument("--h-max", type=int, default=8,
+                    help="local-step loop bound of the geometric mode")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=4,
                     help="per node per local step")
@@ -70,12 +80,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--quantize", action="store_true",
                     help="q8 lattice gossip (quantize_mod + decode_avg)")
+    ap.add_argument("--nonblocking", action="store_true",
+                    help="Algorithm 2: average the superstep-start models")
+    ap.add_argument("--overlap", action="store_true",
+                    help="pipelined non-blocking superstep: the in-flight "
+                         "payload's permute runs under the local steps "
+                         "(implies --nonblocking)")
+    ap.add_argument("--non-iid", type=float, default=None,
+                    help="Dirichlet alpha for per-node data skew")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale variant of the arch")
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--eval-mean", action="store_true",
+                    help="also evaluate the true average model μ (paper §5)")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint every N steps into --ckpt (a directory "
+                         "of step_NNNNNN checkpoints); 0 = one final "
+                         "checkpoint at --ckpt")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, help="json metrics path")
@@ -87,40 +112,85 @@ class Trainer:
     """Everything a run needs, built from the parsed flags."""
     args: argparse.Namespace
     device: torch.device
+    cfg: object               # model config
+    scfg: SwarmConfig
     step: Callable            # the superstep (core/swarm.py)
     state: SwarmState
     ds: SyntheticLMDataset
     perms: np.ndarray         # [steps, nodes] matchings
     hs: np.ndarray            # [steps, nodes] local-step counts
     enc_gen: torch.Generator  # uniforms of the q8 encode
-    h_max: int
+    evaluate: Optional[Callable] = None   # --eval-mean
 
-    def batch(self, t: int) -> dict:
+    @property
+    def h_max(self) -> int:
+        return self.scfg.h_loop_bound
+
+    def node_batches(self, t: int) -> dict:
+        """Superstep t's batch as numpy [nodes, h_max * batch, seq]."""
+        return make_node_batches(self.ds, t, self.args.batch * self.h_max)
+
+    def batch(self, t: int, nb: Optional[dict] = None) -> dict:
         """Superstep t's batch on the device: [nodes, h_max, batch, seq]."""
         a = self.args
-        nb = make_node_batches(self.ds, t, a.batch * self.h_max)
+        nb = self.node_batches(t) if nb is None else nb
         return {k: torch.from_numpy(v.reshape(a.nodes, self.h_max, a.batch,
                                               a.seq)).to(self.device)
                 for k, v in nb.items()}
 
-    def superstep(self, t: int) -> dict:
-        self.state, m = self.step(self.state, self.batch(t), self.perms[t],
-                                  self.hs[t], self.enc_gen)
+    def superstep(self, t: int, nb: Optional[dict] = None) -> dict:
+        self.state, m = self.step(self.state, self.batch(t, nb),
+                                  self.perms[t], self.hs[t], self.enc_gen)
         return m
 
+    def eval_mean(self, nb: dict) -> dict:
+        """The mean-model losses on node 0's batch of the step, as the JAX
+        driver evaluates them."""
+        seq = self.args.seq
+        eb = {k: torch.from_numpy(nb[k][0].reshape(-1, seq)).to(self.device)
+              for k in ("tokens", "targets")}
+        return {k: float(v) for k, v in
+                self.evaluate(self.state.params, eb).items()}
 
-def build(args) -> Trainer:
+    def write_ckpt(self, path: str, step_no: int) -> None:
+        """One checkpoint-writing path for final and periodic saves, with
+        the JAX driver's metadata. A quantized run saves its codec state
+        beside the params; an overlapped one drains it first through
+        `pipeline_epilogue` on a copy, the training state flowing on."""
+        a = self.args
+        meta = {"arch": self.cfg.name, "algo": a.algo, "steps": a.steps,
+                "nodes": a.nodes, "step": step_no}
+        ck_state = self.state
+        if a.quantize:
+            if self.scfg.overlap:
+                ck_state = pipeline_epilogue(self.scfg, ck_state)
+            tree = codec_checkpoint_tree(ck_state)
+            meta["codec"] = {"spec": "q8", "state": sorted(tree),
+                             "compress_state": False}
+            save_checkpoint(path, tree, meta)
+        else:
+            save_checkpoint(path, ck_state.params, meta)
+
+
+def build(args, cfg=None) -> Trainer:
+    """The trainer the flags describe; `cfg`, when given, is the model
+    config in place of the one --arch / --reduced name."""
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg, n_layers=args.layers, d_model=args.d_model)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg, n_layers=args.layers, d_model=args.d_model)
     ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
-                                       seq_len=args.seq, seed=args.seed),
+                                       seq_len=args.seq, seed=args.seed,
+                                       non_iid_alpha=args.non_iid),
                             n_nodes=args.nodes)
     graph = complete(args.nodes)
     opt = make_optimizer("sgd", lr=args.lr, momentum=0.9,
                          state_dtype=cfg.opt_state_dtype)
-    scfg = SwarmConfig(n_nodes=args.nodes, H=args.H, quantize=args.quantize)
+    scfg = SwarmConfig(n_nodes=args.nodes, H=args.H, h_mode=args.h_mode,
+                       h_max=args.h_max,
+                       nonblocking=args.nonblocking or args.overlap,
+                       overlap=args.overlap, quantize=args.quantize)
     model = TransformerLM(cfg)
     step = make_swarm_step(scfg, model.functional_loss, opt.update,
                            lambda s: args.lr)
@@ -132,26 +202,50 @@ def build(args) -> Trainer:
     enc_gen.manual_seed(args.seed + 1)
     perms, hs = presample_inputs(scfg, graph,
                                  np.random.default_rng(args.seed), args.steps)
-    return Trainer(args, device, step, state, ds, perms, hs, enc_gen, args.H)
+    evaluate = make_mean_model_eval(model.functional_loss) \
+        if args.eval_mean else None
+    return Trainer(args, device, cfg, scfg, step, state, ds, perms, hs,
+                   enc_gen, evaluate)
 
 
 def run(args) -> list:
     """Train as `args` says; -> the logged records."""
     tr = build(args)
     history = []
+
+    def periodic_ckpt(step_no):
+        os.makedirs(args.ckpt, exist_ok=True)
+        tr.write_ckpt(os.path.join(args.ckpt, f"step_{step_no:06d}"),
+                      step_no)
+
     t0 = time.time()
     for t in range(args.steps):
-        m = tr.superstep(t)
+        nb = tr.node_batches(t)
+        m = tr.superstep(t, nb)
         if t % args.log_every == 0 or t == args.steps - 1:
             rec = {"step": t, "loss": float(m["loss"]),
                    "gamma": float(m["gamma"]),
                    "wall_s": time.time() - t0}
+            if args.eval_mean:
+                rec.update(tr.eval_mean(nb))
             history.append(rec)
             print(json.dumps(rec), flush=True)
+        if args.ckpt and args.ckpt_every and (t + 1) % args.ckpt_every == 0:
+            periodic_ckpt(t + 1)
+    if args.ckpt:
+        if args.ckpt_every:
+            path = os.path.join(args.ckpt, f"step_{args.steps:06d}")
+            if args.steps % args.ckpt_every:      # else the loop wrote it
+                periodic_ckpt(args.steps)
+        else:
+            path = args.ckpt
+            tr.write_ckpt(path, args.steps)
+        print("checkpoint ->", path, flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"args": vars(args), "history": history}, f, indent=1)
+            json.dump({"args": vars(args), "history": history,
+                       "hs": tr.hs.tolist()}, f, indent=1)
     return history
 
 

@@ -10,26 +10,34 @@ parameter-free norms of ``nonparam_ln`` need).
 from __future__ import annotations
 
 
+# The recursions are module-level functions, not nested closures: a nested
+# recursive function reaches itself through its closure cell, a reference
+# cycle that would keep every leaf it collected alive until Python's cyclic
+# garbage collector happens to run (whole-model tensors, on the card).
+
+
+def _flatten(t, leaves: list):
+    if isinstance(t, dict):
+        return tuple((k, _flatten(t[k], leaves)) for k in sorted(t))
+    leaves.append(t)
+    return None
+
+
 def tree_flatten(tree):
     """-> (leaves in sorted-key order, treedef)."""
     leaves = []
+    return leaves, _flatten(tree, leaves)
 
-    def rec(t):
-        if isinstance(t, dict):
-            return tuple((k, rec(t[k])) for k in sorted(t))
-        leaves.append(t)
-        return None
-    return leaves, rec(tree)
+
+def _unflatten(s, it):
+    if s is None:
+        return next(it)
+    return {k: _unflatten(v, it) for k, v in s}
 
 
 def tree_unflatten(treedef, leaves):
     it = iter(leaves)
-
-    def rec(s):
-        if s is None:
-            return next(it)
-        return {k: rec(v) for k, v in s}
-    out = rec(treedef)
+    out = _unflatten(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree definition holds")
     return out
@@ -46,15 +54,21 @@ def tree_map(fn, tree, *rest):
                           [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def _paths(t, prefix: tuple, out: list):
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _paths(t[k], prefix + (k,), out)
+    else:
+        out.append(prefix)
+
+
+def tree_key_paths(tree) -> list:
+    """Each leaf's tuple of dict keys, in flatten order."""
+    out = []
+    _paths(tree, (), out)
+    return out
+
+
 def tree_paths(tree, sep: str = "."):
     """Leaf paths joined by `sep`, in flatten order ("blocks.layer_0.attn.wq")."""
-    paths = []
-
-    def rec(t, prefix):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                rec(t[k], prefix + (k,))
-        else:
-            paths.append(sep.join(prefix))
-    rec(tree, ())
-    return paths
+    return [sep.join(p) for p in tree_key_paths(tree)]

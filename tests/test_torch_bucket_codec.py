@@ -8,6 +8,9 @@
   default ``ref``) given the same buffer, comm copy, uniforms ``u``,
   matching and matched mask; so is ``gossip_flat_exact``.
 """
+import gc
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +24,9 @@ from repro.quant import codecs as JC
 from repro_torch.core import bucket as TB
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.quant import codecs as TC
-from repro_torch.tree import tree_flatten, tree_paths
+from repro_torch.tree import (
+    tree_flatten, tree_map, tree_paths, tree_unflatten,
+)
 
 N_NODES = 4
 ARCHS = ["transformer-wmt", "olmo-1b"]
@@ -197,3 +202,26 @@ def test_codec_decode_without_average_bitwise(spec):
     want = jc.decode(jw, jnp.asarray(prev))
     got = tc.decode(tw, torch.from_numpy(prev))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_tree_ops_keep_no_reference_to_their_leaves():
+    """tree_map / tree_flatten / tree_unflatten / tree_paths hold no
+    reference to a tree's tensors once they return, with the cyclic garbage
+    collector off: a nested recursive closure (a reference cycle through
+    its own cell) used to pin every flattened leaf until a collection ran,
+    whole-model tensors on the card."""
+    gc.disable()
+    try:
+        x = torch.zeros(4)
+        tree = {"a": {"b": x}, "c": torch.ones(2), "d": {}}
+        refs = [weakref.ref(x)]
+        y = tree_map(lambda v: v + 1, tree)
+        refs.append(weakref.ref(y["a"]["b"]))
+        leaves, treedef = tree_flatten(tree)
+        z = tree_unflatten(treedef, [v * 2 for v in leaves])
+        refs.append(weakref.ref(z["a"]["b"]))
+        assert tree_paths(tree) == ["a.b", "c"]
+        del x, tree, y, leaves, z
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
