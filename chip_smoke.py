@@ -41,9 +41,26 @@ Phases, each printed on its own line:
    losses, sgd_update = Σ_t max_i h_{t,i} / quantize_mod 5 / decode_avg 4
    launches and the checkpoint's files, and prints superstep times, peak
    memory and checkpoint bytes (the checkpoint is deleted after);
-9. a reduced checkpoint written on the card and reloaded bitwise.
+9. a reduced checkpoint written on the card and reloaded bitwise;
+10. the baselines' reference: all-reduce (full and masked), Local SGD
+    (H 2), D-PSGD on a ring (full and masked), AD-PSGD exact non-blocking
+    and q8 blocking and non-blocking (masked), SGP q8 — on the card
+    against the CPU, three steps each restarted from the CPU's state (SGP
+    also one step from a push-sum state whose w is not all 1), with
+    planted faults that must fail the same bound: the mean over all nodes
+    where the mask drops one, the unmasked W under a mask, SGP's w
+    unmixed;
+11. the baselines at full width: ``repro_torch.launch.train --algo
+    allreduce``, ``--algo localsgd --H 2``, ``--algo dpsgd --graph ring``,
+    ``--algo adpsgd --quantize --nonblocking`` and ``--algo sgp --quantize
+    --eval-mean``, 4 supersteps each of transformer-wmt x 8 nodes, launch
+    counters at 0 just before each; it asserts finite losses, launches
+    4/0/0, 8/0/0, 4/0/0, 4/4/4 and 4/4/4, all-reduce's nodes bitwise
+    equal and SGP's sum of w = 8, and prints each command's superstep
+    times and peak memory.
 
-The line before the last is the kernels' JSON record; the last line is
+The card's line is printed again before the kernels' JSON record, which
+is the line before the last; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 """
@@ -711,6 +728,297 @@ def phase_checkpoint():
     check(same and prev_same and same16, "checkpoint reload on the card is "
           f"not bitwise: {same} {prev_same} {same16}")
 
+# -- the baselines (PR 13): card vs CPU at a small size, then full width --
+
+# name, algo, quantize, nonblocking, graph, masked, planted faults; every
+# mode runs 3 steps but the push-sum one (below)
+BASELINE_MODES = (
+    ("allreduce", "allreduce", False, False, "complete", False, ()),
+    ("allreduce_masked", "allreduce", False, False, "complete", True,
+     ("mean_over_all",)),
+    ("localsgd", "localsgd", False, False, "complete", False, ()),
+    ("dpsgd_ring", "dpsgd", False, False, "ring", False, ()),
+    ("dpsgd_ring_masked", "dpsgd", False, False, "ring", True,
+     ("unmasked_W",)),
+    ("adpsgd_nonblocking", "adpsgd", False, True, "complete", False, ()),
+    ("adpsgd_q8", "adpsgd", True, False, "complete", False, ()),
+    ("adpsgd_q8_nonblocking_masked", "adpsgd", True, True, "complete", True,
+     ()),
+    ("sgp_q8", "sgp", True, False, "complete", False, ()),
+    ("sgp_q8_pushsum", "sgp", True, False, "complete", False,
+     ("w_unmixed",)),
+)
+# sgp_q8_pushsum starts from a push-sum state whose w is not all 1 (X =
+# w x0, the comm copy at w = 1), so w mixes and its planted fault shows.
+# One step only: once a node's comm copy refreshes, its next encode's
+# distance proxy is one gradient step while the nodes' X differ by
+# (w_i - w_j) x0, so the lattice decode wraps (in the reference too), and
+# card and CPU may then land an ulp apart on either side of a wrap
+SGP_W0 = (1.3, 0.7, 1.4, 0.6)
+
+
+def _baseline_engine(device, algo: str, quantize: bool, nonblocking: bool,
+                     graph: str, fault: str = ""):
+    """A step of `algo` on `_reduced_engine`'s model (4 nodes), its q8
+    codec (which remembers the scale of every encode) and a function that
+    runs step t from a state on any device. `fault` plants a known-wrong
+    exchange: "mean_over_all" (the global mean ignores the mask),
+    "unmasked_W" (D-PSGD mixes with W where the mask asks for W_eff) or
+    "w_unmixed" (SGP's push-sum weights do not land)."""
+    import numpy as np
+    import torch
+    from repro_torch.algorithms import make_algorithm
+    from repro_torch.algorithms.dpsgd import metropolis_weights
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.exchange import GossipTransport
+    from repro_torch.core.graph import make_graph
+    from repro_torch.core.swarm import SwarmState
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import make_optimizer
+    from repro_torch.quant.codecs import LatticeCodec
+    from repro_torch.quant.schemes import ModularQuantConfig
+    n = 4
+    g = make_graph(graph, n)
+    W_full = torch.from_numpy(metropolis_weights(g).astype(np.float32))
+
+    class Codec(LatticeCodec):
+        def __init__(self):
+            super().__init__(ModularQuantConfig())
+            self.scales = []
+
+        def encode(self, *a, **kw):
+            q, sc = super().encode(*a, **kw)
+            self.scales.append(sc.reshape(-1).cpu())
+            return q, sc
+
+    class Transport(GossipTransport):
+        def global_mean(self, tree, mask=None):
+            return super().global_mean(
+                tree, None if fault == "mean_over_all" else mask)
+
+        def matrix_mix(self, tree, W):
+            if fault == "unmasked_W":
+                W = W_full.to(W.device)
+            return super().matrix_mix(tree, W)
+
+        def mix_pair(self, tree, perm, matched, **kw):
+            out = super().mix_pair(tree, perm, matched, **kw)
+            if fault == "w_unmixed" and isinstance(tree, dict) \
+                    and "w" in tree:
+                out["w"] = tree["w"].clone()
+            return out
+
+    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
+    codec = Codec()
+    opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
+    kw = dict(loss_fn=TransformerLM(cfg).functional_loss,
+              opt_update=opt.update, lr_fn=lambda s: 0.05, n_nodes=n,
+              transport=Transport(n, codec=codec))
+    if algo == "localsgd":
+        kw["H"] = 2
+    if algo == "dpsgd":
+        kw["graph"] = g
+    if algo in ("adpsgd", "sgp"):
+        kw["quantize"] = quantize
+    if algo == "adpsgd":
+        kw["nonblocking"] = nonblocking
+    step = make_algorithm(algo, **kw)
+    depth = 2 if algo == "localsgd" else 1
+
+    def move(x):
+        if x is None or isinstance(x, torch.Tensor):
+            return None if x is None else x.to(device)
+        return {k: move(v) for k, v in x.items()}
+
+    def run(state, t, inputs):
+        perms, batches, us, masks = inputs
+        state = SwarmState(move(state.params), move(state.opt),
+                           move(state.prev), t)
+        batch = {k: torch.from_numpy(v[t]).to(device)
+                 for k, v in batches[depth].items()}
+        u = torch.from_numpy(us[t]).to(device) if us is not None else None
+        return step(state, batch, perms[t], np.full((n,), depth, np.int32),
+                    None, masks[t], u=u)
+
+    return run, codec, opt, cfg
+
+
+def phase_baselines_reference(card: str = "cuda"):
+    """The five baselines on the card (kernels) against the same on the
+    CPU (plain versions), at `_reduced_engine`'s size: three steps on the
+    CPU, each card step restarted from the CPU's state before it with the
+    same batches, matchings, masks and uniforms, held to the bound of
+    `_within_bound`. All-reduce full and masked, Local SGD (H 2), D-PSGD on
+    a ring full and masked, AD-PSGD exact non-blocking and q8 blocking and
+    non-blocking (masked), SGP q8 from the driver's start (w = 1) and, for
+    one step, from a push-sum state with w not all 1 (so w mixes). Three
+    planted faults must fail the same bound:
+    the mean over all nodes where the mask drops one, the unmasked W under
+    a mask, and SGP's w unmixed."""
+    import numpy as np
+    import torch
+    from repro_torch.algorithms.sgp import sgp_init_state
+    from repro_torch.core import bucket as B
+    from repro_torch.core.graph import make_graph, sample_matching
+    from repro_torch.core.swarm import SwarmState
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.data import make_node_batches
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+    n = 4
+    ds = None
+    out = {}
+    for name, algo, quantize, nonblocking, graph, masked, faults in \
+            BASELINE_MODES:
+        pushsum = name.endswith("pushsum")
+        steps = 1 if pushsum else 3
+        run, _, opt, cfg = _baseline_engine("cpu", algo, quantize,
+                                            nonblocking, graph)
+        if ds is None:
+            ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, 32, seed=0),
+                                    n)
+            batches = {}
+            for depth in (1, 2):
+                nbs = [make_node_batches(ds, t, 2 * depth)
+                       for t in range(3)]
+                batches[depth] = {k: np.stack([nb[k].reshape(n, depth, 2, 32)
+                                               for nb in nbs])
+                                  for k in nbs[0]}
+        g = torch.Generator()
+        g.manual_seed(0)
+        params = tree_map(lambda x: x[None].repeat((n,) + (1,) * x.ndim),
+                          init_params(g, cfg, "cpu"))
+        state = SwarmState(params, opt.init(params),
+                           tree_map(torch.clone, params)
+                           if quantize or nonblocking else None, 0)
+        if algo == "sgp":
+            state = sgp_init_state(state, n, quantize)
+        if pushsum:
+            w = torch.tensor(SGP_W0)
+            state = SwarmState(
+                {"model": tree_map(lambda x: x * w.reshape(
+                    (-1,) + (1,) * (x.ndim - 1)), state.params["model"]),
+                 "w": w}, state.opt, state.prev, 0)
+        rng = np.random.default_rng(1)
+        perms = np.stack([sample_matching(make_graph(graph, n), rng)
+                          for _ in range(steps)])
+        masks = [rng.random(n) < 0.6 if masked else None
+                 for _ in range(steps)]
+        if masked:
+            masks[0] = np.array([True, True, True, False])
+        us = rng.random((steps, n, B.build_layout(state.params).n_padded),
+                        dtype=np.float32) if quantize else None
+        inputs = (perms, batches, us, masks)
+        partners = ([(np.arange(n) - 2 ** (t % 2)) % n for t in range(steps)]
+                    if algo == "sgp" else list(perms))
+        states, loss_cpu = [state], []
+        for t in range(steps):
+            state, m = run(states[t], t, inputs)
+            states.append(state)
+            loss_cpu.append(float(m["loss"]))
+        loss_card, readings = [], []
+        for t in range(steps):
+            run_c, codec, _, _ = _baseline_engine(card, algo, quantize,
+                                                  nonblocking, graph)
+            state, m = run_c(states[t], t, inputs)
+            loss_card.append(float(m["loss"]))
+            readings.append(_readings(
+                state.params, states[t + 1].params,
+                codec.scales[-1] if quantize else None, partners[t]))
+        rec = dict(algo=algo, quantize=quantize, nonblocking=nonblocking,
+                   graph=graph, masks=[None if m is None else m.tolist()
+                                       for m in masks],
+                   loss_card=loss_card, loss_cpu=loss_cpu,
+                   readings=readings, planted={})
+        if algo == "sgp":
+            rec["w_cpu"] = [s.params["w"].tolist() for s in states]
+        for fault in faults:
+            run_f, codec, _, _ = _baseline_engine(card, algo, quantize,
+                                                  nonblocking, graph, fault)
+            state, _ = run_f(states[0], 0, inputs)
+            rec["planted"][fault] = _readings(
+                state.params, states[1].params,
+                codec.scales[-1] if quantize else None, partners[0])
+        out[name] = rec
+        check(all(math.isfinite(x) for x in loss_card),
+              f"{name}: non-finite loss on card")
+        check(np.allclose(loss_card, loss_cpu, rtol=1e-4, atol=0),
+              f"{name}: card loss {loss_card} != CPU loss {loss_cpu}")
+        check(all(_within_bound(r) for r in readings),
+              f"{name}: card vs CPU beyond the bound: {readings}")
+        check(not any(_within_bound(r) for r in rec["planted"].values()),
+              f"{name}: a planted fault passes the bound: {rec['planted']}")
+    log("baselines_reference", **out)
+    return out
+
+
+# the five commands of the baselines' slice, 4 supersteps each at full
+# transformer-wmt width and depth (8 nodes, bf16), and their launches of
+# sgd_update / quantize_mod / decode_avg
+BASELINE_COMMANDS = {
+    "allreduce": (["--algo", "allreduce"], (4, 0, 0)),
+    "localsgd": (["--algo", "localsgd", "--H", "2"], (8, 0, 0)),
+    "dpsgd": (["--algo", "dpsgd", "--graph", "ring"], (4, 0, 0)),
+    "adpsgd": (["--algo", "adpsgd", "--quantize", "--nonblocking"],
+               (4, 4, 4)),
+    "sgp": (["--algo", "sgp", "--quantize", "--eval-mean"], (4, 4, 4)),
+}
+
+
+def phase_baselines_full_width():
+    """Each baseline command at full width, every launch counter at 0 just
+    before it; -> {path: launches}. Asserts finite loss and Γ (and SGP's
+    mean-model loss), the launch counts, all-reduce's 8 nodes bitwise
+    equal after its run and SGP's Σw = 8 within 1e-4; prints each
+    command's superstep median and peak memory."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    base = ["--arch", "transformer-wmt", "--nodes", "8", "--steps", "4",
+            "--log-every", "1"]
+    by_path, out = {}, {}
+    for name, (flags, want) in BASELINE_COMMANDS.items():
+        argv = base + flags
+        args = train.build_parser().parse_args(argv)
+        _fresh_memory()
+        tr = train.build(args)
+        reset_launch_counts()
+        t0 = time.time()
+        hist = train.run(args, tr)
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        keys = ("loss", "gamma") + (("loss_mean_model",)
+                                    if "--eval-mean" in flags else ())
+        check(len(hist) == 4 and all(math.isfinite(h[k]) for h in hist
+                                     for k in keys),
+              f"{name}: non-finite or missing records {hist}")
+        want = dict(zip(("sgd_update", "quantize_mod", "decode_avg"), want))
+        check(counts == want, f"{name}: launch counts {counts} != {want}")
+        rec = {}
+        if name == "allreduce":
+            rec["nodes_bitwise_equal"] = all(
+                same_bits(x[0:1].expand_as(x).contiguous(), x)
+                for x in tree_leaves(tr.state.params))
+            check(rec["nodes_bitwise_equal"],
+                  "allreduce: the 8 nodes are not bitwise equal")
+        if name == "sgp":
+            rec["w_sum"] = float(tr.state.params["w"].sum())
+            check(abs(rec["w_sum"] - 8.0) <= 1e-4, f"sgp: Σw = {rec}")
+        walls = [h["wall_s"] for h in hist]
+        steady = [b - a for a, b in zip(walls, walls[1:])]
+        out[name] = dict(argv=argv, records=hist, launches=counts,
+                         first_superstep_s=walls[0], superstep_s=steady,
+                         superstep_median_s=statistics.median(steady),
+                         max_memory_allocated_bytes=peak, run_s=run_s, **rec)
+        by_path[name] = counts
+        del tr
+    _fresh_memory()
+    log("baselines_full_width", **out)
+    return by_path
+
 
 def main() -> int:
     import torch
@@ -744,13 +1052,19 @@ def main() -> int:
     phase_overlap_exact()
     counts = phase_full_width()
     phase_checkpoint()
+    phase_baselines_reference()
+    baselines = phase_baselines_full_width()
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": TPU_KERNELS[n], "launches": counts[n],
                 "launches_by_path": {"overlap_q8_geometric": counts[n],
-                                     "blocking_q8": blocking[n]},
+                                     "blocking_q8": blocking[n],
+                                     **{p: c[n] for p, c in
+                                        baselines.items()}},
                 **{k: records[n][k] for k in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}} for n in TPU_KERNELS]
+    # the card again, so the tail of a long log still names it
+    print(smi[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,70 @@
+"""AD-PSGD (Lian et al.; counterpart of ``repro/algorithms/adpsgd.py``):
+one gradient step, then a pairwise average with a random matching partner
+every interaction — SwarmSGD with H = 1, the paper's closest prior art.
+
+The pairwise average is the swarm engine's `mix_pair` over the flat
+buffer: exact fp32, or the q8 lattice codec (the `prev` comm copy as the
+distance proxy), blocking or non-blocking (the stale Algorithm-2 combine:
+the partner contributes its pre-step model, each node's own gradient
+delta rides on top), under an optional participation mask.
+"""
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.algorithms.common import (fold_batch, gated_grad_step,
+                                           lr_on, metrics_of, node_grad_step,
+                                           refresh_prev)
+from repro_torch.core.exchange import GossipTransport, as_mask, stale_combine
+from repro_torch.core.swarm import SwarmState
+
+
+def make_step(loss_fn, opt_update, lr_fn, n_nodes,
+              track_potential: bool = True,
+              transport: GossipTransport = None,
+              quantize: bool = False, nonblocking: bool = False):
+    tr = transport or GossipTransport(n_nodes)
+    gs_plain = node_grad_step(loss_fn, opt_update)
+    gs_gated = gated_grad_step(loss_fn, opt_update)
+
+    def step(state: SwarmState, batch, perm, h_counts, rng, mask=None, *,
+             u=None):
+        del h_counts
+        lr = lr_on(lr_fn, state.step, state.params)
+        device = lr.device
+        mask = as_mask(mask, device)
+        S = state.params                  # pre-step models (staleness ref)
+        mb = fold_batch(batch)
+        if mask is None:
+            params, opt, losses = gs_plain(S, state.opt, mb, lr)
+        else:
+            params, opt, losses = gs_gated(S, state.opt, mb, lr, mask)
+        perm_t = torch.as_tensor(perm, dtype=torch.int64, device=device)
+        node_perm, _ = tr.resolve_perm(perm_t)
+        matched = node_perm != torch.arange(n_nodes, device=device)
+        if mask is not None:
+            matched = matched & mask
+
+        def mix(tree):
+            return tr.mix_pair(tree, perm_t, matched, quantize=quantize,
+                               prev=state.prev if quantize else None,
+                               rng=rng, u=u, mask=mask)
+
+        with record_function("swarm.gossip"):
+            if nonblocking:
+                # stale averaging (the original asynchronous AD-PSGD): the
+                # partner contributes its PRE-STEP model, each node's fresh
+                # gradient delta rides on top — Algorithm 2 with H = 1
+                base = mix(S)
+                params = stale_combine(base, params, S, matched)
+                del base
+            else:
+                params = mix(params)
+        new_prev = refresh_prev(state.prev, S if nonblocking else params,
+                                matched)
+        return (SwarmState(params, opt, new_prev, state.step + 1),
+                metrics_of(params, losses, lr, track_potential, mask,
+                           matched_frac=torch.mean(
+                               matched.to(torch.float32))))
+    return step

@@ -1,0 +1,43 @@
+"""Large-batch data-parallel SGD (the paper's LB-SGD baseline; counterpart
+of ``repro/algorithms/allreduce.py``): every step the gradients are
+averaged over ALL nodes and the mean is applied everywhere.
+
+The node-stacked bf16 gradients pack into one fp32 flat buffer, the
+transport's `global_mean` takes their node mean (over the participants
+under a mask, applied everywhere: backup-worker semantics), unpacks it to
+bf16, and one optimizer sweep applies it — so nodes that start equal stay
+bitwise equal.
+"""
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.algorithms.common import fold_batch, lr_on, metrics_of
+from repro_torch.core.exchange import GossipTransport, as_mask
+from repro_torch.core.swarm import SwarmState
+
+
+def make_step(loss_fn, opt_update, lr_fn, n_nodes,
+              track_potential: bool = True,
+              transport: GossipTransport = None):
+    tr = transport or GossipTransport(n_nodes)
+    node_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+
+    def step(state: SwarmState, batch, perm, h_counts, rng, mask=None, *,
+             u=None):
+        del perm, h_counts, rng, u
+        lr = lr_on(lr_fn, state.step, state.params)
+        mask = as_mask(mask, lr.device)
+        # every node contributes one microbatch: its H slots folded in
+        with record_function("swarm.grad"):
+            grads, losses = node_grads(state.params, fold_batch(batch))
+        # all-reduce: the (participants') mean gradient, applied everywhere
+        with record_function("swarm.gossip"):
+            grads = tr.global_mean(grads, mask)
+        with record_function("swarm.sgd"):
+            params, opt = opt_update(state.params, grads, state.opt, lr)
+        del grads
+        return (SwarmState(params, opt, state.prev, state.step + 1),
+                metrics_of(params, losses, lr, track_potential, mask))
+    return step

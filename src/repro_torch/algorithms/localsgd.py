@@ -1,0 +1,36 @@
+"""Local SGD (counterpart of ``repro/algorithms/localsgd.py``): every node
+takes its h_i <= h_max local steps, then the models are averaged globally
+(the paper's Local-SGD baseline, communicating globally every H steps).
+
+The resync is the transport's `global_mean` over the packed parameters:
+under a participation mask the mean runs over the participants and is
+broadcast to every node (server-broadcast semantics).
+"""
+from __future__ import annotations
+
+from torch.profiler import record_function
+
+from repro_torch.algorithms.common import gated_local_loop, lr_on, metrics_of
+from repro_torch.core.exchange import GossipTransport, as_mask
+from repro_torch.core.swarm import SwarmState
+
+
+def make_step(loss_fn, opt_update, lr_fn, n_nodes, H: int = 2,
+              track_potential: bool = True,
+              transport: GossipTransport = None, h_max: int = None):
+    tr = transport or GossipTransport(n_nodes)
+    local = gated_local_loop(loss_fn, opt_update, h_max or H)
+
+    def step(state: SwarmState, batch, perm, h_counts, rng, mask=None, *,
+             u=None):
+        del perm, rng, u
+        lr = lr_on(lr_fn, state.step, state.params)
+        mask = as_mask(mask, lr.device)
+        params, opt, losses = local(state.params, state.opt, batch,
+                                    h_counts, lr)
+        # periodic global model average (participants -> mean -> everyone)
+        with record_function("swarm.gossip"):
+            params = tr.global_mean(params, mask)
+        return (SwarmState(params, opt, state.prev, state.step + 1),
+                metrics_of(params, losses, lr, track_potential, mask))
+    return step

@@ -1,0 +1,258 @@
+"""Algorithm registry and capability matrix (counterpart of
+``repro/algorithms/registry.py``).
+
+Every algorithm — SwarmSGD included — is built through
+``make_algorithm(name, loss_fn=..., opt_update=..., lr_fn=...,
+n_nodes=..., ...)`` and returns a superstep with the uniform signature
+``step(state, batch, perm, h_counts, rng, mask=None, *, u=None)``.
+
+:data:`CAPABILITIES` is the JAX package's matrix, row for row: which
+(transport, execution mode, quantization, codec, scheduler) combination
+each algorithm supports. `validate_run_config` raises wherever the
+reference's raises, and additionally, naming the ROADMAP.md item, for
+what the port does not carry yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Tuple
+
+from repro_torch.algorithms import adpsgd, allreduce, dpsgd, localsgd, sgp
+
+
+@dataclass(frozen=True)
+class AlgoCaps:
+    """What one algorithm supports on the unified exchange layer (the
+    field meanings are the reference's: transports — accepted base gossip
+    impls; modes — blocking / nonblocking / overlap; quantized — codec
+    gossip; codecs — accepted codec families; sched — runs under
+    scheduler traces; uses_matching — consumes `perm` as a matching;
+    local_H — takes H > 1 local steps; pricing — cost-model family;
+    churn — elastic membership; hier — two-tier topologies)."""
+    transports: Tuple[str, ...]
+    modes: Tuple[str, ...]
+    quantized: bool
+    codecs: Tuple[str, ...]
+    sched: bool
+    uses_matching: bool
+    local_H: bool
+    pricing: str
+    why: str
+    churn: bool = False
+    hier: bool = False
+
+
+#: every lattice/cast family — the codecs with no cross-superstep state
+_STATELESS_CODECS = ("q8", "q4", "q16", "bf16")
+
+CAPABILITIES = {
+    "swarm": AlgoCaps(
+        ("gather", "ppermute", "ppermute_pool"),
+        ("blocking", "nonblocking", "overlap"), True,
+        _STATELESS_CODECS + ("topk",), True, True, True, "pairwise",
+        "the paper's method: pairwise matchings, H local steps, all "
+        "transports, modes and codecs (the superstep carries the "
+        "error-feedback residual slot; top-k itself is gather-only and "
+        "blocking/nonblocking-only — the residual neither threads "
+        "through shard_map nor learns the matched mask in time under "
+        "the overlap pipeline); elastic membership via the join-bootstrap "
+        "step and residual retirement (gather transport, no overlap — "
+        "join pairs are dynamic and an in-flight payload would predate "
+        "membership)", churn=True, hier=True),
+    "adpsgd": AlgoCaps(
+        ("gather", "ppermute", "ppermute_pool"),
+        ("blocking", "nonblocking"), True, _STATELESS_CODECS + ("topk",),
+        True, True, False, "pairwise",
+        "= SwarmSGD with H=1: same matchings, same pairwise average "
+        "(stale variant = the original asynchronous AD-PSGD), same codec "
+        "family incl. the error-feedback residual; no overlap pipeline "
+        "(nothing to hide one grad step under)", hier=True),
+    "sgp": AlgoCaps(
+        ("gather",), ("blocking",), True, _STATELESS_CODECS,
+        True, False, False, "pairwise",
+        "directed time-varying one-peer graph: the cyclic-shift perm "
+        "changes every step, so the static ppermute matchings cannot "
+        "carry it; push-sum (X, w) rides the payload as an extra row "
+        "group and composes with every stateless codec — but not top-k: "
+        "the EF residual holds back mass between interactions, which "
+        "breaks the (X, w) joint linear dynamics the de-biasing relies "
+        "on"),
+    "localsgd": AlgoCaps(
+        ("gather",), ("blocking",), False, (), True, False, True, "bsp",
+        "global resync (masked participants-mean under a schedule): a "
+        "mean has no pairwise permute form and no receiver-side decode "
+        "reference, so no codec applies"),
+    "dpsgd": AlgoCaps(
+        ("gather",), ("blocking",), False, (), True, False, False, "bsp",
+        "dense doubly-stochastic W-mixing over the node axis (masked "
+        "Metropolis under a schedule); not pairwise, not quantizable"),
+    "allreduce": AlgoCaps(
+        ("gather",), ("blocking",), False, (), True, False, False, "bsp",
+        "global gradient mean applied everywhere (backup-workers drop "
+        "straggler gradients under a schedule); fully synchronous upper "
+        "bound"),
+}
+
+
+def _make_swarm(loss_fn, opt_update, lr_fn, n_nodes, H: int = 2, scfg=None,
+                track_potential: bool = None, transport=None, **swarm_kw):
+    """Route 'swarm' through the baselines' factory signature: pass a full
+    SwarmConfig via `scfg`, or let one be built from (n_nodes, H) plus any
+    SwarmConfig field given as a keyword."""
+    from repro_torch.core.swarm import SwarmConfig, make_swarm_step
+    if scfg is None:
+        if track_potential is not None:
+            swarm_kw["track_potential"] = track_potential
+        scfg = SwarmConfig(n_nodes=n_nodes, H=H, **swarm_kw)
+    elif swarm_kw or track_potential is not None:
+        extra = sorted(swarm_kw) + (["track_potential"]
+                                    if track_potential is not None else [])
+        raise TypeError(f"pass either scfg or SwarmConfig fields, not both: "
+                        f"{extra}")
+    return make_swarm_step(scfg, loss_fn, opt_update, lr_fn,
+                           transport=transport)
+
+
+ALGORITHMS = {
+    "swarm": _make_swarm,          # the paper's method (core/swarm.py)
+    "allreduce": allreduce.make_step,
+    "localsgd": localsgd.make_step,
+    "dpsgd": dpsgd.make_step,
+    "adpsgd": adpsgd.make_step,
+    "sgp": sgp.make_step,
+}
+
+
+def make_algorithm(name: str, **kw) -> Callable:
+    if name not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {name!r}; known: "
+                         f"{sorted(ALGORITHMS)}")
+    return ALGORITHMS[name](**kw)
+
+
+_WAITS = "is not ported yet: it waits for the {} item of ROADMAP.md"
+_SCHED = "scheduler-bridge"
+_CODECS = "bf16/top-k codec"
+_NCCL = "multi-GPU (NCCL) transport"
+_HIER = "churn and hierarchy"
+
+
+def _codec_family(spec) -> Tuple[str, bool]:
+    """(family, carries_residual) of a ``--codec`` spec, by the reference's
+    grammar; a bogus spec raises ValueError."""
+    from repro_torch.quant.codecs import make_codec
+    if spec == "bf16":
+        return "bf16", False
+    if spec is not None and spec.startswith("topk:"):
+        try:
+            frac = float(spec.split(":", 1)[1])
+        except ValueError:
+            raise ValueError(f"--codec {spec!r}: want topk:<frac>, "
+                             "e.g. topk:0.25")
+        if not 0.0 < frac <= 1.0:
+            raise ValueError(f"--codec {spec!r}: the kept fraction must lie "
+                             "in (0, 1]")
+        return "topk", True
+    return make_codec(spec).family, False
+
+
+def validate_run_config(algo: str, *, gossip_impl: str = None,
+                        quantize: bool = False, nonblocking: bool = False,
+                        overlap: bool = False, rate_profile: str = "none",
+                        codec: str = None, avail: str = None,
+                        topology: str = None, compress_state: bool = False,
+                        n_nodes: int = None) -> AlgoCaps:
+    """Config-time validation of a run against the capability matrix.
+
+    Raises ValueError with the algorithm's matrix row where the reference
+    does, then ValueError naming the ROADMAP.md item for what the port
+    does not carry yet: transports other than gather (and the *_legacy
+    oracles), the bf16 and top-k codecs, ``--rate-profile``, ``--avail``,
+    ``--topology`` and ``--compress-state``. There is no environment
+    default: None means gather, the q8 lattice, no topology. Returns the
+    AlgoCaps row otherwise."""
+    if algo not in CAPABILITIES:
+        raise ValueError(f"unknown algorithm {algo!r}; known: "
+                         f"{sorted(CAPABILITIES)}")
+    caps = CAPABILITIES[algo]
+    del n_nodes
+
+    def reject(what):
+        raise ValueError(
+            f"--algo {algo} does not support {what}: {algo} supports "
+            f"transports={list(caps.transports)}, modes={list(caps.modes)}, "
+            f"quantized={caps.quantized}, codecs={list(caps.codecs)}, "
+            f"sched={caps.sched} ({caps.why})")
+
+    gossip_impl = gossip_impl or "gather"
+    base = gossip_impl[:-len("_legacy")] \
+        if gossip_impl.endswith("_legacy") else gossip_impl
+    if base not in caps.transports:
+        reject(f"--gossip-impl {gossip_impl}")
+    mode = "overlap" if overlap else \
+        ("nonblocking" if nonblocking else "blocking")
+    if mode not in caps.modes:
+        reject(f"the {mode} execution mode")
+    if quantize and not caps.quantized:
+        reject("--quantize (codec-compressed gossip)")
+    if rate_profile not in (None, "none") and not caps.sched:
+        reject(f"--rate-profile {rate_profile}")
+    if avail is not None:
+        if not caps.churn:
+            reject(f"--avail {avail} (elastic membership)")
+        if base != "gather":
+            reject(f"--avail {avail} with --gossip-impl {gossip_impl}")
+        if overlap:
+            reject(f"--avail {avail} with the overlap pipeline")
+    family = None
+    if quantize:
+        family, residual = _codec_family(codec)
+        if family not in caps.codecs:
+            reject(f"--codec {codec}")
+        if residual:
+            if base != "gather":
+                reject(f"--codec {codec} with --gossip-impl {gossip_impl} "
+                       "(error-feedback residuals run on the gather "
+                       "transport)")
+            if overlap:
+                reject(f"--codec {codec} with the overlap pipeline")
+    hier = topology is not None and \
+        str(topology).strip() not in ("", "flat", "none")
+    if hier:
+        if not str(topology).startswith("hier:"):
+            raise ValueError(f"unknown topology spec {topology!r}")
+        if not caps.hier:
+            reject(f"--topology {topology} (two-tier hierarchical gossip)")
+        if base == "ppermute":
+            reject(f"--topology {topology} with --gossip-impl {gossip_impl}")
+        if avail is not None:
+            reject(f"--topology {topology} with --avail")
+    if compress_state:
+        if algo != "swarm":
+            reject("--compress-state (the wire-compressed comm copy lives "
+                   "in SwarmState)")
+        if not quantize:
+            reject("--compress-state without --quantize")
+        if family is not None and family not in ("q4", "q8", "q16"):
+            reject(f"--compress-state with --codec {codec}")
+        if nonblocking or overlap:
+            reject("--compress-state outside the blocking path")
+        if gossip_impl.endswith("_legacy"):
+            reject(f"--compress-state with --gossip-impl {gossip_impl}")
+        if avail is not None:
+            reject("--compress-state with --avail")
+    # what the reference accepts and the port does not carry yet
+    if gossip_impl != "gather":
+        raise ValueError(f"--gossip-impl {gossip_impl} {_WAITS.format(_NCCL)}")
+    if family in ("bf16", "topk"):
+        raise ValueError(f"--codec {codec} {_WAITS.format(_CODECS)}")
+    if compress_state:
+        raise ValueError(f"--compress-state {_WAITS.format(_CODECS)}")
+    if rate_profile not in (None, "none"):
+        raise ValueError(f"--rate-profile {rate_profile} "
+                         f"{_WAITS.format(_SCHED)}")
+    if avail is not None:
+        raise ValueError(f"--avail {avail} {_WAITS.format(_HIER)}")
+    if hier:
+        raise ValueError(f"--topology {topology} {_WAITS.format(_HIER)}")
+    return caps

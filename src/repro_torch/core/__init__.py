@@ -1,7 +1,14 @@
+from repro_torch.core.bucket import (  # noqa: F401
+    gossip_flat_matrix, gossip_flat_mean,
+)
 from repro_torch.core.exchange import (  # noqa: F401
     GossipTransport, make_local_steps, masked_mean_loss,
+    transport_from_config,
 )
-from repro_torch.core.graph import complete, sample_matching  # noqa: F401
+from repro_torch.core.graph import (  # noqa: F401
+    Graph, complete, hierarchical, hypercube, irregular_graph, make_graph,
+    random_regular, ring, sample_matching, torus2d,
+)
 from repro_torch.core.potential import gamma_potential  # noqa: F401
 from repro_torch.core.swarm import (  # noqa: F401
     SwarmConfig, SwarmState, codec_checkpoint_tree, make_mean_model_eval,

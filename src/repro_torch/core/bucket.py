@@ -160,9 +160,11 @@ def unpack(layout: BucketLayout, buf: torch.Tensor):
 
 
 def permute_rows(x: torch.Tensor, perm: torch.Tensor, n_nodes: int):
-    """Gather-permute node-grouped rows: x is [n_nodes, ...] or
-    [n_nodes * r, ...] with node-contiguous row groups. uint16 codes move
-    through an int16 view (same bits; no uint16 gather is needed)."""
+    """Gather-permute node-grouped rows: node i receives node perm[i]'s
+    group; x is [n_nodes, ...] or [n_nodes * r, ...] with node-contiguous
+    row groups. `perm` is any index map — a matching's involution or
+    SGP's cyclic shift alike. uint16 codes move through an int16 view
+    (same bits; no uint16 gather is needed)."""
     if x.dtype == torch.uint16:
         return permute_rows(x.view(torch.int16), perm,
                             n_nodes).view(torch.uint16)
@@ -173,10 +175,11 @@ def permute_rows(x: torch.Tensor, perm: torch.Tensor, n_nodes: int):
 
 
 def gossip_flat_exact(buf, perm, matched=None):
-    """(buf + buf[perm]) / 2 — one gather over one tensor. `perm` is an
-    involution with fixed points at unmatched nodes, and (x + x) * 0.5 == x
-    for every finite float, so no mask is needed unless `matched` gates a
-    partial landing."""
+    """(buf + buf[perm]) / 2 — one gather over one tensor. For a matching
+    `perm` is an involution with fixed points at unmatched nodes, and
+    (x + x) * 0.5 == x for every finite float, so no mask is needed unless
+    `matched` gates a partial landing (SGP's directed shift gates through
+    `matched` the same way)."""
     avg = (buf + buf[perm]) * 0.5
     if matched is None:
         return avg
@@ -199,3 +202,26 @@ def gossip_flat_coded(codec: WireCodec, buf, prev_buf, perm, matched, rng,
         m_rows = matched.repeat_interleave(rpn)
     with record_function("gossip.decode"):
         return codec.decode_avg(wire_p, buf, m_rows, tile_rows=tile_rows)
+
+
+def gossip_flat_mean(buf, mask=None):
+    """(Masked) mean over the node axis, broadcast back to every node —
+    the flat form of LocalSGD's resync and AllReduce's gradient mean. With
+    `mask` the mean runs over the participants only, sum(w * buf) /
+    max(sum(w), 1), and is still broadcast everywhere. The result is a
+    broadcast view of one row; `unpack` copies it out."""
+    if mask is None:
+        mu = torch.mean(buf, dim=0, keepdim=True)
+    else:
+        w = mask.to(torch.float32)
+        mu = torch.sum(w[:, None] * buf, dim=0, keepdim=True) / \
+            torch.clamp_min(torch.sum(w), 1.0)
+    return mu.expand(buf.shape)
+
+
+def gossip_flat_matrix(W, buf):
+    """Dense mixing X <- W X over the packed buffer: ONE [n, n] x
+    [n, n_padded] fp32 product for the whole model (D-PSGD's Metropolis
+    mixing). The caller keeps TF32 off on the card
+    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    return torch.matmul(W.to(torch.float32), buf)

@@ -18,6 +18,11 @@ leading [n_nodes] dim). A superstep is
      encode's distance proxy): blocking to the post-interaction model,
      non-blocking to S, the value it sent.
 
+A participation ``mask`` (bool [n_nodes]) gates the landing: the effective
+matching is ``(perm != arange) & mask`` and the loss averages the
+participants; with mask=None, or an all-True mask, every path is bitwise
+the unmasked engine.
+
 With ``overlap`` the non-blocking superstep is software-pipelined: the
 payload of interaction t is encoded at the end of superstep t-1 and rides
 in ``SwarmState.inflight``; its permute is dispatched before the local
@@ -35,7 +40,8 @@ from torch.profiler import record_function
 
 from repro_torch.core import bucket as B
 from repro_torch.core.exchange import (
-    GossipTransport, _rows, land, make_local_steps, masked_mean_loss,
+    GossipTransport, _rows, as_mask, land, lr_on, make_local_steps,
+    masked_mean_loss, select, stale_combine,
 )
 from repro_torch.core.potential import gamma_potential
 from repro_torch.quant.codecs import LatticeCodec
@@ -55,6 +61,8 @@ class SwarmConfig:
     overlap: bool = False        # pipelined non-blocking superstep
     quantize: bool = False       # Extension 3: lattice gossip at quant.bits
     quant: ModularQuantConfig = ModularQuantConfig()
+    average_momentum: bool = False  # the paper averages models only
+    track_potential: bool = True    # Γ in the metrics
 
     def __post_init__(self):
         if self.h_mode not in H_MODES:
@@ -81,6 +89,9 @@ class SwarmState:
     # and when quantized "prev": the packed comm copy, "wire": the encoded
     # payload in flight}
     inflight: Any = None
+    # the error-feedback residual of the top-k codec; that codec is not
+    # ported (algorithms.validate_run_config refuses it), so always None
+    residual: Any = None
 
 
 def swarm_init(gen: torch.Generator, cfg: SwarmConfig,
@@ -156,46 +167,66 @@ def restore_codec_state(state: SwarmState, tree: dict) -> SwarmState:
                       state.inflight)
 
 
+def _avg_matched(x, node_perm, matched):
+    """(x + x[perm]) / 2 in fp32 where matched, else x (the reference's
+    per-leaf `_avg`)."""
+    out = ((x.to(torch.float32) + x[node_perm].to(torch.float32)) * 0.5
+           ).to(x.dtype)
+    return torch.where(_rows(matched, x.ndim), out, x)
+
+
 def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                     lr_fn: Callable,
                     transport: Optional[GossipTransport] = None):
-    """Returns superstep(state, batch, perm, h_counts, rng, *, u=None) ->
-    (state, metrics). batch leaves are [n_nodes, h_loop_bound,
+    """Returns superstep(state, batch, perm, h_counts, rng, mask=None, *,
+    u=None) -> (state, metrics). batch leaves are [n_nodes, h_loop_bound,
     local_batch, ...] tensors on the device; perm is an involution
     [n_nodes]; h_counts the per-node local-step counts; rng the
     torch.Generator of the encode's uniforms, or `u` the uniforms
-    themselves ([n_nodes, n_padded]). With cfg.overlap the step is the
-    pipelined steady state and needs a primed state."""
+    themselves ([n_nodes, n_padded]); `mask` the optional participation
+    gate (bool [n_nodes]). With cfg.overlap the step is the pipelined
+    steady state and needs a primed state."""
     tr = transport or GossipTransport(cfg.n_nodes, quant=cfg.quant)
     if cfg.overlap:
         tr.check_overlap(cfg.quantize)
     local_steps = make_local_steps(loss_fn, opt_update, cfg.h_loop_bound)
 
     def start(state):
-        device = tree_leaves(state.params)[0].device
-        lr = torch.tensor(lr_fn(state.step), dtype=torch.float32,
-                          device=device)
-        return device, lr
+        lr = lr_on(lr_fn, state.step, state.params)
+        return lr.device, lr
 
-    def matching(perm, device):
+    def matching(perm, mask, device):
+        """-> (perm, node perm, participation mask, landing mask)."""
         perm_t = torch.as_tensor(np.asarray(perm), dtype=torch.int64,
                                  device=device)
         node_perm, _ = tr.resolve_perm(perm_t)
-        return perm_t, node_perm != torch.arange(cfg.n_nodes, device=device)
+        matched = node_perm != torch.arange(cfg.n_nodes, device=device)
+        mask = as_mask(mask, device)
+        if mask is not None:
+            matched = matched & mask
+        return perm_t, node_perm, mask, matched
 
-    def finish(state, params, opt, prev, inflight, losses, matched, lr):
-        metrics = {"loss": masked_mean_loss(losses, None), "lr": lr,
+    def average_momentum(opt, node_perm, matched):
+        if not cfg.average_momentum or not tree_leaves(opt):
+            return opt
+        return tree_map(lambda x: _avg_matched(x, node_perm, matched), opt)
+
+    def finish(state, params, opt, prev, inflight, losses, matched, mask,
+               lr):
+        metrics = {"loss": masked_mean_loss(losses, mask), "lr": lr,
                    "matched_frac": torch.mean(matched.to(torch.float32))}
-        with record_function("swarm.gamma"):
-            metrics["gamma"] = gamma_potential(params)
+        if cfg.track_potential:
+            with record_function("swarm.gamma"):
+                metrics["gamma"] = gamma_potential(params)
         return SwarmState(params, opt, prev, state.step + 1,
                           inflight), metrics
 
-    def superstep(state: SwarmState, batch, perm, h_counts, rng, *, u=None):
+    def superstep(state: SwarmState, batch, perm, h_counts, rng, mask=None,
+                  *, u=None):
         device, lr = start(state)
         S = state.params                      # superstep-start models
         params, opt, losses = local_steps(S, state.opt, batch, h_counts, lr)
-        perm_t, matched = matching(perm, device)
+        perm_t, node_perm, mask, matched = matching(perm, mask, device)
         with record_function("swarm.gossip"):
             if cfg.nonblocking:
                 # Algorithm 2: X_i <- (S_i + X_j')/2 + (X_i - S_i), the
@@ -203,20 +234,15 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                 # averaged base is in the leaf dtype before the fp32 delta
                 # is added, as the reference's tree-level combine does
                 base = tr.mix_pair(S, perm_t, matched, quantize=cfg.quantize,
-                                   prev=state.prev, rng=rng, u=u)
-                params = tree_map(
-                    lambda b, p, s: torch.where(
-                        _rows(matched, p.ndim),
-                        (b.to(torch.float32) + (p.to(torch.float32) -
-                                                s.to(torch.float32))
-                         ).to(p.dtype), p),
-                    base, params, S)
+                                   prev=state.prev, rng=rng, u=u, mask=mask)
+                params = stale_combine(base, params, S, matched)
                 del base
             else:
                 # Algorithm 1: average the post-local-step models
                 params = tr.mix_pair(params, perm_t, matched,
                                      quantize=cfg.quantize, prev=state.prev,
-                                     rng=rng, u=u)
+                                     rng=rng, u=u, mask=mask)
+        opt = average_momentum(opt, node_perm, matched)
         new_prev = None
         if state.prev is not None:
             # refresh the comm copy on interaction. Blocking: to the
@@ -228,14 +254,12 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             # decode
             src = S if cfg.nonblocking else params
             with record_function("swarm.prev"):
-                new_prev = tree_map(
-                    lambda pv, p: torch.where(_rows(matched, p.ndim), p, pv),
-                    state.prev, src)
+                new_prev = select(matched, src, state.prev)
         return finish(state, params, opt, new_prev, None, losses, matched,
-                      lr)
+                      mask, lr)
 
-    def pipelined_superstep(state: SwarmState, batch, perm, h_counts, rng, *,
-                            u=None):
+    def pipelined_superstep(state: SwarmState, batch, perm, h_counts, rng,
+                            mask=None, *, u=None):
         """The steady state of the overlapped pipeline: the in-flight
         payload's permute is dispatched first (a side stream on the card),
         the local steps run under it, the decode + average lands against
@@ -248,7 +272,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
         device, lr = start(state)
         codec = tr.codec
         layout = B.build_layout(state.params, block=codec.block)
-        perm_t, matched = matching(perm, device)
+        perm_t, node_perm, mask, matched = matching(perm, mask, device)
 
         # 1. the in-flight payload's permute, before any local compute
         payload = infl["wire"] if cfg.quantize else (infl["sbuf"],)
@@ -280,6 +304,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             del post_buf, base_buf
             with record_function("gossip.unpack"):
                 params = B.unpack(layout, new_buf)
+        opt = average_momentum(opt, node_perm, matched)
 
         # 4. refresh the packed comm copy to the value SENT (S, in sbuf)
         # and encode the next payload
@@ -292,7 +317,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
         else:
             new_infl = {"sbuf": new_buf}
         return finish(state, params, opt, None, new_infl, losses, matched,
-                      lr)
+                      mask, lr)
 
     return pipelined_superstep if cfg.overlap else superstep
 

@@ -3,14 +3,20 @@
   PYTHONPATH=src python -m repro_torch.launch.profile --arch transformer-wmt \
       --nodes 8 --H 2 --quantize --overlap \
       --trace superstep_trace.json
+  PYTHONPATH=src python -m repro_torch.launch.profile --nodes 8 \
+      --algo dpsgd --graph ring
 
-Builds the training driver's run (same flags as ``repro_torch.launch.train``),
+Builds the training driver's run (same flags as ``repro_torch.launch.train``,
+``--algo`` and ``--graph`` included, so a baseline's superstep breaks down
+the same way),
 runs ``--warmup`` supersteps, then one superstep under ``torch.profiler``
 and prints one JSON object: the superstep's wall time (host clock, ending
 in a device sync), the device's busy time (union of kernel, memcpy and
 memset intervals in the trace) and idle share, the device-busy time inside
 each engine span's device range (``swarm.grad``, ``swarm.sgd``,
-``sgd.pack``, ``gossip.encode``, ... — the ``record_function`` ranges of
+``sgd.pack``, ``gossip.encode``, ``gossip.mean`` (the baselines' global
+mean), ``gossip.matrix`` (D-PSGD's mixing product), ... — the
+``record_function`` ranges of ``algorithms/*.py``,
 ``core/swarm.py``, ``core/exchange.py``, ``core/bucket.py`` and
 ``optim/sgd.py``; the profiler gives a span the device work launched
 directly in it, not in a nested span) with its host time and the CUDA

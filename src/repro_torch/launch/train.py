@@ -1,10 +1,16 @@
-"""Training driver for the port: SwarmSGD (gather transport) on the
-synthetic LM stream, on the card by default.
+"""Training driver for the port: SwarmSGD or any of the paper's baselines
+(gather transport) on the synthetic LM stream, on the card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch transformer-wmt \
       --nodes 8 --H 2 --h-mode geometric --h-max 8 --quantize \
       --nonblocking --overlap --non-iid 0.5 --eval-mean --steps 4 \
       --ckpt ckpts --ckpt-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --nodes 8 \
+      --algo dpsgd --graph ring
+
+``--algo`` is swarm (the default), allreduce, localsgd, dpsgd, adpsgd or
+sgp; every combination is checked against the capability matrix
+(``repro_torch.algorithms``) before anything is built.
 
 prints one JSON record per logged superstep with the JAX driver's keys
 (``step``, ``loss``, ``gamma``, ``wall_s``, and with ``--eval-mean`` the
@@ -25,12 +31,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.algorithms import (
+    ALGORITHMS, AlgoCaps, make_algorithm, validate_run_config,
+)
+from repro_torch.algorithms.sgp import sgp_debias, sgp_init_state
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config, reduced
-from repro_torch.core.graph import complete, sample_matching
+from repro_torch.core.exchange import transport_from_config
+from repro_torch.core.graph import GRAPH_KINDS, make_graph, sample_matching
 from repro_torch.core.swarm import (
     SwarmConfig, SwarmState, codec_checkpoint_tree, make_mean_model_eval,
-    make_swarm_step, pipeline_epilogue, sample_h_counts, swarm_init,
+    pipeline_epilogue, sample_h_counts, swarm_init,
 )
 from repro_torch.data import DataConfig, SyntheticLMDataset, make_node_batches
 from repro_torch.models import TransformerLM, init_params
@@ -42,14 +53,18 @@ def sample_gossip_perm(scfg: SwarmConfig, graph, rng_np) -> np.ndarray:
     return sample_matching(graph, rng_np)
 
 
-def presample_inputs(scfg: SwarmConfig, graph, rng_np, n_steps: int):
+def presample_inputs(scfg: SwarmConfig, graph, rng_np, n_steps: int,
+                     uses_matching: bool = True):
     """The whole run's (perm, h) streams as [n_steps, n_nodes] int32,
     drawn from `rng_np` in the JAX driver's order (perm, then h, step by
-    step), so a seed gives the JAX driver's matchings and counts."""
+    step), so a seed gives the JAX driver's matchings and counts. An
+    algorithm that ignores the matching still draws one each step, as the
+    reference does, so its h stream is the reference's too."""
     perms = np.empty((n_steps, scfg.n_nodes), np.int32)
     hs = np.empty((n_steps, scfg.n_nodes), np.int32)
     for t in range(n_steps):
-        perms[t] = sample_gossip_perm(scfg, graph, rng_np)
+        perms[t] = (sample_gossip_perm(scfg, graph, rng_np) if uses_matching
+                    else sample_matching(graph, rng_np))
         hs[t] = sample_h_counts(scfg, rng_np)
     return perms, hs
 
@@ -60,13 +75,19 @@ def resolve_device(name: str) -> torch.device:
         raise SystemExit("repro_torch.launch.train: no CUDA device is "
                          "available; pass --device cpu to run the plain "
                          "kernel versions on the CPU")
+    if dev.type == "cuda":
+        # D-PSGD's mixing product is fp32, as the reference's: never TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
     return dev
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
     ap.add_argument("--arch", default="transformer-wmt")
-    ap.add_argument("--algo", default="swarm", choices=["swarm"])
+    ap.add_argument("--algo", default="swarm", choices=sorted(ALGORITHMS))
+    ap.add_argument("--graph", default="complete", choices=GRAPH_KINDS,
+                    help="interaction graph of the matchings (and of "
+                         "D-PSGD's mixing)")
     ap.add_argument("--nodes", type=int, default=8)
     ap.add_argument("--H", type=int, default=2)
     ap.add_argument("--h-mode", default="fixed",
@@ -113,8 +134,9 @@ class Trainer:
     args: argparse.Namespace
     device: torch.device
     cfg: object               # model config
+    caps: AlgoCaps            # the algorithm's capability row
     scfg: SwarmConfig
-    step: Callable            # the superstep (core/swarm.py)
+    step: Callable            # the superstep (algorithms registry)
     state: SwarmState
     ds: SyntheticLMDataset
     perms: np.ndarray         # [steps, nodes] matchings
@@ -149,8 +171,11 @@ class Trainer:
         seq = self.args.seq
         eb = {k: torch.from_numpy(nb[k][0].reshape(-1, seq)).to(self.device)
               for k in ("tokens", "targets")}
-        return {k: float(v) for k, v in
-                self.evaluate(self.state.params, eb).items()}
+        params = self.state.params
+        if self.args.algo == "sgp":
+            # the push-sum payload evaluates at the de-biased X / w
+            params = sgp_debias(params)
+        return {k: float(v) for k, v in self.evaluate(params, eb).items()}
 
     def write_ckpt(self, path: str, step_no: int) -> None:
         """One checkpoint-writing path for final and periodic saves, with
@@ -174,7 +199,12 @@ class Trainer:
 
 def build(args, cfg=None) -> Trainer:
     """The trainer the flags describe; `cfg`, when given, is the model
-    config in place of the one --arch / --reduced name."""
+    config in place of the one --arch / --reduced name. One construction
+    path for every algorithm: the capability matrix validates the flags,
+    one transport is built, and the step comes from `make_algorithm`."""
+    caps = validate_run_config(args.algo, quantize=args.quantize,
+                               nonblocking=args.nonblocking,
+                               overlap=args.overlap)
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)
@@ -184,33 +214,53 @@ def build(args, cfg=None) -> Trainer:
                                        seq_len=args.seq, seed=args.seed,
                                        non_iid_alpha=args.non_iid),
                             n_nodes=args.nodes)
-    graph = complete(args.nodes)
+    graph = make_graph(args.graph, args.nodes)
     opt = make_optimizer("sgd", lr=args.lr, momentum=0.9,
                          state_dtype=cfg.opt_state_dtype)
-    scfg = SwarmConfig(n_nodes=args.nodes, H=args.H, h_mode=args.h_mode,
+    # algorithms that interact every step take exactly one batch slot; the
+    # h-consuming ones (swarm, localsgd) keep the variable h modes
+    H, h_mode = (args.H, args.h_mode) if caps.local_H else (1, "fixed")
+    scfg = SwarmConfig(n_nodes=args.nodes, H=H, h_mode=h_mode,
                        h_max=args.h_max,
                        nonblocking=args.nonblocking or args.overlap,
                        overlap=args.overlap, quantize=args.quantize)
     model = TransformerLM(cfg)
-    step = make_swarm_step(scfg, model.functional_loss, opt.update,
-                           lambda s: args.lr)
+    kw = dict(loss_fn=model.functional_loss, opt_update=opt.update,
+              lr_fn=lambda s: args.lr, n_nodes=args.nodes,
+              transport=transport_from_config(scfg))
+    if args.algo == "swarm":
+        kw["scfg"] = scfg
+    else:
+        if args.algo == "localsgd":
+            kw.update(H=args.H, h_max=scfg.h_loop_bound)
+        if args.algo == "dpsgd":
+            kw["graph"] = graph
+        if caps.quantized:
+            kw["quantize"] = args.quantize
+        if "nonblocking" in caps.modes:
+            kw["nonblocking"] = args.nonblocking
+    step = make_algorithm(args.algo, **kw)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     state = swarm_init(gen, scfg, lambda g: init_params(g, cfg, device),
                        opt.init)
+    if args.algo == "sgp":
+        state = sgp_init_state(state, args.nodes, args.quantize)
     enc_gen = torch.Generator(device=device)
     enc_gen.manual_seed(args.seed + 1)
     perms, hs = presample_inputs(scfg, graph,
-                                 np.random.default_rng(args.seed), args.steps)
+                                 np.random.default_rng(args.seed), args.steps,
+                                 caps.uses_matching)
     evaluate = make_mean_model_eval(model.functional_loss) \
         if args.eval_mean else None
-    return Trainer(args, device, cfg, scfg, step, state, ds, perms, hs,
+    return Trainer(args, device, cfg, caps, scfg, step, state, ds, perms, hs,
                    enc_gen, evaluate)
 
 
-def run(args) -> list:
-    """Train as `args` says; -> the logged records."""
-    tr = build(args)
+def run(args, tr: Optional[Trainer] = None) -> list:
+    """Train as `args` says (with the trainer `tr` when given, else the
+    one `build` makes); -> the logged records."""
+    tr = tr or build(args)
     history = []
 
     def periodic_ckpt(step_no):
@@ -224,7 +274,7 @@ def run(args) -> list:
         m = tr.superstep(t, nb)
         if t % args.log_every == 0 or t == args.steps - 1:
             rec = {"step": t, "loss": float(m["loss"]),
-                   "gamma": float(m["gamma"]),
+                   "gamma": float(m.get("gamma", 0.0)),
                    "wall_s": time.time() - t0}
             if args.eval_mean:
                 rec.update(tr.eval_mean(nb))

@@ -22,6 +22,10 @@ The port's pipeline prologue reproduces JAX's first payload bitwise. All
 three modes are also held to it with heterogeneous local steps: per-node
 h_i from JAX's geometric sampler, batch depth h_max.
 
+The same harness holds the engine under participation masks (a matched
+pair lands only where both ends take part), and an all-True mask leaves
+every mode bitwise unmasked.
+
 Also: the driver's matchings, geometric local-step counts and non-iid
 batches equal the JAX driver's for the same seed, the CLI runs on the CPU
 and refuses to run without a card unless asked, and no module of the port
@@ -122,9 +126,19 @@ def _np_state(jstate):
                            jstate.inflight))
 
 
+def _masks(masked: bool):
+    """The participation masks of a masked run (None per step if not)."""
+    if not masked:
+        return [None] * STEPS
+    r = np.random.default_rng(7)
+    return [r.random(N) < 0.6 for _ in range(STEPS)]
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_run(quantize: bool, mode: str = "blocking", h_mode: str = "fixed"):
-    """STEPS JAX supersteps; -> (states, batches, perms, us, losses, hs),
+def _jax_run(quantize: bool, mode: str = "blocking", h_mode: str = "fixed",
+             masked: bool = False):
+    """STEPS JAX supersteps (under `_masks(masked)`); -> (states, batches,
+    perms, us, losses, hs),
     with states[t] = (params, opt, prev, inflight) in numpy before
     superstep t (states[0]'s payload is the prologue's, whose uniforms are
     us[-1]). Geometric h counts are drawn as the JAX driver draws them
@@ -154,8 +168,10 @@ def _jax_run(quantize: bool, mode: str = "blocking", h_mode: str = "fixed"):
         perm = jsample_matching(graph, rng_np)
         h = jsample_h_counts(jscfg, rng_np)
         key, sub = jax.random.split(key)
+        mask = _masks(masked)[t]
         jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch),
-                           jnp.asarray(perm), jnp.asarray(h), sub)
+                           jnp.asarray(perm), jnp.asarray(h), sub,
+                           *(() if mask is None else (jnp.asarray(mask),)))
         us.append(np.asarray(jax.random.uniform(sub, (N, n_padded),
                                                 jnp.float32)))
         batches.append(batch)
@@ -204,11 +220,13 @@ def _port(quantize: bool, codec=None, mode: str = "blocking",
 
 
 def _port_superstep(step, tstate, t, quantize, mode="blocking",
-                    h_mode="fixed"):
-    _, batches, perms, us, _, hs = _jax_run(quantize, mode, h_mode)
+                    h_mode="fixed", masked=False, mask=None):
+    _, batches, perms, us, _, hs = _jax_run(quantize, mode, h_mode, masked)
+    mask = _masks(masked)[t] if mask is None else mask
     return step(tstate, {k: torch.from_numpy(v)
                          for k, v in batches[t].items()},
-                perms[t], hs[t], None, u=torch.from_numpy(us[t].copy()))
+                perms[t], hs[t], None, mask,
+                u=torch.from_numpy(us[t].copy()))
 
 
 def _flat(params):
@@ -289,15 +307,15 @@ def test_slice_q8_bound_rejects_a_planted_decode_fault(fault):
     assert not _q8_ok(r), r
 
 
-def _async_q8_step(mode, t, codec, h_mode="fixed"):
+def _async_q8_step(mode, t, codec, h_mode="fixed", masked=False):
     """Superstep t of the q8 port restarted from JAX's state before it;
     -> (port state, metrics, the decoded rows' lattice steps)."""
-    states, _, _, _, _, _ = _jax_run(True, mode, h_mode)
+    states, _, _, _, _, _ = _jax_run(True, mode, h_mode, masked)
     step, make = _port(True, codec, mode, h_mode)
     start = make(states[t], t)
     scales = start.inflight["wire"][1].reshape(-1).clone() \
         if mode == "overlap" else None
-    tstate, m = _port_superstep(step, start, t, True, mode, h_mode)
+    tstate, m = _port_superstep(step, start, t, True, mode, h_mode, masked)
     return tstate, m, scales if scales is not None else codec.scales[-1]
 
 
@@ -341,6 +359,51 @@ def test_slice_q8_geometric_h_matches_jax(mode):
         np.testing.assert_allclose(float(m["loss"]), jl[t], rtol=1e-5)
         r = _q8_readings(tstate.params, states[t + 1][0], scales, perms[t])
         assert _q8_ok(r), (t, hs[t], r)
+
+
+@pytest.mark.parametrize("mode", ["blocking", "nonblocking", "overlap"])
+def test_slice_masked_matches_jax(mode):
+    """Under participation masks (a matched pair lands only where both
+    ends take part; the loss averages the participants) each q8 superstep,
+    restarted from JAX's state before it, is held to the slice's bound;
+    and the exact blocking run, chained from JAX's initial state, stays
+    within 2e-5."""
+    states, _, perms, _, jl, _ = _jax_run(True, mode, masked=True)
+    masks = _masks(True)
+    dropped = [bool(((np.asarray(p) != np.arange(N)) & ~m).any())
+               for p, m in zip(perms, masks)]
+    assert any(dropped), (perms, masks)
+    for t in range(STEPS):
+        tstate, m, scales = _async_q8_step(mode, t, RecordingCodec(),
+                                           masked=True)
+        np.testing.assert_allclose(float(m["loss"]), jl[t], rtol=1e-5)
+        r = _q8_readings(tstate.params, states[t + 1][0], scales, perms[t])
+        assert _q8_ok(r), (t, r)
+    if mode == "blocking":
+        states, _, _, _, jl, _ = _jax_run(False, masked=True)
+        step, make = _port(False)
+        tstate = make(states[0], 0)
+        for t in range(STEPS):
+            tstate, m = _port_superstep(step, tstate, t, False, masked=True)
+            np.testing.assert_allclose(_flat(tstate.params),
+                                       _flat(states[t + 1][0]),
+                                       atol=2e-5, rtol=0)
+            np.testing.assert_allclose(float(m["loss"]), jl[t], rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["blocking", "nonblocking", "overlap"])
+def test_all_true_mask_is_bitwise_unmasked(mode):
+    """An all-True participation mask leaves every q8 superstep bitwise
+    what it is without a mask."""
+    states, _, _, _, _, _ = _jax_run(True, mode)
+    step, make = _port(True, None, mode)
+    for t in range(STEPS):
+        a, ma = _port_superstep(step, make(states[t], t), t, True, mode)
+        b, mb = _port_superstep(step, make(states[t], t), t, True, mode,
+                                mask=np.ones(N, bool))
+        assert all(torch.equal(x, y) for x, y in
+                   zip(jax.tree.leaves(a.params), jax.tree.leaves(b.params)))
+        assert float(ma["loss"]) == float(mb["loss"])
 
 
 def test_pipeline_prologue_matches_jax():
@@ -508,7 +571,7 @@ def test_cli_smoke_cpu(tmp_path):
 
 
 def test_cli_refuses_other_algos_and_flags():
-    for argv in (["--algo", "adpsgd"], ["--scan-chunk", "2"],
+    for argv in (["--rate-profile", "uniform"], ["--scan-chunk", "2"],
                  ["--codec", "q4"]):
         with pytest.raises(SystemExit) as e:
             ttrain.build_parser().parse_args(argv)
@@ -541,7 +604,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), \
+            assert top not in ("jax", "jaxlib", "repro", "flax", "optax",
+                               "networkx"), \
                 f"{f.relative_to(ROOT)} imports {mod}"
 
 
