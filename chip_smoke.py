@@ -57,7 +57,27 @@ Phases, each printed on its own line:
     counters at 0 just before each; it asserts finite losses, launches
     4/0/0, 8/0/0, 4/0/0, 4/4/4 and 4/4/4, all-reduce's nodes bitwise
     equal and SGP's sum of w = 8, and prints each command's superstep
-    times and peak memory.
+    times and peak memory;
+12. the scheduler's reference: 8 nodes of the reduced model from
+    distinct models under binned traces — lognormal (sigma 0.8) with a
+    quarter of the nodes 8x slower, blocking exact and q8, non-blocking
+    q8 and overlapped q8; a churn trace (``--avail``) with two join bins
+    and two leaves, exact and q8; a ``hier:4`` trace, q8; AD-PSGD q8 —
+    every card bin restarted from the CPU's state and held to the same
+    bound, join bins bitwise; planted faults that must fail it: the bin's
+    h given to non-participants, a join that keeps the joiner's own row;
+13. ``--rate-profile uniform`` equals ``none`` bitwise on the card (3
+    supersteps of transformer-wmt cut to 2 layers at full width, fp32,
+    q8, deterministic algorithms);
+14. the scheduled commands at full width: ``--quantize`` with
+    ``--rate-profile lognormal --rate-sigma 0.8 --straggler 0.25:8``,
+    the same overlapped, ``--rate-profile uniform_async --avail ...`` and
+    ``--rate-profile lognormal --topology hier:4``, ``--steps 3`` (4 to 9
+    bins) each, launch counters at 0 just before each run; it asserts
+    finite losses, sgd_update = Σ_s max_i h_{s,i}, quantize_mod = the
+    gossip bins, decode_avg = the gossip bins with a participant, no
+    codec launch in a join bin, and prints bins, density, bin times, peak
+    memory and the cost model's ``sched_cost`` (H100 datasheet figures).
 
 The card's line is printed again before the kernels' JSON record, which
 is the line before the last; the last line is
@@ -76,8 +96,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 TPU_KERNELS = {
     "sgd_update": "src/repro/kernels/sgd_update.py:43",
     "quantize_mod": "src/repro/kernels/quantize_mod.py:48",
@@ -95,8 +113,16 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
+PHASE_LOG = os.path.join(OUT_DIR, "chip_smoke_phases.jsonl")
+
+
 def log(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """Print a phase's JSON line, and keep it in PHASE_LOG as well, so a
+    long run's first lines survive when only the end of its output is kept."""
+    line = json.dumps({"phase": phase, **kw})
+    print(line, flush=True)
+    with open(PHASE_LOG, "a") as f:
+        f.write(line + "\n")
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -117,8 +143,12 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def bound(n_bytes: int, n_ops: int):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    """The least time (ms) the card could take: the larger of the bytes
+    over the HBM rate and the fp32 operations over the fp32 peak (the
+    datasheet figures of ``repro_torch/hardware.py``)."""
+    from repro_torch import hardware as HW
+    t_bytes = n_bytes / HW.HBM_BW * 1e3
+    t_ops = n_ops / HW.PEAK_FLOPS_FP32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -151,16 +181,10 @@ def bitwise(kernel_out, plain_out, what: str) -> float:
 def main_path_layout(n_nodes: int):
     """The flat-buffer layout of the main path (transformer-wmt, full
     width, node-stacked), built from meta tensors."""
-    import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import bucket as B
-    from repro_torch.models import param_template
-    from repro_torch.tree import tree_map
+    from repro_torch.sched.cost import model_layout
     cfg = get_config("transformer-wmt")
-    meta = tree_map(lambda i: torch.empty((n_nodes,) + i.shape,
-                                          dtype=torch.bfloat16, device="meta"),
-                    param_template(cfg))
-    return cfg, B.build_layout(meta)
+    return cfg, model_layout(cfg, n_nodes=n_nodes)
 
 
 def phase_kernels():
@@ -1020,6 +1044,460 @@ def phase_baselines_full_width():
     return by_path
 
 
+# the scheduler's reference cases: (name, algo, q8, mode, flags of the
+# trace, planted faults). Every case runs 8 nodes of `_reduced_engine`'s
+# model under a binned trace. The churn spec joins one node in bin 1 and
+# another in bin 5, each from a donor that has trained (so a join moves a
+# row that differs from the joiner's own), and retires two nodes before
+# bin 5, at 3 --steps of 8 nodes
+SCHED_AVAIL = ("day_night:period=4,duty=0.75,join=0.25:0.8:1.6,"
+               "leave=0.25:1.6:2.4,seed=1")
+SCHED_LOGNORMAL = ["--rate-profile", "lognormal", "--rate-sigma", "0.8",
+                   "--straggler", "0.25:8"]
+SCHED_MODES = (
+    ("lognormal_exact", "swarm", False, "blocking", SCHED_LOGNORMAL,
+     ("h_to_idle",)),
+    ("lognormal_q8", "swarm", True, "blocking", SCHED_LOGNORMAL, ()),
+    ("lognormal_q8_nonblocking", "swarm", True, "nonblocking",
+     SCHED_LOGNORMAL, ()),
+    ("lognormal_q8_overlap", "swarm", True, "overlap", SCHED_LOGNORMAL, ()),
+    ("churn_exact", "swarm", False, "blocking",
+     ["--rate-profile", "uniform_async", "--avail", SCHED_AVAIL],
+     ("join_keeps_own_row",)),
+    ("churn_q8", "swarm", True, "blocking",
+     ["--rate-profile", "uniform_async", "--avail", SCHED_AVAIL],
+     ("join_keeps_own_row",)),
+    ("hier4_q8", "swarm", True, "blocking",
+     ["--rate-profile", "lognormal", "--topology", "hier:4"], ()),
+    ("adpsgd_q8", "adpsgd", True, "blocking", SCHED_LOGNORMAL, ()),
+)
+
+
+def _sched_schedule(flags, algo: str, n: int = 8, steps: int = 3):
+    """The binned schedule the training driver builds for `flags`."""
+    from repro_torch.algorithms import CAPABILITIES
+    from repro_torch.core.graph import make_graph
+    from repro_torch.core.swarm import SwarmConfig
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(
+        ["--nodes", str(n), "--steps", str(steps), "--h-max", "4",
+         "--algo", algo] + flags)
+    caps = CAPABILITIES[algo]
+    scfg = SwarmConfig(n_nodes=n, H=2 if caps.local_H else 1,
+                       h_mode="trace" if caps.local_H else "fixed", h_max=4)
+    sched, _, _ = train.build_schedule(args, make_graph("complete", n), scfg,
+                                       caps)
+    return sched
+
+
+def _sched_engine(device, algo: str, quantize: bool, mode: str,
+                  fault: str = ""):
+    """A bin of `algo` under a trace on `_reduced_engine`'s model with 8
+    nodes (trace h-mode, h_max 4), its q8 codec (which remembers the scale
+    of every encode) and a function that runs bin s from a state on any
+    device: the join bootstrap on a join bin, else the masked superstep.
+    `fault` plants a known-wrong bin: "h_to_idle" (the non-participants
+    take the bin's largest h) or "join_keeps_own_row" (the joiner keeps
+    its own model)."""
+    import numpy as np
+    import torch
+    from repro_torch.algorithms import make_algorithm
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.exchange import GossipTransport
+    from repro_torch.core.swarm import SwarmConfig, SwarmState
+    from repro_torch.core.swarm import make_join_step
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import make_optimizer
+    from repro_torch.quant.codecs import LatticeCodec
+    from repro_torch.quant.schemes import ModularQuantConfig
+    from repro_torch.sched import EVENT_JOIN
+    n = 8
+
+    class Codec(LatticeCodec):
+        """The q8 codec, remembering the scales of every encode and the
+        receiver's reference buffer of every decode."""
+
+        def __init__(self):
+            super().__init__(ModularQuantConfig())
+            self.scales, self.ybufs = [], []
+
+        def encode(self, *a, **kw):
+            q, sc = super().encode(*a, **kw)
+            self.scales.append(sc.reshape(-1).cpu())
+            return q, sc
+
+        def decode_avg(self, wire, ybuf, *a, **kw):
+            self.ybufs.append(ybuf.cpu())
+            return super().decode_avg(wire, ybuf, *a, **kw)
+
+    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
+    codec = Codec()
+    opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
+    kw = dict(loss_fn=TransformerLM(cfg).functional_loss,
+              opt_update=opt.update, lr_fn=lambda s: 0.05, n_nodes=n,
+              transport=GossipTransport(n, codec=codec))
+    scfg = SwarmConfig(n_nodes=n, H=2, h_mode="trace", h_max=4,
+                       quantize=quantize, nonblocking=mode != "blocking",
+                       overlap=mode == "overlap")
+    if algo == "swarm":
+        kw["scfg"] = scfg
+        depth = 4
+    else:
+        kw.update(quantize=quantize, nonblocking=mode != "blocking")
+        depth = 1
+    step = make_algorithm(algo, **kw)
+    join = make_join_step(scfg) if mode != "overlap" else None
+
+    def move(x):
+        if x is None or isinstance(x, torch.Tensor):
+            return None if x is None else x.to(device)
+        if isinstance(x, tuple):
+            return tuple(move(v) for v in x)
+        return {k: move(v) for k, v in x.items()}
+
+    def run(state, s, inputs):
+        sched, batches, us = inputs
+        state = SwarmState(move(state.params), move(state.opt),
+                           move(state.prev), s, move(state.inflight))
+        perm, h, mask = sched.perms[s], sched.h[s], sched.mask[s]
+        if sched.kinds is not None and sched.kinds[s] == EVENT_JOIN:
+            if fault == "join_keeps_own_row":
+                mask = np.zeros_like(mask)
+            return join(state, perm, mask), None
+        if fault == "h_to_idle":
+            h = np.where(mask, h, h.max()).astype(np.int32)
+        batch = {k: torch.from_numpy(v[s]).to(device)
+                 for k, v in batches[depth].items()}
+        return step(state, batch, perm, h, None, mask,
+                    u=torch.from_numpy(us[s]).to(device))
+
+    return run, codec, opt, cfg, scfg
+
+
+def _sched_readings(card_params, cpu_params, scales, perm, ybuf):
+    """`_readings`, plus the q8 coordinates at the edge of the lattice's
+    reach. A node decodes its partner's codes against its own buffer y
+    (`ybuf`, the CPU's), which holds only while |x_j - y_i| < 128 s_j; the
+    reference wraps beyond it. Where the CPU's decode argument
+    r = (y_j - y_i) / s_j (each node's encode input is its own y) lies
+    within 1.5 of the edge (|r| >= 126.5), an ulp upstream decides the
+    side of the wrap, and card and CPU then differ by 255/2 steps: such a
+    coordinate (|d / s - 127.5| <= 1) is counted in `wrap_edge` and not in
+    `beyond_one_step`; every other coordinate keeps the one-step bound."""
+    import torch
+    r = _readings(card_params, cpu_params, scales, perm)
+    if scales is None:
+        return r
+    from repro_torch.core import bucket as B
+    bufs = [B.pack(B.build_layout(p), p).cpu() for p in (card_params,
+                                                          cpu_params)]
+    n = len(perm)
+    idx = torch.as_tensor(perm, dtype=torch.long)
+    d = (bufs[0] - bufs[1]).abs().reshape(n, -1, 256)
+    s = scales.reshape(n, -1, 1)[idx]
+    y = ybuf.reshape(n, -1, 256)
+    edge = ((y[idx] - y) / s).abs() >= 126.5
+    flip = ((d / s) - 127.5).abs() <= 1.0
+    beyond = d > s + 2e-5
+    r["wrap_edge"] = int((beyond & edge & flip).sum())
+    r["beyond_one_step"] = int((beyond & ~(edge & flip)).sum())
+    return r
+
+
+def phase_sched_reference(card: str = "cuda"):
+    """The engine under scheduler traces on the card (kernels) against the
+    same on the CPU (plain versions), 8 nodes of `_reduced_engine`'s model
+    from one initial model (as the driver starts; distinct models would
+    put the q8 decode beyond its lattice's reach, in the reference too): a
+    lognormal (sigma 0.8) trace with a quarter of the nodes 8x slower,
+    blocking exact and q8, non-blocking q8 and overlapped q8; a churn
+    trace with two joins after gossip bins and two leaves, exact and q8; a two-tier hier:4 trace, q8; AD-PSGD q8 under the trace.
+    The CPU runs every bin of the schedule; each card bin restarts from
+    the CPU's state before it (comm copy and in-flight payload included),
+    with the same batches, bins and uniforms, and is held to the bound of
+    `_within_bound` (coordinates whose decode the CPU finds at the edge of
+    the lattice's reach are counted apart, `_sched_readings`); a join bin
+    must match bitwise. Two planted faults
+    must fail the same bound: the bin's h given to non-participants, and a
+    join that keeps the joiner's own row (planted in the join bin whose
+    donor's row differs most from the joiner's). -> {case: records}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bucket as B
+    from repro_torch.core.swarm import SwarmState, pipeline_prologue
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.data import make_node_batches
+    from repro_torch.models import init_params
+    from repro_torch.sched import EVENT_JOIN
+    from repro_torch.tree import tree_leaves, tree_map
+    n = 8
+    out = {}
+    batches = None
+    for name, algo, quantize, mode, flags, faults in SCHED_MODES:
+        sched = _sched_schedule(flags, algo)
+        S = sched.n_supersteps
+        run, cpu_codec, opt, cfg, scfg = _sched_engine("cpu", algo, quantize,
+                                                       mode)
+        if batches is None:
+            ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, 32, seed=0),
+                                    n)
+            batches = {}
+            for depth in (1, 4):
+                nbs = [make_node_batches(ds, t, 2 * depth)
+                       for t in range(12)]
+                batches[depth] = {k: np.stack([nb[k].reshape(n, depth, 2, 32)
+                                               for nb in nbs])
+                                  for k in nbs[0]}
+        check(S <= 12, f"{name}: {S} bins")
+        g = torch.Generator()
+        g.manual_seed(0)
+        params = tree_map(lambda x: x[None].repeat((n,) + (1,) * x.ndim),
+                          init_params(g, cfg, "cpu"))
+        state = SwarmState(params, opt.init(params),
+                           tree_map(torch.clone, params)
+                           if quantize or mode == "nonblocking" else None, 0)
+        rng = np.random.default_rng(2)
+        us = rng.random((S + 1, n, B.build_layout(params).n_padded),
+                        dtype=np.float32)
+        if mode == "overlap":
+            state = pipeline_prologue(scfg, state, None,
+                                      u=torch.from_numpy(us[S]))
+        inputs = (sched, batches, us)
+        states, loss_cpu, ybufs = [state], [], []
+        for s in range(S):
+            n_dec = len(cpu_codec.ybufs)
+            state, m = run(states[s], s, inputs)
+            states.append(state)
+            loss_cpu.append(None if m is None else float(m["loss"]))
+            ybufs.append(cpu_codec.ybufs[-1]
+                         if len(cpu_codec.ybufs) > n_dec else None)
+
+        def scales(codec, s):
+            if not quantize:
+                return None
+            if mode == "overlap":
+                return states[s].inflight["wire"][1].reshape(-1)
+            return codec.scales[-1]
+        is_join = [sched.kinds is not None and sched.kinds[s] == EVENT_JOIN
+                   for s in range(S)]
+        loss_card, readings = [], []
+        for s in range(S):
+            run_c, codec, _, _, _ = _sched_engine(card, algo, quantize, mode)
+            state, m = run_c(states[s], s, inputs)
+            loss_card.append(None if m is None else float(m["loss"]))
+            readings.append(_sched_readings(
+                state.params, states[s + 1].params,
+                None if is_join[s] else scales(codec, s), sched.perms[s],
+                ybufs[s]))
+        rec = dict(algo=algo, quantize=quantize, mode=mode, flags=flags,
+                   bins=S, density=sched.density(),
+                   join_bins=[s for s in range(S) if is_join[s]],
+                   retired=(None if sched.retire is None
+                            else sched.retire.sum(axis=1).tolist()),
+                   tiers=(None if sched.tiers is None
+                          else sched.tiers.tolist()),
+                   hs=sched.h.tolist(), loss_card=loss_card,
+                   loss_cpu=loss_cpu, readings=readings, planted={})
+        def row_gap(s):
+            """max |donor - joiner| over the parameters before join bin s"""
+            j = int(np.nonzero(sched.mask[s])[0][0])
+            d = int(sched.perms[s][j])
+            return max(float((x[j] - x[d]).abs().max())
+                       for x in tree_leaves(states[s].params))
+        for fault in faults:
+            if fault == "join_keeps_own_row":
+                s_f = max((s for s in range(S) if is_join[s]), key=row_gap)
+                check(row_gap(s_f) > 0, f"{name}: every join copies a row "
+                      "equal to the joiner's own")
+            else:
+                s_f = next(s for s in range(S)
+                           if (sched.h[s][~sched.mask[s]] == 0).any()
+                           and sched.h[s].max() > 0)
+            run_f, codec, _, _, _ = _sched_engine(card, algo, quantize, mode,
+                                                  fault)
+            state, _ = run_f(states[s_f], s_f, inputs)
+            rec["planted"][fault] = dict(bin=s_f, **_sched_readings(
+                state.params, states[s_f + 1].params,
+                None if is_join[s_f] else scales(codec, s_f),
+                sched.perms[s_f], ybufs[s_f]))
+        out[name] = rec
+        check(S >= 4 and sched.density() < 1.0,
+              f"{name}: schedule of {S} bins, density {sched.density()}")
+        pairs = [(a, b) for a, b in zip(loss_card, loss_cpu)
+                 if a is not None]
+        check(all(math.isfinite(a) for a, _ in pairs),
+              f"{name}: non-finite loss on card")
+        check(np.allclose([a for a, _ in pairs], [b for _, b in pairs],
+                          rtol=1e-4, atol=0),
+              f"{name}: card loss {loss_card} != CPU loss {loss_cpu}")
+        check(all(_within_bound(r) for r in readings),
+              f"{name}: card vs CPU beyond the bound: {readings}")
+        check(all(readings[s]["max_abs"] == 0.0 for s in range(S)
+                  if is_join[s]), f"{name}: a join bin is not bitwise")
+        check(not any(_within_bound(r) for r in rec["planted"].values()),
+              f"{name}: a planted fault passes the bound: {rec['planted']}")
+    check(out["churn_exact"]["join_bins"] and
+          sum(out["churn_exact"]["retired"]) > 0,
+          "churn case: no join bin or no leave")
+    check(len(set(out["hier4_q8"]["tiers"])) == 2,
+          "hier:4 case: bins of one tier only")
+    log("sched_reference", **out)
+    return out
+
+
+def phase_sched_uniform_exact():
+    """--rate-profile uniform against --rate-profile none, bitwise on the
+    card: 3 supersteps of 8 nodes of transformer-wmt cut to 2 layers at its
+    full width in fp32, q8 blocking, under PyTorch's deterministic
+    algorithms. The synchronous trace's bins are the plain run's matchings
+    with an all-True mask, so any difference is the mask's path."""
+    import dataclasses
+    import warnings
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    argv = ["--arch", "transformer-wmt", "--nodes", "8", "--H", "2",
+            "--steps", "3", "--quantize"]
+    cfg = dataclasses.replace(get_config("transformer-wmt"), n_layers=2,
+                              dtype="float32", opt_state_dtype="float32")
+    _fresh_memory()
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for profile in ("none", "uniform"):
+                tr = train.build(train.build_parser().parse_args(
+                    argv + ["--rate-profile", profile]), cfg)
+                check(profile == "none" or tr.masks.all(),
+                      "uniform trace: a bin with an idle node")
+                runs[profile] = []
+                for t in range(3):
+                    m = tr.superstep(t)
+                    runs[profile].append((tree_leaves(tr.state.params),
+                                          float(m["loss"]),
+                                          float(m["gamma"])))
+                del tr
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = [all(same_bits(x, y) for x, y in zip(a[0], b[0]))
+             and a[1:] == b[1:]
+             for a, b in zip(runs["none"], runs["uniform"])]
+    log("sched_uniform_exact", n_layers=cfg.n_layers, d_model=cfg.d_model,
+        bitwise_equal=equal,
+        losses={p: [r[1] for r in v] for p, v in runs.items()})
+    del runs
+    _fresh_memory()
+    check(all(equal), f"uniform != none on the card: {equal}")
+
+
+# the scheduler's four commands at full transformer-wmt
+# width and depth (8 nodes, bf16), 3 --steps each (4 to 9 bins)
+SCHED_COMMANDS = {
+    "sched_lognormal_q8": ["--quantize"] + SCHED_LOGNORMAL,
+    "sched_overlap_q8": ["--quantize", "--nonblocking", "--overlap",
+                         "--rate-profile", "lognormal", "--straggler",
+                         "0.25:8"],
+    "sched_churn_q8": ["--quantize", "--rate-profile", "uniform_async",
+                       "--avail", SCHED_AVAIL],
+    "sched_hier4_q8": ["--quantize", "--rate-profile", "lognormal",
+                       "--topology", "hier:4"],
+}
+
+
+def phase_sched_full_width():
+    """Each scheduled command at full width, every launch counter at 0
+    just after its build (the overlapped pipeline's prologue encode is
+    not counted) and just before its run; -> {path: launches}. Asserts
+    finite losses, at least 4 bins, sgd_update = Σ_s max_i h_{s,i},
+    quantize_mod = the gossip bins, decode_avg = the gossip bins with a
+    participant, 0 codec launches in every join bin, a retire and a join
+    in the churn run and both tiers in the hier run; prints the bins and
+    density, each bin's wall time and their median over the gossip bins
+    after the first, peak memory and the sched_cost dict priced on the
+    H100's datasheet figures."""
+    import torch
+    from repro_torch import hardware as HW
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    base = ["--arch", "transformer-wmt", "--nodes", "8", "--steps", "3",
+            "--log-every", "1"]
+    by_path, out = {}, {}
+    for name, flags in SCHED_COMMANDS.items():
+        argv = base + flags
+        args = train.build_parser().parse_args(
+            argv + ["--out", os.path.join(OUT_DIR, f"chip_smoke_{name}.json")])
+        _fresh_memory()
+        tr = train.build(args)
+        sched = tr.schedule
+        S = sched.n_supersteps
+        join_deltas = []
+        if tr.join is not None:
+            join = tr.join
+
+            def counted_join(state, perm, mask, join=join):
+                before = dict(LAUNCHES)
+                state = join(state, perm, mask)
+                join_deltas.append({k: LAUNCHES[k] - before[k]
+                                    for k in LAUNCHES})
+                return state
+            tr.join = counted_join
+        reset_launch_counts()
+        t0 = time.time()
+        hist = train.run(args, tr)
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        with open(args.out) as f:
+            cost = json.load(f)["sched_cost"]
+        gossip = [s for s in range(S) if not tr.is_join(s)]
+        want = {"sgd_update": int(sum(int(sched.h[s].max())
+                                      for s in gossip)),
+                "quantize_mod": len(gossip),
+                "decode_avg": sum(1 for s in gossip if sched.mask[s].any())}
+        check(S >= 4, f"{name}: {S} bins")
+        check(len(hist) == S and all(math.isfinite(h["loss"])
+                                     for h in hist if "loss" in h),
+              f"{name}: non-finite or missing records {hist}")
+        check(counts == want, f"{name}: launch counts {counts} != {want}")
+        check(all(d["quantize_mod"] == d["decode_avg"] == 0
+                  for d in join_deltas),
+              f"{name}: a codec kernel ran in a join bin {join_deltas}")
+        if name == "sched_churn_q8":
+            check(join_deltas and sched.retire.any(),
+                  f"{name}: no join or no leave in the run")
+        if name == "sched_hier4_q8":
+            check(len(set(sched.tiers.tolist())) == 2,
+                  f"{name}: bins of one tier only")
+        walls = [h["wall_s"] for h in hist]
+        bin_s = [b - a for a, b in zip([0.0] + walls, walls)]
+        steady = [bin_s[s] for s in gossip[1:]]
+        out[name] = dict(
+            argv=argv, bins=S, density=sched.density(),
+            join_bins=[s for s in range(S) if tr.is_join(s)],
+            tiers=None if sched.tiers is None else sched.tiers.tolist(),
+            hs_max=[int(x) for x in sched.h.max(axis=1)],
+            launches=counts, launches_in_join_bins=join_deltas,
+            records=hist, bin_s=bin_s,
+            bin_median_s=statistics.median(steady) if steady else None,
+            bin_note="wall time of each bin from the driver's records; the "
+                     "median is over the gossip bins after the first",
+            max_memory_allocated_bytes=peak, run_s=run_s,
+            sched_cost=cost,
+            priced_on={"card": HW.CARD, "power_limit_w": HW.POWER_LIMIT_W,
+                       "peak_flops_bf16": HW.PEAK_FLOPS_BF16,
+                       "hbm_bw": HW.HBM_BW, "nvlink_bw": HW.NVLINK_BW,
+                       "ib_ndr_bw": HW.IB_NDR_BW,
+                       "kind": "datasheet peaks, not measurements"})
+        by_path[name] = counts
+        del tr
+    _fresh_memory()
+    log("sched_full_width", **out)
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1029,6 +1507,8 @@ def main() -> int:
     # deterministic algorithms of phase_overlap_exact reproduce
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(PHASE_LOG, "w").close()
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1054,12 +1534,17 @@ def main() -> int:
     phase_checkpoint()
     phase_baselines_reference()
     baselines = phase_baselines_full_width()
+    phase_sched_reference()
+    phase_sched_uniform_exact()
+    sched = phase_sched_full_width()
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": TPU_KERNELS[n], "launches": counts[n],
                 "launches_by_path": {"overlap_q8_geometric": counts[n],
                                      "blocking_q8": blocking[n],
                                      **{p: c[n] for p, c in
-                                        baselines.items()}},
+                                        baselines.items()},
+                                     **{p: c[n] for p, c in
+                                        sched.items()}},
                 **{k: records[n][k] for k in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}} for n in TPU_KERNELS]

@@ -131,10 +131,8 @@ def make_algorithm(name: str, **kw) -> Callable:
 
 
 _WAITS = "is not ported yet: it waits for the {} item of ROADMAP.md"
-_SCHED = "scheduler-bridge"
 _CODECS = "bf16/top-k codec"
 _NCCL = "multi-GPU (NCCL) transport"
-_HIER = "churn and hierarchy"
 
 
 def _codec_family(spec) -> Tuple[str, bool]:
@@ -165,17 +163,16 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     """Config-time validation of a run against the capability matrix.
 
     Raises ValueError with the algorithm's matrix row where the reference
-    does, then ValueError naming the ROADMAP.md item for what the port
-    does not carry yet: transports other than gather (and the *_legacy
-    oracles), the bf16 and top-k codecs, ``--rate-profile``, ``--avail``,
-    ``--topology`` and ``--compress-state``. There is no environment
-    default: None means gather, the q8 lattice, no topology. Returns the
-    AlgoCaps row otherwise."""
+    does (``--rate-profile``, ``--avail`` and ``--topology`` included),
+    then ValueError naming the ROADMAP.md item for what the port does not
+    carry yet: transports other than gather (and the *_legacy oracles),
+    the bf16 and top-k codecs and ``--compress-state``. There is no
+    environment default: None means gather, the q8 lattice, no topology,
+    no availability profile. Returns the AlgoCaps row otherwise."""
     if algo not in CAPABILITIES:
         raise ValueError(f"unknown algorithm {algo!r}; known: "
                          f"{sorted(CAPABILITIES)}")
     caps = CAPABILITIES[algo]
-    del n_nodes
 
     def reject(what):
         raise ValueError(
@@ -201,9 +198,13 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
         if not caps.churn:
             reject(f"--avail {avail} (elastic membership)")
         if base != "gather":
-            reject(f"--avail {avail} with --gossip-impl {gossip_impl}")
+            reject(f"--avail {avail} with --gossip-impl {gossip_impl} "
+                   "(join pairs are dynamic — the static-matching "
+                   "transports cannot carry them)")
         if overlap:
-            reject(f"--avail {avail} with the overlap pipeline")
+            reject(f"--avail {avail} with the overlap pipeline (an "
+                   "in-flight payload packed before a join predates the "
+                   "joiner's membership)")
     family = None
     if quantize:
         family, residual = _codec_family(codec)
@@ -216,17 +217,24 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
                        "transport)")
             if overlap:
                 reject(f"--codec {codec} with the overlap pipeline")
+    if n_nodes is not None:
+        from repro_torch.core.hier import parse_topology
+        parse_topology(topology, n_nodes)
     hier = topology is not None and \
         str(topology).strip() not in ("", "flat", "none")
     if hier:
-        if not str(topology).startswith("hier:"):
+        if n_nodes is None and not str(topology).startswith("hier:"):
+            # grammar-only check when the caller has no node count
             raise ValueError(f"unknown topology spec {topology!r}")
         if not caps.hier:
             reject(f"--topology {topology} (two-tier hierarchical gossip)")
         if base == "ppermute":
-            reject(f"--topology {topology} with --gossip-impl {gossip_impl}")
+            reject(f"--topology {topology} with --gossip-impl {gossip_impl} "
+                   "(ONE static matching cannot carry both tiers — use "
+                   "gather or ppermute_pool)")
         if avail is not None:
-            reject(f"--topology {topology} with --avail")
+            reject(f"--topology {topology} with --avail (hier traces do "
+                   "not carry join/leave events yet)")
     if compress_state:
         if algo != "swarm":
             reject("--compress-state (the wire-compressed comm copy lives "
@@ -248,11 +256,4 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
         raise ValueError(f"--codec {codec} {_WAITS.format(_CODECS)}")
     if compress_state:
         raise ValueError(f"--compress-state {_WAITS.format(_CODECS)}")
-    if rate_profile not in (None, "none"):
-        raise ValueError(f"--rate-profile {rate_profile} "
-                         f"{_WAITS.format(_SCHED)}")
-    if avail is not None:
-        raise ValueError(f"--avail {avail} {_WAITS.format(_HIER)}")
-    if hier:
-        raise ValueError(f"--topology {topology} {_WAITS.format(_HIER)}")
     return caps

@@ -16,5 +16,5 @@ def load_all():
 
 
 from repro_torch.configs.base import (  # noqa: E402,F401
-    ModelConfig, get_config, list_archs, reduced, register,
+    InputShape, ModelConfig, get_config, list_archs, reduced, register,
 )

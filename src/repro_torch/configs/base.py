@@ -78,6 +78,19 @@ class ModelConfig:
             total += (3 if self.gated_mlp else 2) * d * self.d_ff
         return total
 
+    def n_active_params(self) -> int:
+        """Parameters touched per token; every ported layer is dense, so
+        all of them."""
+        return self.n_params()
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 

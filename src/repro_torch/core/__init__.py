@@ -7,11 +7,13 @@ from repro_torch.core.exchange import (  # noqa: F401
 )
 from repro_torch.core.graph import (  # noqa: F401
     Graph, complete, hierarchical, hypercube, irregular_graph, make_graph,
-    random_regular, ring, sample_matching, torus2d,
+    random_regular, ring, sample_matching, sample_weighted_matching, torus2d,
 )
+from repro_torch.core.hier import HierTopology, parse_topology  # noqa: F401
 from repro_torch.core.potential import gamma_potential  # noqa: F401
 from repro_torch.core.swarm import (  # noqa: F401
-    SwarmConfig, SwarmState, codec_checkpoint_tree, make_mean_model_eval,
-    make_swarm_step, pipeline_epilogue, pipeline_prologue,
-    restore_codec_state, sample_h_counts, swarm_init,
+    SwarmConfig, SwarmState, codec_checkpoint_tree, make_join_step,
+    make_mean_model_eval, make_swarm_step, pipeline_epilogue,
+    pipeline_prologue, restore_codec_state, retire_nodes, sample_h_counts,
+    swarm_init,
 )

@@ -1,4 +1,4 @@
-"""Interaction graphs and the uniform matching sampler (numpy copy of
+"""Interaction graphs and the matching samplers (numpy copy of
 ``repro/core/graph.py``): the same kind, size and seed give the same edge
 set, degree and λ₂, and the same seed the same matchings, as the JAX
 package.
@@ -244,4 +244,45 @@ def sample_matching(graph: Graph, rng: np.random.Generator,
         pairs = [pairs[i] for i in idx]
     for a, b in pairs:
         perm[a], perm[b] = b, a
+    return perm
+
+
+def sample_weighted_matching(graph: Graph, rng: np.random.Generator,
+                             edge_weights: np.ndarray,
+                             dead: "np.ndarray | None" = None) -> np.ndarray:
+    """Non-uniform (weight-proportional) random matching — the degree- and
+    rate-tolerant sampler for heterogeneous graphs and schedules.
+
+    Greedy over a weighted random edge order (Efraimidis–Spirakis keys:
+    sorting by u^(1/w) samples without replacement with probability
+    proportional to w), so heavier edges enter the matching first — the
+    matching-level analogue of the scheduler's weighted partner choice
+    (`sched/clocks.py`), usable on irregular graphs where the uniform
+    sampler's equal-marginal argument (which needs regularity) breaks.
+    With uniform weights this reduces to `sample_matching`'s distribution.
+    The keys and their sort stay numpy, as in the reference, so ties break
+    in the same order.
+    """
+    w = np.asarray(edge_weights, np.float64)
+    if w.shape != (graph.m,):
+        raise ValueError(f"edge_weights shape {w.shape} != ({graph.m},): one"
+                         " weight per graph edge (graph.edges order)")
+    if not np.all(np.isfinite(w)) or np.any(w < 0):
+        raise ValueError("edge_weights must be finite and >= 0")
+    if w.sum() <= 0:
+        raise ValueError("edge_weights sum to 0 — no edge can be sampled")
+    keys = np.where(w > 0, rng.random(graph.m) ** (1.0 / np.maximum(w, 1e-300)),
+                    -1.0)
+    order = np.argsort(-keys)
+    perm = np.arange(graph.n, dtype=np.int32)
+    used = np.zeros(graph.n, bool)
+    if dead is not None:
+        used |= np.asarray(dead, bool)
+    for e in order:
+        if keys[e] < 0:        # zero-weight edges never match
+            break
+        a, b = graph.edges[e]
+        if not used[a] and not used[b]:
+            used[a] = used[b] = True
+            perm[a], perm[b] = b, a
     return perm

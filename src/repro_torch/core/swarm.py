@@ -7,7 +7,8 @@ leading [n_nodes] dim). A superstep is
 
   1. every node's h_i <= h_max local momentum-SGD steps (gradients per
      node, one fused ``sgd_update`` sweep over all nodes per step); h_i is
-     H (``h_mode="fixed"``) or a clipped geometric draw of mean H;
+     H (``h_mode="fixed"``), a clipped geometric draw of mean H, or the
+     scheduler bridge's count (``h_mode="trace"``: 0 at non-participants);
   2. one uniformly sampled matching of the interaction graph: matched
      pairs average over the flat-buffer transport — fp32 exact, or with
      ``quantize`` the lattice codec (``quantize_mod`` encode, permute,
@@ -28,6 +29,11 @@ payload of interaction t is encoded at the end of superstep t-1 and rides
 in ``SwarmState.inflight``; its permute is dispatched before the local
 steps (on a side CUDA stream on the card) and lands against the stale
 packed S. ``pipeline_prologue`` primes it, ``pipeline_epilogue`` drains it.
+
+Elastic membership (a scheduler trace with ``--avail``): a join bin runs
+``make_join_step`` — the joiner copies its donor's model, one row gather
+on the packed buffer, no batch, no encode — in place of a superstep, and
+``retire_nodes`` retires a permanently left node's codec state.
 """
 from __future__ import annotations
 
@@ -48,15 +54,16 @@ from repro_torch.quant.codecs import LatticeCodec
 from repro_torch.quant.schemes import ModularQuantConfig
 from repro_torch.tree import tree_leaves, tree_map
 
-H_MODES = ("fixed", "geometric")
+H_MODES = ("fixed", "geometric", "trace")
 
 
 @dataclass(frozen=True)
 class SwarmConfig:
     n_nodes: int
     H: int = 2                   # (mean) local steps per interaction
-    h_mode: str = "fixed"        # fixed | geometric (h_i ~ Geom(1/H))
-    h_max: int = 8               # loop bound (and clip) of the geometric mode
+    h_mode: str = "fixed"        # fixed | geometric (h_i ~ Geom(1/H)) |
+    # trace (h supplied by the scheduler bridge, sched/bridge.py)
+    h_max: int = 8               # loop bound of the variable h modes
     nonblocking: bool = False    # Algorithm 2 semantics
     overlap: bool = False        # pipelined non-blocking superstep
     quantize: bool = False       # Extension 3: lattice gossip at quant.bits
@@ -66,8 +73,7 @@ class SwarmConfig:
 
     def __post_init__(self):
         if self.h_mode not in H_MODES:
-            raise ValueError(f"h_mode={self.h_mode!r}: the port samples "
-                             f"{H_MODES}")
+            raise ValueError(f"h_mode={self.h_mode!r}: one of {H_MODES}")
         if self.overlap and not self.nonblocking:
             raise ValueError("overlap=True pipelines Algorithm 2: set "
                              "nonblocking=True")
@@ -75,7 +81,8 @@ class SwarmConfig:
     @property
     def h_loop_bound(self) -> int:
         """Bound of the local-step loop and depth of a superstep's batch:
-        H for fixed h, h_max for the geometric mode."""
+        H for fixed h, h_max for the variable modes (geometric sampling,
+        scheduler traces)."""
         return self.H if self.h_mode == "fixed" else self.h_max
 
 
@@ -322,6 +329,74 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
     return pipelined_superstep if cfg.overlap else superstep
 
 
+_WIRE_PREV = ("join bootstrap re-bases the per-leaf comm copy; the "
+              "wire-tuple prev of compress_state is rejected at config "
+              "time (registry)")
+
+
+def make_join_step(cfg: SwarmConfig):
+    """Join bootstrap of elastic membership: returns `join_step(state,
+    perm, join_mask) -> state`.
+
+    The scheduler emits an exclusive join bin (``sched/bridge.py``) whose
+    `perm` swaps (joiner, donor) and whose `join_mask` marks the joiner.
+    The bootstrap packs the node-stacked parameters once, gathers the rows
+    once (``buf[perm]``, so the joiner's row holds the donor's payload),
+    selects the received rows at joiners only and unpacks; every other
+    node round-trips bitwise (pack/unpack is exact). The joiner's comm
+    copy `prev` is re-based to its new model and its error-feedback
+    residual (when one exists) is zeroed; its momentum stays as
+    initialized (the paper averages models only). It takes no batch and
+    no generator, and launches neither codec kernel: a join bin is not a
+    gossip superstep. Refused in the overlap pipeline (an in-flight
+    payload packed before the join would predate the joiner)."""
+    assert not cfg.overlap, \
+        "join bootstrap needs the non-pipelined driver (overlap=False): " \
+        "an in-flight payload packed before the join would go stale"
+    block = LatticeCodec(cfg.quant).block
+
+    def join_step(state: SwarmState, perm, join_mask) -> SwarmState:
+        assert not isinstance(state.prev, tuple), _WIRE_PREV
+        with record_function("swarm.join"):
+            layout = B.build_layout(state.params, block=block)
+            buf = B.pack(layout, state.params)
+            device = buf.device
+            perm_t = torch.as_tensor(np.asarray(perm), dtype=torch.int64,
+                                     device=device)
+            jm = as_mask(join_mask, device)
+            recv = buf[perm_t]                 # the one payload gather
+            new_buf = torch.where(jm[:, None], recv, buf)
+            del buf, recv
+            params = B.unpack(layout, new_buf)
+            del new_buf
+            prev = state.prev
+            if prev is not None:
+                prev = select(jm, params, prev)
+            residual = state.residual
+            if residual is not None:
+                residual = torch.where(jm[:, None], 0.0, residual)
+        return SwarmState(params, state.opt, prev, state.step + 1,
+                          state.inflight, residual)
+
+    return join_step
+
+
+def retire_nodes(state: SwarmState, left_mask) -> SwarmState:
+    """Permanent-leave retirement. A left node's lane stays allocated but
+    the scheduler never matches it again (its mask rows are False from
+    then on), so its parameters, momentum and comm copy freeze in place;
+    what is retired here is its error-feedback residual, zeroed so that
+    the post-leave state does not depend on when it was saved. The port
+    carries no residual yet (the top-k codec is not ported), so the
+    state comes back as it was."""
+    if state.residual is None:
+        return state
+    lm = as_mask(left_mask, state.residual.device)
+    residual = torch.where(lm[:, None], 0.0, state.residual)
+    return SwarmState(state.params, state.opt, state.prev, state.step,
+                      state.inflight, residual)
+
+
 def make_mean_model_eval(loss_fn: Callable):
     """The swarm's true average model μ against the per-node models (the
     paper's §5 check). μ comes from ``checkpoint.mean_model_tree``, the
@@ -344,8 +419,13 @@ def make_mean_model_eval(loss_fn: Callable):
 
 def sample_h_counts(cfg: SwarmConfig, rng: np.random.Generator) -> np.ndarray:
     """Host-side per-node local-step counts for this superstep: fixed H
-    (draws nothing from `rng`), or Geom(1/H) clipped to [1, h_max]."""
+    (draws nothing from `rng`), or Geom(1/H) clipped to [1, h_max]. The
+    trace mode's counts come from the scheduler bridge instead."""
     if cfg.h_mode == "fixed":
         return np.full((cfg.n_nodes,), cfg.H, np.int32)
-    h = rng.geometric(1.0 / cfg.H, size=cfg.n_nodes)
-    return np.clip(h, 1, cfg.h_max).astype(np.int32)
+    if cfg.h_mode == "geometric":
+        h = rng.geometric(1.0 / cfg.H, size=cfg.n_nodes)
+        return np.clip(h, 1, cfg.h_max).astype(np.int32)
+    raise ValueError(
+        f"h_mode={cfg.h_mode!r}: per-node counts come from the scheduler "
+        "bridge (sched/bridge.py engine_inputs), not from sampling")

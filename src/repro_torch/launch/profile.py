@@ -5,11 +5,17 @@
       --trace superstep_trace.json
   PYTHONPATH=src python -m repro_torch.launch.profile --nodes 8 \
       --algo dpsgd --graph ring
+  PYTHONPATH=src python -m repro_torch.launch.profile --nodes 8 \
+      --quantize --rate-profile uniform_async --steps 4 \
+      --avail day_night:period=4,duty=0.75,join=0.25:0.5:1.5 --profile-join
 
 Builds the training driver's run (same flags as ``repro_torch.launch.train``,
-``--algo`` and ``--graph`` included, so a baseline's superstep breaks down
-the same way),
-runs ``--warmup`` supersteps, then one superstep under ``torch.profiler``
+``--algo``, ``--graph`` and the scheduler's ``--rate-profile``,
+``--straggler``, ``--avail`` and ``--topology`` included, so a baseline's
+superstep or a scheduled bin breaks down the same way),
+runs ``--warmup`` supersteps (bins), then one under ``torch.profiler`` —
+with ``--profile-join`` the first join bin at or after ``--warmup``, whose
+bootstrap is the span ``swarm.join`` —
 and prints one JSON object: the superstep's wall time (host clock, ending
 in a device sync), the device's busy time (union of kernel, memcpy and
 memset intervals in the trace) and idle share, the device-busy time inside
@@ -154,6 +160,17 @@ def summarize(trace: dict, wall_ms: float, top: int = 12) -> dict:
     }
 
 
+def advance(tr, t: int):
+    """Run bin t of the trainer's run as the training driver does: retire
+    the nodes that left before it, then the join bootstrap or the
+    superstep; -> the superstep's loss (None for a join bin)."""
+    tr.retire(t)
+    if tr.is_join(t):
+        tr.join_bin(t)
+        return None
+    return float(tr.superstep(t)["loss"])
+
+
 def main(argv=None) -> dict:
     ap = build_parser()
     ap.add_argument("--warmup", type=int, default=1,
@@ -161,20 +178,30 @@ def main(argv=None) -> dict:
     ap.add_argument("--trace", default=None,
                     help="where to write the chrome trace (default: a file "
                          "next to --out, or not kept)")
+    ap.add_argument("--profile-join", action="store_true",
+                    help="profile the first join bin at or after --warmup "
+                         "(needs --avail; the schedule spans --steps)")
     args = ap.parse_args(argv)
-    args.steps = args.warmup + 1
+    if not args.profile_join:
+        args.steps = args.warmup + 1
     tr = build(args)
+    target = args.warmup
+    if args.profile_join:
+        joins = [t for t in range(args.warmup, tr.n_steps) if tr.is_join(t)]
+        if not joins:
+            ap.error("--profile-join: no join bin at or after --warmup in "
+                     "this schedule (raise --steps or change --avail)")
+        target = joins[0]
     on_card = tr.device.type == "cuda"
-    for t in range(args.warmup):
-        float(tr.superstep(t)["loss"])
+    for t in range(target):
+        advance(tr, t)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if on_card:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
         torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        m = tr.superstep(args.warmup)
-        loss = float(m["loss"])
+        loss = advance(tr, target)
         if on_card:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -192,7 +219,8 @@ def main(argv=None) -> dict:
         for sp in summary["spans"].values():
             sp["device_busy_ms"] = None
         summary["permute_overlap"] = None
-    summary.update(step=args.warmup, loss=loss, device=str(tr.device),
+    summary.update(step=target, bin="join" if tr.is_join(target) else "mix",
+                   loss=loss, device=str(tr.device),
                    device_name=(torch.cuda.get_device_name(0) if on_card
                                 else "cpu"))
     print(json.dumps(summary), flush=True)

@@ -1,0 +1,82 @@
+"""Analytic FLOP / HBM-byte model of one training superstep: the slice of
+``repro/roofline/analytic.py`` that the scheduler's cost model
+(``sched/cost.py``) reads, over the port's own dense configs.
+
+Conventions (bf16 params/activations unless configured otherwise):
+  train superstep (per node, x H local steps):
+    flops  = (6 + 2*remat) * N_active * tokens + attention term + CE head term
+    bytes  = params (fwd read + bwd read + remat re-read) + grad write/read
+             + momentum read/write + param write + activation checkpoints rw
+             + attention KV traffic
+
+The formulas are the reference's, term for term, so the same config gives
+the same counts; the port's configs carry attention layers only (no
+sliding-window or state-space mixers, no experts), so those terms are 0.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import InputShape, ModelConfig
+
+
+def _dtype_bytes(name: str) -> int:
+    return {"bfloat16": 2, "float32": 4, "float16": 2}[name]
+
+
+def _attn_layer_counts(cfg: ModelConfig):
+    """(n_global, n_swa, n_mamba) layers."""
+    g = sum(1 for mx, _ in cfg.layers if mx == "attn")
+    s = sum(1 for mx, _ in cfg.layers if mx == "swa")
+    m = sum(1 for mx, _ in cfg.layers if mx == "mamba")
+    return g, s, m
+
+
+def attention_flops_per_token(cfg: ModelConfig, ctx_len: int) -> float:
+    """QK^T + PV fwd flops per token (full ctx for global, window for swa)."""
+    g, s, _ = _attn_layer_counts(cfg)
+    hd = cfg.resolved_head_dim
+    width = cfg.n_heads * hd
+    f = g * 4.0 * ctx_len * width
+    f += s * 4.0 * min(cfg.sliding_window, ctx_len) * width
+    return f
+
+
+def train_flops(cfg: ModelConfig, shape: InputShape, H: int = 2,
+                remat: bool = True) -> float:
+    """Global flops for one swarm superstep (all nodes, H local steps)."""
+    tokens = shape.global_batch * shape.seq_len  # split across nodes x H
+    n_body = cfg.n_active_params() - cfg.vocab_size * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    body_mult = 8.0 if remat else 6.0          # fwd+bwd(2x)+remat re-fwd
+    f = body_mult * n_body * tokens
+    # LM head / CE (never rematted): fwd + bwd(2x)
+    f += 6.0 * cfg.vocab_size * cfg.d_model * tokens
+    # attention (quadratic part, not in 6N): fwd + 2x bwd (+ remat refwd)
+    att_mult = 4.0 if remat else 3.0
+    f += att_mult * attention_flops_per_token(cfg, shape.seq_len) * tokens
+    return f
+
+
+def train_bytes_full(cfg: ModelConfig, shape: InputShape, n_nodes: int,
+                     H: int = 2, remat: bool = True) -> float:
+    """Global HBM bytes for one superstep (all n_nodes x H local steps).
+
+    Per local step & node: read active params fwd + bwd (+ remat re-read),
+    write+read grads, rw momentum, write params."""
+    pb = _dtype_bytes(cfg.dtype)
+    ob = _dtype_bytes(cfg.opt_state_dtype)
+    P_active = cfg.n_active_params() * pb
+    P = cfg.n_params() * pb
+    M = cfg.n_params() * ob
+    per_step = (3 if remat else 2) * P_active + 2 * P_active + 2 * M + P
+    param_traffic = n_nodes * H * per_step
+    # activations: checkpoint x per layer (write + read) + recompute temps
+    tokens = shape.global_batch * shape.seq_len
+    act = tokens * cfg.d_model * pb * cfg.n_layers * (4 if remat else 6)
+    # attention KV traffic (reads of K/V per query chunk)
+    g, s, _ = _attn_layer_counts(cfg)
+    hd = cfg.resolved_head_dim
+    kv_per_tok = 2 * cfg.n_kv_heads * hd * pb
+    att = tokens * (g * 2 + s * 2) * kv_per_tok  # write + re-read once
+    # gossip averaging: read both models + write (3P per node)
+    gossip = n_nodes * 3 * P
+    return param_traffic + act + att + gossip

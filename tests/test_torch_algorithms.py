@@ -664,15 +664,18 @@ def test_validate_accepts_the_reference_set_minus_unported(algo,
     (dict(gossip_impl="ppermute_pool"), "NCCL"),
     (dict(quantize=True, codec="bf16"), "bf16/top-k"),
     (dict(quantize=True, codec="topk:0.25"), "bf16/top-k"),
-    (dict(rate_profile="lognormal"), "scheduler-bridge"),
-    (dict(rate_profile="uniform"), "scheduler-bridge"),
-    (dict(topology="hier:4"), "churn and hierarchy"),
+    (dict(rate_profile="lognormal", gossip_impl="ppermute_pool"), "NCCL"),
+    (dict(rate_profile="uniform", quantize=True, codec="bf16"),
+     "bf16/top-k"),
+    (dict(topology="hier:4", rate_profile="lognormal",
+          gossip_impl="ppermute_pool"), "NCCL"),
     (dict(quantize=True, compress_state=True), "bf16/top-k"),
-    (dict(avail="day_night:period=4,duty=0.5",
-          rate_profile="lognormal"), "scheduler-bridge")])
+    (dict(avail="day_night:period=4,duty=0.5", rate_profile="lognormal",
+          quantize=True, codec="topk:0.25"), "bf16/top-k")])
 def test_validate_names_the_roadmap_item(kw, item, monkeypatch):
     """What JAX accepts for swarm and the port does not carry yet is
-    refused with the ROADMAP item it waits for."""
+    refused with the ROADMAP item it waits for — also under the
+    scheduler's flags, which the port carries."""
     for var in ("REPRO_DEFAULT_GOSSIP_IMPL", "REPRO_CODEC", "REPRO_TOPOLOGY",
                 "REPRO_AVAIL_PROFILE"):
         monkeypatch.delenv(var, raising=False)
@@ -830,8 +833,8 @@ def test_driver_checkpoint_metadata_names_the_algo(tmp_path):
 
 
 def test_driver_refuses_unported_flags():
-    for argv in (["--gossip-impl", "ppermute"], ["--rate-profile", "uniform"],
-                 ["--topology", "hier:2"], ["--compress-state"],
+    for argv in (["--gossip-impl", "ppermute"], ["--rate-profile", "explicit"],
+                 ["--pool-size", "4"], ["--compress-state"],
                  ["--codec", "bf16"], ["--scan-chunk", "2"],
                  ["--graph", "petersen"], ["--algo", "sgd"]):
         with pytest.raises(SystemExit) as e:

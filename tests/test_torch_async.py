@@ -187,5 +187,6 @@ def test_overlap_requires_nonblocking():
     with pytest.raises(ValueError, match="nonblocking"):
         SwarmConfig(n_nodes=N, overlap=True)
     with pytest.raises(ValueError, match="h_mode"):
-        SwarmConfig(n_nodes=N, h_mode="trace")
+        SwarmConfig(n_nodes=N, h_mode="poisson")
     SwarmConfig(n_nodes=N, overlap=True, nonblocking=True)
+    assert SwarmConfig(n_nodes=N, h_mode="trace", h_max=4).h_loop_bound == 4

@@ -571,7 +571,7 @@ def test_cli_smoke_cpu(tmp_path):
 
 
 def test_cli_refuses_other_algos_and_flags():
-    for argv in (["--rate-profile", "uniform"], ["--scan-chunk", "2"],
+    for argv in (["--rate-profile", "explicit"], ["--scan-chunk", "2"],
                  ["--codec", "q4"]):
         with pytest.raises(SystemExit) as e:
             ttrain.build_parser().parse_args(argv)
