@@ -79,6 +79,36 @@ Phases, each printed on its own line:
     codec launch in a join bin, and prints bins, density, bin times, peak
     memory and the cost model's ``sched_cost`` (H100 datasheet figures).
 
+15. the new codecs' reference: q2, q4, q16 non-blocking, bf16, top-k 0.25
+    non-blocking (with its residual) and compress_state q8 on the card
+    against the CPU, 3 supersteps of the reduced model each restarted from
+    the CPU's state, held to each codec's bound (one lattice step; one
+    bf16 step of the value; half top-k's largest shipped magnitude, and
+    the residual likewise), with planted faults that must fail it (the
+    average dropped, top-k's residual kept); compress_state's
+    zero-reference encode and plain decode kernel against plain at the
+    main path's shape, bitwise;
+16. the codec commands at full width, 4 supersteps each: ``--quantize``
+    with ``--codec q4``, ``--codec q16``, ``--codec bf16``, ``--codec
+    topk:0.25 --nonblocking`` and ``--compress-state``; it asserts finite
+    losses, launches 8/4/4, 8/4/4, 8/0/0, 8/0/0, 8/8/8 and the declared
+    wire bytes per node, and prints superstep medians, peak memory, wire,
+    comm-copy and residual bytes;
+17. the chunk driver's replay against the per-step driver, bitwise, on
+    the card (CUDA graphs against eager; blocking q8, overlapped q8,
+    overlapped geometric q8 whose graphs replay out of capture order,
+    top-k non-blocking, a masked lognormal schedule and the five
+    baselines; 6 supersteps of transformer-wmt cut to 2 layers at full
+    width, bf16, deterministic algorithms), with equal launch counts, and
+    what the captures leave in the graphs' shared pool traced to the
+    cuBLAS workspaces;
+18. ``--scan-chunk 4`` at full width, 8 supersteps: the blocking q8
+    command (its supersteps 0-3 bitwise `main_path`'s records of the same
+    call, beside that run's per-step median) and the overlapped geometric
+    one (on 6 nodes: 8 do not fit beside the
+    graphs' pool); launches Σ_t max_i h_{t,i} / 8 / 8, and the second
+    chunk's time per superstep.
+
 The card's line is printed again before the kernels' JSON record, which
 is the line before the last; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the rest
@@ -560,7 +590,7 @@ def phase_main_path():
         first_superstep_s=walls[0], superstep_s=steady,
         superstep_median_s=statistics.median(steady),
         max_memory_allocated_bytes=peak)
-    return counts
+    return counts, hist
 
 
 def phase_exact():
@@ -1498,7 +1528,537 @@ def phase_sched_full_width():
     return by_path
 
 
+# -- slice 5 (PR 15): the codec family, compress_state, the chunk driver --
+
+# name, --codec spec, mode, compress_state, planted faults
+CODEC_CASES = (
+    ("q2", "q2", "blocking", False, ("average_dropped",)),
+    ("q4", "q4", "blocking", False, ("average_dropped",)),
+    ("q16_nonblocking", "q16", "nonblocking", False, ("average_dropped",)),
+    ("bf16", "bf16", "blocking", False, ("average_dropped",)),
+    ("topk_nonblocking", "topk:0.25", "nonblocking", False,
+     ("average_dropped", "residual_kept")),
+    ("compress_state_q8", None, "blocking", True, ("average_dropped",)),
+)
+
+
+def _codec_engine(device, spec, mode: str, compress: bool, fault: str = ""):
+    """A superstep of `_reduced_engine`'s model (4 nodes) with the codec
+    `spec`, wrapped so that it remembers, per encode, its per-row bound
+    term (the lattice scale, or top-k's largest shipped magnitude); and a
+    function that runs superstep t from a state on any device. `fault`
+    plants a known-wrong exchange: "average_dropped" (the receiver takes
+    its partner's decoded model) or "residual_kept" (top-k's residual is
+    not updated by the send)."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.exchange import GossipTransport
+    from repro_torch.core.swarm import SwarmConfig, SwarmState
+    from repro_torch.core.swarm import make_swarm_step
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import make_optimizer
+    from repro_torch.quant import codecs as C
+
+    class Codec:
+        def __init__(self, codec):
+            self.codec, self.rows = codec, []
+
+        def __getattr__(self, name):
+            return getattr(self.codec, name)
+
+        def _note(self, wire):
+            if isinstance(self.codec, C.LatticeCodec):
+                self.rows.append(wire[1].reshape(-1).cpu())
+            elif isinstance(self.codec, C.TopKCodec):
+                self.rows.append(wire[0].abs().amax(dim=1).cpu())
+
+        def encode(self, *a, **kw):
+            w = self.codec.encode(*a, **kw)
+            self._note(w)
+            return w
+
+        def encode_ef(self, buf, prev_buf, rng, residual, **kw):
+            w, r = self.codec.encode_ef(buf, prev_buf, rng, residual, **kw)
+            self._note(w)
+            if fault == "residual_kept":
+                r = residual.clone()
+            return w, r
+
+        def encode_state(self, buf, rng, **kw):
+            return self.codec.encode_state(buf, rng, **kw)
+
+        def decode_avg(self, wire, ybuf, matched_rows=None, **kw):
+            if fault == "average_dropped":
+                return self.codec.decode(wire, ybuf, **kw)
+            return self.codec.decode_avg(wire, ybuf, matched_rows, **kw)
+
+    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
+    codec = Codec(C.make_codec(spec))
+    opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
+    scfg = SwarmConfig(n_nodes=4, H=2, quantize=True, codec=spec,
+                       nonblocking=mode == "nonblocking",
+                       compress_state=compress)
+    step = make_swarm_step(scfg, TransformerLM(cfg).functional_loss,
+                           opt.update, lambda s: 0.05,
+                           transport=GossipTransport(4, codec=codec))
+
+    def move(x):
+        if x is None or isinstance(x, torch.Tensor):
+            return None if x is None else x.to(device)
+        if isinstance(x, tuple):
+            return tuple(move(v) for v in x)
+        return {k: move(v) for k, v in x.items()}
+
+    def run(state, t, inputs):
+        perms, batches, us = inputs
+        state = SwarmState(move(state.params), move(state.opt),
+                           move(state.prev), t, None, move(state.residual))
+        batch = {k: torch.from_numpy(v[t]).to(device)
+                 for k, v in batches.items()}
+        return step(state, batch, perms[t], [2] * 4, None,
+                    u=torch.from_numpy(us[t][0]).to(device),
+                    **({"u_state": torch.from_numpy(us[t][1]).to(device)}
+                       if compress else {}))
+
+    return run, codec, opt, scfg
+
+
+def _codec_readings(spec, card, cpu, rows, perm):
+    """Card vs CPU after one superstep: the share of coordinates within
+    2e-5 and the count beyond 2e-5 plus the codec's term — one lattice
+    step of the decoded (partner's) row; 2^-7 of the value for bf16 (one
+    bf16 step of the cast, which an ulp upstream may flip); half the
+    largest shipped magnitude of the partner's row for top-k (an ulp may
+    swap two near-equal coordinates in or out of the top k) — and, for
+    top-k, the residual's share and count against the largest shipped
+    magnitude of its own row."""
+    import torch
+    from repro_torch.core import bucket as B
+    bufs = [B.pack(B.build_layout(p), p).cpu() for p in (card.params,
+                                                          cpu.params)]
+    n = len(perm)
+    d = (bufs[0] - bufs[1]).abs().reshape(n, -1, 256)
+    idx = torch.as_tensor(perm, dtype=torch.long)
+    if spec == "bf16":
+        term = 2.0 ** -7 * bufs[1].abs().reshape(n, -1, 256)
+    else:
+        term = rows.reshape(n, -1, 1)[idx]
+        if spec.startswith("topk"):
+            term = 0.5 * term
+    r = {"max_abs": float(d.max()),
+         "share_within_2e-5": float((d <= 2e-5).double().mean()),
+         "beyond_bound": int((d > term + 2e-5).sum())}
+    if spec.startswith("topk"):
+        dr = (card.residual.cpu() - cpu.residual).abs().reshape(n, -1, 256)
+        r["residual_share_within_2e-5"] = float((dr <= 2e-5).double()
+                                                .mean())
+        r["residual_beyond_bound"] = int(
+            (dr > rows.reshape(n, -1, 1) + 2e-5).sum())
+    return r
+
+
+def _codec_ok(r) -> bool:
+    return (r["beyond_bound"] == 0 and r["share_within_2e-5"] >= 0.999
+            and r.get("residual_beyond_bound", 0) == 0
+            and r.get("residual_share_within_2e-5", 1.0) >= 0.999)
+
+
+def phase_codecs_reference():
+    """Each new codec on the card (kernels for the lattice family) against
+    the CPU (plain versions): 3 supersteps of 4 nodes of the reduced model
+    from one model on the CPU, each card superstep restarted from the
+    CPU's state before it (parameters, momentum, comm copy — the wire
+    tuple under compress_state — and top-k's residual), with the same
+    batches, matchings and uniforms, held to `_codec_readings`' bound;
+    planted faults must fail it in superstep 1. Also the zero-reference
+    encode and plain decode of compress_state (quantize_mod against zeros,
+    decode_avg with average off against zeros) kernel against plain at
+    the main path's shape, bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import bucket as B
+    from repro_torch.core.graph import complete, sample_matching
+    from repro_torch.core.swarm import swarm_init
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.data import make_node_batches
+    from repro_torch.kernels import ref
+    from repro_torch.models import init_params
+    from repro_torch.quant.codecs import make_codec
+    from repro_torch.tree import tree_map
+    n, steps = 4, 3
+    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
+    g = torch.Generator()
+    g.manual_seed(0)
+    one = init_params(g, cfg, "cpu")
+    rng = np.random.default_rng(0)
+    perms = np.stack([sample_matching(complete(n), rng)
+                      for _ in range(steps)])
+    ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, 32, seed=0), n)
+    nbs = [make_node_batches(ds, t, 4) for t in range(steps)]
+    batches = {k: np.stack([nb[k].reshape(n, 2, 2, 32) for nb in nbs])
+               for k in nbs[0]}
+    params = tree_map(lambda x: x[None].repeat((n,) + (1,) * x.ndim), one)
+    n_padded = B.build_layout(params).n_padded
+    us = rng.random((steps, 2, n, n_padded), dtype=np.float32)
+    inputs = (perms, batches, us)
+    out = {}
+    for name, spec, mode, compress, faults in CODEC_CASES:
+        _, _, opt, scfg = _codec_engine("cpu", spec, mode, compress)
+        ug = torch.Generator()
+        ug.manual_seed(1)
+        state = swarm_init(ug, scfg, lambda _: tree_map(torch.clone, one),
+                           opt.init)
+        states, loss_cpu = [state], []
+        for t in range(steps):
+            run, codec, _, _ = _codec_engine("cpu", spec, mode, compress)
+            state, m = run(states[t], t, inputs)
+            states.append(state)
+            loss_cpu.append(float(m["loss"]))
+        loss_card, readings = [], []
+        for t in range(steps):
+            run, codec, _, _ = _codec_engine("cuda", spec, mode, compress)
+            state, m = run(states[t], t, inputs)
+            loss_card.append(float(m["loss"]))
+            readings.append(_codec_readings(
+                spec or "q8", state, states[t + 1],
+                codec.rows[0] if codec.rows else None, perms[t]))
+        rec = dict(loss_card=loss_card, loss_cpu=loss_cpu,
+                   readings=readings, planted={})
+        for fault in faults:
+            run, codec, _, _ = _codec_engine("cuda", spec, mode, compress,
+                                             fault)
+            state, _ = run(states[1], 1, inputs)
+            rec["planted"][fault] = _codec_readings(
+                spec or "q8", state, states[2],
+                codec.rows[0] if codec.rows else None, perms[1])
+        out[name] = rec
+        check(np.allclose(loss_card, loss_cpu, rtol=1e-4, atol=0),
+              f"{name}: card loss {loss_card} != CPU loss {loss_cpu}")
+        check(all(_codec_ok(r) for r in readings),
+              f"{name}: card vs CPU beyond the bound: {readings}")
+        check(not any(_codec_ok(r) for r in rec["planted"].values()),
+              f"{name}: a planted fault passes the bound: {rec['planted']}")
+    # compress_state's zero-reference kernels, kernel vs plain, bitwise
+    _, layout = main_path_layout(8)
+    rows = 8 * layout.n_padded // 256
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    x = torch.randn((rows, 256), generator=gen, device="cuda") * 0.02
+    zeros = torch.zeros_like(x)
+    u = torch.rand((rows, 256), generator=gen, device="cuda")
+    codec = make_codec("q8")
+    wire = codec.encode_state(x, None, u=u)
+    rq, rs = ref.quantize_mod(x, zeros, u)
+    errs = [bitwise(wire[0], rq, "encode_state codes (main-path shape)"),
+            bitwise(wire[1], rs, "encode_state scales (main-path shape)")]
+    dec = codec.decode_state(wire, x.shape)
+    errs.append(bitwise(dec, ref.decode_avg(rq, rs, zeros, average=False),
+                        "decode_state (main-path shape)"))
+    del x, zeros, u, wire, rq, rs, dec
+    _fresh_memory()
+    log("codecs_reference", cases=out, state_codec_max_abs_err=max(errs))
+
+
+# the five codec commands at full transformer-wmt width and depth (8 nodes,
+# bf16), 4 supersteps each: flags, launches sgd_update / quantize_mod /
+# decode_avg (counters at 0 after the build), declared wire bytes per node
+CODEC_COMMANDS = {
+    "codec_q4": (["--quantize", "--codec", "q4"], (8, 4, 4), 95_184_672),
+    "codec_q16": (["--quantize", "--codec", "q16"], (8, 4, 4), 372_085_536),
+    "codec_bf16": (["--quantize", "--codec", "bf16"], (8, 0, 0),
+                   369_201_152),
+    "codec_topk_nonblocking": (["--quantize", "--codec", "topk:0.25",
+                                "--nonblocking"], (8, 0, 0), 230_750_720),
+    "compress_state_q8": (["--quantize", "--compress-state"], (8, 8, 8),
+                          187_484_960),
+}
+
+
+def phase_codecs_full_width():
+    """Each codec command at full width, every launch counter at 0 after
+    its build and before its run; -> {path: launches}. Asserts finite
+    losses, the launches (compress_state adds one zero-reference encode
+    and one plain decode a superstep), the declared wire bytes per node
+    (ISSUE's table), the top-k residual's size and the compressed comm
+    copy's bytes; prints each command's superstep median and peak
+    memory."""
+    import torch
+    from repro_torch.core.exchange import transport_from_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    base = ["--arch", "transformer-wmt", "--nodes", "8", "--steps", "4",
+            "--log-every", "1"]
+    by_path, out = {}, {}
+    for name, (flags, want, wire_bytes) in CODEC_COMMANDS.items():
+        argv = base + flags
+        args = train.build_parser().parse_args(argv)
+        _fresh_memory()
+        tr = train.build(args)
+        declared = transport_from_config(tr.scfg).payload_num_bytes(
+            tr.state.params, quantize=True)
+        prev_bytes = nbytes(*(tr.state.prev if isinstance(tr.state.prev,
+                                                          tuple)
+                              else tree_leaves(tr.state.prev)))
+        reset_launch_counts()
+        t0 = time.time()
+        hist = train.run(args, tr)
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(len(hist) == 4 and all(math.isfinite(h["loss"])
+                                     and math.isfinite(h["gamma"])
+                                     for h in hist),
+              f"{name}: non-finite or missing records {hist}")
+        want = dict(zip(("sgd_update", "quantize_mod", "decode_avg"), want))
+        check(counts == want, f"{name}: launch counts {counts} != {want}")
+        check(declared == wire_bytes,
+              f"{name}: declared wire bytes {declared} != {wire_bytes}")
+        rec = {}
+        if tr.state.residual is not None:
+            rec["residual_bytes"] = nbytes(tr.state.residual)
+            check(rec["residual_bytes"] == 8 * 4 * 721_096 * 256,
+                  f"{name}: residual bytes {rec['residual_bytes']}")
+        walls = [h["wall_s"] for h in hist]
+        steady = [b - a for a, b in zip(walls, walls[1:])]
+        out[name] = dict(argv=argv, records=hist, launches=counts,
+                         wire_bytes_per_node=declared,
+                         comm_copy_bytes=prev_bytes,
+                         first_superstep_s=walls[0], superstep_s=steady,
+                         superstep_median_s=statistics.median(steady),
+                         max_memory_allocated_bytes=peak, run_s=run_s, **rec)
+        by_path[name] = counts
+        del tr
+    _fresh_memory()
+    log("codecs_full_width", **out)
+    return by_path
+
+
+# the chunk driver's bitwise cases: name, flags. The geometric one's
+# seed gives graph keys (min h, max h) (1,4) (1,3) (1,4) (1,3) (1,3) (1,4):
+# its two graphs replay out of their capture order
+SCAN_CASES = (
+    ("blocking_q8", ["--quantize"]),
+    ("overlap_q8", ["--quantize", "--overlap"]),
+    ("geometric_overlap_q8", ["--quantize", "--overlap", "--h-mode",
+                              "geometric", "--seed", "1"]),
+    ("topk_nonblocking", ["--quantize", "--codec", "topk:0.25",
+                          "--nonblocking"]),
+    ("lognormal_masked_q8", ["--quantize"] + SCHED_LOGNORMAL),
+    ("allreduce", ["--algo", "allreduce"]),
+    ("localsgd", ["--algo", "localsgd", "--H", "2"]),
+    ("dpsgd", ["--algo", "dpsgd", "--graph", "ring"]),
+    ("adpsgd_q8", ["--algo", "adpsgd", "--quantize", "--nonblocking"]),
+    ("sgp_q8", ["--algo", "sgp", "--quantize"]),
+)
+
+
+def _in_capture_order(keys) -> bool:
+    """Whether a run's graph keys repeat the order of their first
+    appearance (the order a shared pool is documented as safe for)."""
+    order = list(dict.fromkeys(keys))
+    return all(k == order[t % len(order)] for t, k in enumerate(keys))
+
+
+def _pool_sites(pool) -> list:
+    """[size, allocating function] of each block live in the CUDA graph
+    pool `pool`, from the allocator's history (recorded around the run):
+    the frame that names a cuBLAS workspace, else the first few frames."""
+    import torch
+    out = []
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        if tuple(seg["segment_pool_id"]) != tuple(pool):
+            continue
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                names = [f["name"] for f in b.get("frames", [])]
+                site = next((x for x in names if "setWorkspaceForHandle" in x),
+                            " < ".join(names[:8]))
+                out.append([b["size"], site])
+    return out
+
+
+def phase_scan_bitwise():
+    """The chunk driver (CUDA graph replay) against the per-step driver
+    (eager) on the card, bitwise: every case's final state (params,
+    momentum, comm copy, residual, in-flight payload) and each superstep's
+    loss and Γ, and the same launch counts, over 6 supersteps (chunks 4 +
+    2; a schedule's bins likewise) of 8 nodes of transformer-wmt cut to 2
+    layers at its full width (d_model 1024, vocab 32768, bf16 as the main
+    path), under PyTorch's deterministic algorithms (the cuBLAS workspace
+    is pinned in `main`), so that the two runs' own arithmetic reproduces.
+    The geometric case's graphs replay out of capture order, and what its
+    captures leave in the graphs' shared pool is traced to its allocation
+    site: only the cuBLAS workspaces `core/scan.py` allows."""
+    import dataclasses
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import local_signature
+    from repro_torch.core.scan import _POOL_ALLOWANCE, _state_leaves
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    base = ["--arch", "transformer-wmt", "--nodes", "8", "--steps", "6",
+            "--batch", "2", "--seq", "64", "--h-max", "4"]
+    cfg = dataclasses.replace(get_config("transformer-wmt"), n_layers=2)
+    out = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for name, flags in SCAN_CASES:
+                args = train.build_parser().parse_args(base + flags)
+                _fresh_memory()
+                tr = train.build(args, cfg)
+                n = tr.n_steps
+                reset_launch_counts()
+                per = [tr.superstep(t) for t in range(n)]
+                per_loss = [float(m["loss"]) for m in per]
+                per_gamma = [float(m["gamma"]) for m in per]
+                per_counts = dict(LAUNCHES)
+                per_state = [x.clone() for x in _state_leaves(tr.state)]
+                del tr, per
+                _fresh_memory()
+                tr = train.build(args, cfg)
+                traced = name == "geometric_overlap_q8"
+                if traced:
+                    torch.cuda.memory._record_memory_history(
+                        max_entries=200000)
+                reset_launch_counts()
+                ms = [tr.chunk(t, min(4, n - t),
+                               [tr.node_batches(s)
+                                for s in range(t, min(t + 4, n))])
+                      for t in range(0, n, 4)]
+                counts = dict(LAUNCHES)
+                loss = [float(x) for m in ms for x in m["loss"]]
+                gamma = [float(x) for m in ms for x in m["gamma"]]
+                got = _state_leaves(tr.state)
+                equal = len(got) == len(per_state) and all(
+                    same_bits(a, b) for a, b in zip(got, per_state))
+                keys = [local_signature(tuple(int(x) for x in h), 4)
+                        for h in tr.hs]
+                out[name] = dict(
+                    supersteps=n, graphs=len(tr.chunker.graphs),
+                    state_bitwise=equal,
+                    metrics_bitwise=loss == per_loss and gamma == per_gamma,
+                    launches_chunked=counts, launches_per_step=per_counts,
+                    loss=loss, pool_bytes_after_capture={
+                        str(k): v for k, v in tr.chunker.pool_bytes.items()},
+                    local_keys=[list(k) for k in keys])
+                if traced:
+                    sites = _pool_sites(tr.chunker._pool)
+                    torch.cuda.memory._record_memory_history(enabled=None)
+                    out[name]["pool_blocks"] = sites
+                    check(len(tr.chunker.graphs) > 1
+                          and not _in_capture_order(keys),
+                          f"scan {name}: its graphs replay in capture "
+                          f"order ({keys}), so it tests nothing")
+                    check(all("setWorkspaceForHandle" in site
+                              for _, site in sites)
+                          and sum(b for b, _ in sites) <= _POOL_ALLOWANCE,
+                          f"scan {name}: the graphs' pool holds more than "
+                          f"the cuBLAS workspaces: {sites}")
+                del tr, per_state, got
+                check(equal and loss == per_loss and gamma == per_gamma,
+                      f"scan {name}: replay != per-step: {out[name]} "
+                      f"(per-step losses {per_loss})")
+                check(counts == per_counts,
+                      f"scan {name}: launches {counts} != {per_counts}")
+                check(np.isfinite(loss).all(), f"scan {name}: {loss}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _fresh_memory()
+    log("scan_bitwise", **out)
+
+
+# the overlapped geometric command runs 6 nodes, not 8: its eager peak is
+# 65.1 GB, and the graphs' pool holds a superstep's transients beside the
+# 22.2 GB state with more room lost to fragmentation than the default pool
+# loses (8 nodes ran out of the card's 79.18 GiB in its first capture)
+SCAN_FULL_WIDTH = {
+    "scan_blocking_q8": ["--nodes", "8", "--quantize"],
+    "scan_overlap_q8_geometric": ["--nodes", "6", "--h-mode", "geometric",
+                                  "--h-max", "8", "--quantize",
+                                  "--nonblocking", "--overlap", "--non-iid",
+                                  "0.5", "--eval-mean"],
+}
+
+
+def phase_scan_full_width(main_records):
+    """The two commands with --scan-chunk 4 at full width (the overlapped
+    one on 6 nodes), 8 supersteps (two chunks: the first captures, the
+    second replays what it can), launch
+    counters at 0 just before each; -> {path: launches}. The blocking one
+    is `main_path`'s command, whose per-step median of this call is
+    printed beside the second chunk's time per superstep. Asserts finite
+    records, launches (blocking: 16/8/8; overlapped: Σ_t max_i h_{t,i} /
+    8 / 8, no prologue encode counted) and records every superstep, and
+    that the blocking command's supersteps 0-3 have `main_path`'s loss and
+    Γ bit for bit (the same command, per-step, earlier in this call)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    base = ["--arch", "transformer-wmt", "--H", "2", "--steps", "8",
+            "--log-every", "1", "--scan-chunk", "4"]
+    by_path, out = {}, {}
+    for name, flags in SCAN_FULL_WIDTH.items():
+        argv = base + flags
+        args = train.build_parser().parse_args(
+            argv + ["--out", os.path.join(OUT_DIR, f"chip_smoke_{name}.json")])
+        _fresh_memory()
+        tr = train.build(args)
+        reset_launch_counts()
+        t0 = time.time()
+        hist = train.run(args, tr)
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        counts = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        hs = np.asarray(tr.hs)
+        want = {"sgd_update": int(hs.max(axis=1).sum()), "quantize_mod": 8,
+                "decode_avg": 8}
+        check([h["step"] for h in hist] == list(range(8))
+              and all(math.isfinite(h["loss"]) for h in hist),
+              f"{name}: non-finite or missing records {hist}")
+        check(counts == want, f"{name}: launches {counts} != {want}")
+        if name == "scan_blocking_q8":
+            got = [(h["loss"], h["gamma"]) for h in hist[:4]]
+            ref = [(h["loss"], h["gamma"]) for h in main_records]
+            check(got == ref, f"{name}: chunked supersteps 0-3 {got} != "
+                  f"the per-step main path's {ref}")
+        # a chunk's records are logged once it ends: its last record's
+        # wall time is the chunk's end (host batch staging included)
+        ends = [hist[3]["wall_s"], hist[7]["wall_s"]]
+        out[name] = dict(argv=argv, records=hist, hs=hs.tolist(),
+                         launches=counts, graphs=len(tr.chunker.graphs),
+                         pool_bytes_after_capture={
+                             str(k): v
+                             for k, v in tr.chunker.pool_bytes.items()},
+                         chunk_end_s=ends,
+                         second_chunk_superstep_s=(ends[1] - ends[0]) / 4,
+                         first_chunk_s=ends[0],
+                         max_memory_allocated_bytes=peak, run_s=run_s)
+        by_path[name] = counts
+        del tr
+    walls = [h["wall_s"] for h in main_records]
+    out["scan_blocking_q8"]["per_step_median_s_this_call"] = \
+        statistics.median(b - a for a, b in zip(walls, walls[1:]))
+    _fresh_memory()
+    log("scan_full_width", **out)
+    return by_path
+
+
 def main() -> int:
+    # expandable segments, set before the allocator starts: the 8-node
+    # overlapped runs peak at 65.1 GB of the card's 79.18 GiB, and with
+    # fixed segments one run of `sched_full_width` fragmented past the card
+    # (17.88 GiB reserved but free, no room for a 5.50 GiB buffer)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1527,7 +2087,7 @@ def main() -> int:
 
     records = phase_kernels()
     phase_reference()
-    blocking = phase_main_path()
+    blocking, main_records = phase_main_path()
     phase_exact()
     phase_overlap_exact()
     counts = phase_full_width()
@@ -1537,6 +2097,10 @@ def main() -> int:
     phase_sched_reference()
     phase_sched_uniform_exact()
     sched = phase_sched_full_width()
+    phase_codecs_reference()
+    codecs = phase_codecs_full_width()
+    phase_scan_bitwise()
+    scan = phase_scan_full_width(main_records)
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": TPU_KERNELS[n], "launches": counts[n],
                 "launches_by_path": {"overlap_q8_geometric": counts[n],
@@ -1544,7 +2108,11 @@ def main() -> int:
                                      **{p: c[n] for p, c in
                                         baselines.items()},
                                      **{p: c[n] for p, c in
-                                        sched.items()}},
+                                        sched.items()},
+                                     **{p: c[n] for p, c in
+                                        codecs.items()},
+                                     **{p: c[n] for p, c in
+                                        scan.items()}},
                 **{k: records[n][k] for k in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}} for n in TPU_KERNELS]

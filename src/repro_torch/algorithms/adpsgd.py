@@ -3,8 +3,9 @@ one gradient step, then a pairwise average with a random matching partner
 every interaction — SwarmSGD with H = 1, the paper's closest prior art.
 
 The pairwise average is the swarm engine's `mix_pair` over the flat
-buffer: exact fp32, or the q8 lattice codec (the `prev` comm copy as the
-distance proxy), blocking or non-blocking (the stale Algorithm-2 combine:
+buffer: exact fp32, or any codec of the transport (the `prev` comm copy as
+the distance proxy; top-k threads its error-feedback residual through the
+state), blocking or non-blocking (the stale Algorithm-2 combine:
 the partner contributes its pre-step model, each node's own gradient
 delta rides on top), under an optional participation mask.
 """
@@ -14,9 +15,10 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.algorithms.common import (fold_batch, gated_grad_step,
-                                           lr_on, metrics_of, node_grad_step,
+                                           metrics_of, node_grad_step,
                                            refresh_prev)
-from repro_torch.core.exchange import GossipTransport, as_mask, stale_combine
+from repro_torch.core.exchange import (EngineStep, GossipTransport,
+                                       stale_combine)
 from repro_torch.core.swarm import SwarmState
 
 
@@ -28,28 +30,34 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
     gs_plain = node_grad_step(loss_fn, opt_update)
     gs_gated = gated_grad_step(loss_fn, opt_update)
 
-    def step(state: SwarmState, batch, perm, h_counts, rng, mask=None, *,
-             u=None):
-        del h_counts
-        lr = lr_on(lr_fn, state.step, state.params)
+    ef = quantize and tr.codec.carries_residual
+
+    def step(state: SwarmState, batch, inp, rng, *, u=None):
+        lr, mask = inp.lr, inp.mask
         device = lr.device
-        mask = as_mask(mask, device)
         S = state.params                  # pre-step models (staleness ref)
         mb = fold_batch(batch)
         if mask is None:
             params, opt, losses = gs_plain(S, state.opt, mb, lr)
         else:
             params, opt, losses = gs_gated(S, state.opt, mb, lr, mask)
-        perm_t = torch.as_tensor(perm, dtype=torch.int64, device=device)
+        perm_t = inp.perm
         node_perm, _ = tr.resolve_perm(perm_t)
         matched = node_perm != torch.arange(n_nodes, device=device)
         if mask is not None:
             matched = matched & mask
 
+        new_residual = state.residual
+
         def mix(tree):
-            return tr.mix_pair(tree, perm_t, matched, quantize=quantize,
-                               prev=state.prev if quantize else None,
-                               rng=rng, u=u, mask=mask)
+            nonlocal new_residual
+            out = tr.mix_pair(tree, perm_t, matched, quantize=quantize,
+                              prev=state.prev if quantize else None,
+                              rng=rng, u=u, mask=mask,
+                              residual=state.residual)
+            if ef:
+                out, new_residual = out
+            return out
 
         with record_function("swarm.gossip"):
             if nonblocking:
@@ -63,8 +71,9 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
                 params = mix(params)
         new_prev = refresh_prev(state.prev, S if nonblocking else params,
                                 matched)
-        return (SwarmState(params, opt, new_prev, state.step + 1),
+        return (SwarmState(params, opt, new_prev, state.step + 1, None,
+                           new_residual),
                 metrics_of(params, losses, lr, track_potential, mask,
                            matched_frac=torch.mean(
                                matched.to(torch.float32))))
-    return step
+    return EngineStep(step, lr_fn)

@@ -13,8 +13,8 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from repro_torch.algorithms.common import fold_batch, lr_on, metrics_of
-from repro_torch.core.exchange import GossipTransport, as_mask
+from repro_torch.algorithms.common import fold_batch, metrics_of
+from repro_torch.core.exchange import EngineStep, GossipTransport
 from repro_torch.core.swarm import SwarmState
 
 
@@ -24,11 +24,9 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
     tr = transport or GossipTransport(n_nodes)
     node_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
 
-    def step(state: SwarmState, batch, perm, h_counts, rng, mask=None, *,
-             u=None):
-        del perm, h_counts, rng, u
-        lr = lr_on(lr_fn, state.step, state.params)
-        mask = as_mask(mask, lr.device)
+    def step(state: SwarmState, batch, inp, rng, *, u=None):
+        del rng, u
+        lr, mask = inp.lr, inp.mask
         # every node contributes one microbatch: its H slots folded in
         with record_function("swarm.grad"):
             grads, losses = node_grads(state.params, fold_batch(batch))
@@ -40,4 +38,4 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
         del grads
         return (SwarmState(params, opt, state.prev, state.step + 1),
                 metrics_of(params, losses, lr, track_potential, mask))
-    return step
+    return EngineStep(step, lr_fn)

@@ -4,8 +4,11 @@
 Every baseline is a superstep factory over the same node-stacked
 ``SwarmState`` as SwarmSGD, with the same step signature
 ``step(state, batch, perm, h_counts, rng, mask=None, *, u=None)`` (`u`:
-the q8 encode's uniforms, drawn from `rng` unless given), and its exchange
-runs through the gather :class:`~repro_torch.core.exchange.GossipTransport`.
+the encode's uniforms, drawn from `rng` unless given), built as an
+:class:`~repro_torch.core.exchange.EngineStep` whose ``run`` half reads
+its inputs from device tensors (so ``core/scan.py`` can capture it), and
+its exchange runs through the gather
+:class:`~repro_torch.core.exchange.GossipTransport`.
 
 The reference vmaps "gradient plus optimizer update" per node; here a step
 is one vmapped gradient over the node axis, then ONE fused ``sgd_update``
@@ -21,7 +24,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core.exchange import (  # noqa: F401
-    lr_on, make_local_steps, masked_mean_loss, select,
+    make_local_steps, masked_mean_loss, select, select_into,
 )
 from repro_torch.core.potential import gamma_potential
 
@@ -57,7 +60,8 @@ def gated_grad_step(loss_fn: Callable, opt_update: Callable):
 
     def f(params, opt, mb, lr, active):
         p2, o2, losses = gs(params, opt, mb, lr)
-        p, o = select(active, p2, params), select(active, o2, opt)
+        # in place into the fresh update (nothing else holds it)
+        p, o = select_into(active, p2, params), select_into(active, o2, opt)
         del p2, o2
         return p, o, torch.where(active, losses, 0.0)
     return f

@@ -15,8 +15,8 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.algorithms.common import (fold_batch, gated_grad_step,
-                                           lr_on, metrics_of, node_grad_step)
-from repro_torch.core.exchange import GossipTransport, as_mask
+                                           metrics_of, node_grad_step)
+from repro_torch.core.exchange import EngineStep, GossipTransport
 from repro_torch.core.graph import Graph
 from repro_torch.core.swarm import SwarmState
 
@@ -54,13 +54,15 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes, graph: Graph,
     gs_plain = node_grad_step(loss_fn, opt_update)
     gs_gated = gated_grad_step(loss_fn, opt_update)
 
-    def step(state: SwarmState, batch, perm, h_counts, rng, mask=None, *,
-             u=None):
-        del perm, h_counts, rng, u
-        lr = lr_on(lr_fn, state.step, state.params)
-        mask = as_mask(mask, lr.device)
+    W_on = {}                 # device -> W, copied there once
+
+    def step(state: SwarmState, batch, inp, rng, *, u=None):
+        del rng, u
+        lr, mask = inp.lr, inp.mask
         mb = fold_batch(batch)
-        W_dev = W.to(lr.device)
+        W_dev = W_on.get(lr.device)
+        if W_dev is None:
+            W_dev = W_on[lr.device] = W.to(lr.device)
         if mask is None:
             params, opt, losses = gs_plain(state.params, state.opt, mb, lr)
             W_eff = W_dev
@@ -73,4 +75,4 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes, graph: Graph,
             params = tr.matrix_mix(params, W_eff)
         return (SwarmState(params, opt, state.prev, state.step + 1),
                 metrics_of(params, losses, lr, track_potential, mask))
-    return step
+    return EngineStep(step, lr_fn)

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 from torch.profiler import record_function
 
-from repro_torch.algorithms.common import gated_local_loop, lr_on, metrics_of
-from repro_torch.core.exchange import GossipTransport, as_mask
+from repro_torch.algorithms.common import gated_local_loop, metrics_of
+from repro_torch.core.exchange import EngineStep, GossipTransport
 from repro_torch.core.swarm import SwarmState
 
 
@@ -21,16 +21,13 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes, H: int = 2,
     tr = transport or GossipTransport(n_nodes)
     local = gated_local_loop(loss_fn, opt_update, h_max or H)
 
-    def step(state: SwarmState, batch, perm, h_counts, rng, mask=None, *,
-             u=None):
-        del perm, rng, u
-        lr = lr_on(lr_fn, state.step, state.params)
-        mask = as_mask(mask, lr.device)
-        params, opt, losses = local(state.params, state.opt, batch,
-                                    h_counts, lr)
+    def step(state: SwarmState, batch, inp, rng, *, u=None):
+        del rng, u
+        lr, mask = inp.lr, inp.mask
+        params, opt, losses = local(state.params, state.opt, batch, inp)
         # periodic global model average (participants -> mean -> everyone)
         with record_function("swarm.gossip"):
             params = tr.global_mean(params, mask)
         return (SwarmState(params, opt, state.prev, state.step + 1),
                 metrics_of(params, losses, lr, track_potential, mask))
-    return step
+    return EngineStep(step, lr_fn, h_max=h_max or H)

@@ -10,7 +10,7 @@ n_nodes=..., ...)`` and returns a superstep with the uniform signature
 (transport, execution mode, quantization, codec, scheduler) combination
 each algorithm supports. `validate_run_config` raises wherever the
 reference's raises, and additionally, naming the ROADMAP.md item, for
-what the port does not carry yet.
+the transports the port does not carry yet (all but gather).
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import Callable, Tuple
 
 from repro_torch.algorithms import adpsgd, allreduce, dpsgd, localsgd, sgp
+from repro_torch.quant.codecs import make_codec
 
 
 @dataclass(frozen=True)
@@ -131,27 +132,7 @@ def make_algorithm(name: str, **kw) -> Callable:
 
 
 _WAITS = "is not ported yet: it waits for the {} item of ROADMAP.md"
-_CODECS = "bf16/top-k codec"
 _NCCL = "multi-GPU (NCCL) transport"
-
-
-def _codec_family(spec) -> Tuple[str, bool]:
-    """(family, carries_residual) of a ``--codec`` spec, by the reference's
-    grammar; a bogus spec raises ValueError."""
-    from repro_torch.quant.codecs import make_codec
-    if spec == "bf16":
-        return "bf16", False
-    if spec is not None and spec.startswith("topk:"):
-        try:
-            frac = float(spec.split(":", 1)[1])
-        except ValueError:
-            raise ValueError(f"--codec {spec!r}: want topk:<frac>, "
-                             "e.g. topk:0.25")
-        if not 0.0 < frac <= 1.0:
-            raise ValueError(f"--codec {spec!r}: the kept fraction must lie "
-                             "in (0, 1]")
-        return "topk", True
-    return make_codec(spec).family, False
 
 
 def validate_run_config(algo: str, *, gossip_impl: str = None,
@@ -163,12 +144,12 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     """Config-time validation of a run against the capability matrix.
 
     Raises ValueError with the algorithm's matrix row where the reference
-    does (``--rate-profile``, ``--avail`` and ``--topology`` included),
-    then ValueError naming the ROADMAP.md item for what the port does not
-    carry yet: transports other than gather (and the *_legacy oracles),
-    the bf16 and top-k codecs and ``--compress-state``. There is no
-    environment default: None means gather, the q8 lattice, no topology,
-    no availability profile. Returns the AlgoCaps row otherwise."""
+    does (``--rate-profile``, ``--avail``, ``--topology``, ``--codec`` and
+    ``--compress-state`` included), then ValueError naming the ROADMAP.md
+    item for the transports the port does not carry yet (all but gather,
+    the *_legacy oracles included). There is no environment default: None
+    means gather, the q8 lattice, no topology, no availability profile.
+    Returns the AlgoCaps row otherwise."""
     if algo not in CAPABILITIES:
         raise ValueError(f"unknown algorithm {algo!r}; known: "
                          f"{sorted(CAPABILITIES)}")
@@ -207,7 +188,9 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
                    "joiner's membership)")
     family = None
     if quantize:
-        family, residual = _codec_family(codec)
+        # the transport's own parser: a bogus spec raises with the grammar
+        c = make_codec(codec)
+        family, residual = c.family, c.carries_residual
         if family not in caps.codecs:
             reject(f"--codec {codec}")
         if residual:
@@ -252,8 +235,4 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     # what the reference accepts and the port does not carry yet
     if gossip_impl != "gather":
         raise ValueError(f"--gossip-impl {gossip_impl} {_WAITS.format(_NCCL)}")
-    if family in ("bf16", "topk"):
-        raise ValueError(f"--codec {codec} {_WAITS.format(_CODECS)}")
-    if compress_state:
-        raise ValueError(f"--compress-state {_WAITS.format(_CODECS)}")
     return caps

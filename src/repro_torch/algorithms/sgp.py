@@ -7,7 +7,9 @@ model is X / w.
 The push-sum pair rides as ONE payload, ``state.params = {"model": X,
 "w": w}``: flattened in sorted-key order, w packs as one extra 256-wide row
 group after the model, so the exchange is a single flat-buffer `mix_pair`
-(the q8 codec included) whose perm is the cyclic shift — a permutation but
+(every stateless codec included: the lattice family and bf16; top-k's
+residual would hold back mass the push-sum de-biasing counts) whose perm
+is the cyclic shift — a permutation but
 not an involution — and `state.prev` is the comm copy of that payload.
 
 Under a participation mask node i averages with its in-neighbour only
@@ -21,10 +23,10 @@ import math
 import torch
 from torch.profiler import record_function
 
-from repro_torch.algorithms.common import (fold_batch, lr_on, metrics_of,
+from repro_torch.algorithms.common import (fold_batch, metrics_of,
                                            node_grad_step, refresh_prev,
                                            select)
-from repro_torch.core.exchange import GossipTransport, _rows, as_mask
+from repro_torch.core.exchange import EngineStep, GossipTransport, _rows
 from repro_torch.core.swarm import SwarmState
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -65,13 +67,10 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
     log_n = max(1, int(math.log2(n_nodes)))
     gs = node_grad_step(loss_fn, opt_update)
 
-    def step(state: SwarmState, batch, perm, h_counts, rng, mask=None, *,
-             u=None):
-        del perm, h_counts
+    def step(state: SwarmState, batch, inp, rng, *, u=None):
         X, w = state.params["model"], state.params["w"]
-        lr = lr_on(lr_fn, state.step, X)
+        lr, mask = inp.lr, inp.mask
         device = lr.device
-        mask = as_mask(mask, device)
         # de-bias before the gradient step (SGP evaluates at X / w), then
         # re-bias: the push-sum numerator stays consistent
         Xd = sgp_debias(state.params)
@@ -85,7 +84,8 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
             losses = torch.where(mask, losses, 0.0)
         del X2, opt2
 
-        # one-peer exponential: average with in-neighbour (i - 2^(t mod k))
+        # one-peer exponential: average with in-neighbour (i - 2^(t mod k));
+        # the offset is host-side, so a captured graph serves one t mod k
         shift = 2 ** (state.step % log_n)
         idx = torch.arange(n_nodes, device=device)
         src = (idx - shift) % n_nodes
@@ -102,4 +102,4 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
                 metrics_of(sgp_debias(mixed) if track_potential else None,
                            losses, lr, track_potential, mask,
                            matched_frac=torch.mean(gate.to(torch.float32))))
-    return step
+    return EngineStep(step, lr_fn, key_fn=lambda state: state.step % log_n)

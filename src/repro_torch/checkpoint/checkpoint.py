@@ -8,7 +8,8 @@ loads in the other.
 * bfloat16 leaves are stored widened to float32, with ``"bfloat16"`` in
   ``dtypes`` (numpy has no bfloat16 of its own); loading narrows them
   back, which is exact.
-* ``treedef`` is written in JAX's ``PyTreeDef(...)`` form for dict trees;
+* ``treedef`` is written in JAX's ``PyTreeDef(...)`` form for trees of
+  dicts and tuples (a compressed comm copy is a wire tuple);
   neither package's loader reads it (the caller's `like` gives the
   structure).
 """
@@ -21,7 +22,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_flatten, tree_key_paths, tree_unflatten
+from repro_torch.tree import (
+    TUPLE, tree_flatten, tree_key_paths, tree_unflatten,
+)
 
 _NP_DTYPES = {torch.float32: "float32", torch.float64: "float64",
               torch.float16: "float16", torch.bfloat16: "bfloat16",
@@ -33,12 +36,16 @@ _NP_DTYPES = {torch.float32: "float32", torch.float64: "float64",
 def _names(tree) -> list:
     """Leaf names in flatten order, as ``jax.tree_util.keystr`` writes
     them."""
-    return ["".join(f"[{k!r}]" for k in p) for p in tree_key_paths(tree)]
+    return ["".join(f"[{k!r}]" for k in p)
+            for p in tree_key_paths(tree, tuples=True)]
 
 
 def _treedef_body(s) -> str:
     if s is None:
         return "*"
+    if s[:1] == (TUPLE,):
+        body = ", ".join(_treedef_body(v) for v in s[1])
+        return "(" + body + ("," if len(s[1]) == 1 else "") + ")"
     return "{" + ", ".join(f"{k!r}: {_treedef_body(v)}" for k, v in s) + "}"
 
 
@@ -62,6 +69,8 @@ def _jsonable(obj):
 def _to_numpy(t: torch.Tensor):
     """-> (array to store, dtype name to record)."""
     t = t.detach().cpu()
+    if t.dtype == torch.uint16:            # q9..q16 wire codes, same bits
+        return t.view(torch.int16).numpy().view(np.uint16), "uint16"
     name = _NP_DTYPES[t.dtype]
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)            # stored widened, exactly
@@ -72,7 +81,7 @@ def save_checkpoint(path: str, tree: Any, metadata: dict | None = None):
     """Write `tree` (nested dicts of tensors or arrays) to path.npz and
     path.json."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    leaves, treedef = tree_flatten(tree)
+    leaves, treedef = tree_flatten(tree, tuples=True)
     arrays, dtypes = {}, {}
     for i, v in enumerate(leaves):
         if isinstance(v, torch.Tensor):
@@ -94,7 +103,7 @@ def load_checkpoint(path: str, like: Any) -> Any:
     """Restore into the structure of `like` (a tree of tensors): each leaf
     shape-checked, cast to its `like` leaf's dtype and placed on its
     device."""
-    leaves_like, treedef = tree_flatten(like)
+    leaves_like, treedef = tree_flatten(like, tuples=True)
     restored = []
     with np.load(path + ".npz") as data:
         for i, ref in enumerate(leaves_like):
@@ -102,8 +111,12 @@ def load_checkpoint(path: str, like: Any) -> Any:
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {i}: shape {arr.shape} != "
                                  f"{tuple(ref.shape)}")
-            restored.append(torch.from_numpy(np.array(arr)).to(
-                device=ref.device, dtype=ref.dtype))
+            if arr.dtype == np.uint16:     # through an int16 view
+                t = torch.from_numpy(np.array(arr).view(np.int16)) \
+                    .view(torch.uint16)
+            else:
+                t = torch.from_numpy(np.array(arr))
+            restored.append(t.to(device=ref.device, dtype=ref.dtype))
     return tree_unflatten(treedef, restored)
 
 

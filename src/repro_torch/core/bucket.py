@@ -186,22 +186,46 @@ def gossip_flat_exact(buf, perm, matched=None):
     return torch.where(matched[:, None], avg, buf)
 
 
+def row_mask(matched: torch.Tensor, rows_per_node: int) -> torch.Tensor:
+    """Per-node mask [n] -> per-row mask [n * rows_per_node] (each node's
+    rows are contiguous). An expand, not ``repeat_interleave``, which
+    copies its count to the device and so cannot run inside a CUDA graph
+    capture."""
+    return matched[:, None].expand(matched.shape[0], rows_per_node) \
+        .reshape(-1)
+
+
 def gossip_flat_coded(codec: WireCodec, buf, prev_buf, perm, matched, rng,
-                      *, u=None, tile_rows: int = DEFAULT_TILE_ROWS):
-    """Encode once (one quantize_mod sweep), permute every wire tensor,
-    decode + average + matched mask in one fused decode_avg sweep.
-    Residual-carrying codecs are not ported, so this returns the mixed
-    buffer alone."""
-    assert not codec.carries_residual, codec.name
+                      *, residual=None, u=None,
+                      tile_rows: int = DEFAULT_TILE_ROWS):
+    """Encode once (one quantize_mod sweep for the lattice), permute every
+    wire tensor, decode + average + matched mask in one fused decode_avg
+    sweep. Returns (mixed, new_residual); new_residual is None unless the
+    codec carries an error-feedback residual, whose update is gated by
+    `matched` (an unconsumed payload leaves it to re-enter the next
+    encode)."""
     n_nodes, n_padded = buf.shape
     rpn = n_padded // codec.block
+    new_residual = None
     with record_function("gossip.encode"):
-        wire = codec.encode(buf, prev_buf, rng, u=u, tile_rows=tile_rows)
+        if codec.carries_residual:
+            wire, res_after = codec.encode_ef(buf, prev_buf, rng, residual,
+                                              u=u, tile_rows=tile_rows)
+            keep = residual if residual is not None \
+                else torch.zeros_like(buf)
+            # in place: res_after is the encode's own fresh buffer
+            new_residual = torch.where(matched[:, None], res_after, keep,
+                                       out=res_after)
+            del keep
+        else:
+            wire = codec.encode(buf, prev_buf, rng, u=u, tile_rows=tile_rows)
     with record_function("gossip.permute"):
         wire_p = tuple(permute_rows(w, perm, n_nodes) for w in wire)
-        m_rows = matched.repeat_interleave(rpn)
+        m_rows = row_mask(matched, rpn)
+    del wire
     with record_function("gossip.decode"):
-        return codec.decode_avg(wire_p, buf, m_rows, tile_rows=tile_rows)
+        out = codec.decode_avg(wire_p, buf, m_rows, tile_rows=tile_rows)
+    return out, new_residual
 
 
 def gossip_flat_mean(buf, mask=None):

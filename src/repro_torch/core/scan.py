@@ -1,0 +1,280 @@
+"""The chunked superstep driver (counterpart of ``repro/core/scan.py``).
+
+The reference folds K supersteps into one ``lax.scan`` dispatch. Here a
+chunk replays CUDA graphs: on the card each superstep is one graph, captured
+once per *graph key* — the host values its control flow reads, which for
+the local-step loop is the pair (min h, max h) and for SGP also t mod
+log2 n (``EngineStep.graph_key``) — and replayed with no host sync inside
+the chunk. A graph reads its inputs from static buffers, which the chunk
+refills before each replay with device-to-device copies (the chunk's
+matchings, counts, masks and batches are moved to the card once per
+chunk), and writes the new state back into the state's own tensors in
+place, as the reference donates its carry: the state passed in is
+consumed, and the chunk returns it updated.
+
+Only the sweeps a superstep runs are captured, so a chunk launches what the
+per-step driver launches (Σ_s max_i h_{s,i} optimizer sweeps), not h_max
+sweeps a superstep. The driver's first superstep runs the body eagerly
+(the warm-up a capture needs: cuBLAS handles, the permute's side stream,
+cached device constants) and is then captured on the capture stream,
+which runs nothing on the card; the first superstep of every later key is captured and
+replayed at once, so no eager run's memory sits beside the graphs' shared
+pool; every later superstep with a captured key replays its graph. The encode's generator is registered with every graph, so
+a replay draws the uniforms the eager sequence would. The kernels' launch
+counters (``kernels/ops.py``) count in Python: a graph's launches are
+recorded at its capture and added at every replay. Since keys replay in
+schedule order and share one pool, each capture is checked to leave
+nothing allocated in the pool beyond the first capture's cuBLAS
+workspaces.
+
+On CPU tensors the same body runs eagerly, superstep by superstep; on CUDA
+tensors the chunk captures or raises. A chunked run is bitwise the
+per-step driver's on the final state and the per-superstep metrics (on
+the card, when both run under deterministic algorithms with one pinned
+cuBLAS workspace), and
+chunk boundaries are exact resume and checkpoint points (the state there
+is the per-step driver's state at the same superstep).
+"""
+from __future__ import annotations
+
+import gc
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.exchange import EngineStep, StepInputs
+from repro_torch.core.swarm import SwarmState
+from repro_torch.kernels import ops as K
+
+_FIELDS = ("params", "opt", "prev", "inflight", "residual")
+
+# what a capture may leave allocated in the graphs' shared pool: the first
+# capture creates the capture stream's cuBLAS workspaces there, one for the
+# handle of each thread that runs GEMMs (this one's forward, the autograd
+# engine's backward), 32 MiB each on Hopper (PyTorch's default and the
+# :4096:8 that chip_smoke.py pins; seen on the H100 as two 33,554,432-byte
+# blocks allocated by at::cuda::setWorkspaceForHandle); every later capture
+# must leave the pool as it found it
+_POOL_ALLOWANCE = 2 * (32 << 20)
+
+
+def _leaves(x) -> list:
+    """Tensors of a state field in a fixed order: dicts by sorted key,
+    tuples (a wire) in order, None empty."""
+    if x is None:
+        return []
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+def _state_leaves(state: SwarmState) -> list:
+    return [t for f in _FIELDS for t in _leaves(getattr(state, f))]
+
+
+def _release() -> None:
+    """Return every cached, unused block to the device (reference cycles
+    first): a graph's pool cannot reuse the default pool's blocks."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes allocated (live) in the CUDA graph pool `pool`."""
+    return sum(seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def _write_back(static: SwarmState, new: SwarmState) -> None:
+    """Copy `new`'s tensors into `static`'s, field by field (a tensor the
+    step passed through unchanged is the static one itself)."""
+    dst, src = _state_leaves(static), _state_leaves(new)
+    if len(dst) != len(src):
+        raise ValueError(f"the step changed the state's structure: "
+                         f"{len(dst)} tensors before, {len(src)} after")
+    for d, s in zip(dst, src):
+        if s is d:
+            continue
+        if s.shape != d.shape or s.dtype != d.dtype:
+            raise ValueError(f"state tensor {tuple(d.shape)} {d.dtype} "
+                             f"cannot take {tuple(s.shape)} {s.dtype}")
+        d.copy_(s)
+
+
+class SuperstepChunk:
+    """chunk(state, gen, batch, perm, h[, mask]) -> (state, metrics): K
+    supersteps of `step` (an EngineStep). batch leaves carry a leading [K]
+    dim (tensors on the state's device); perm, h (and with `with_mask`,
+    mask) are host arrays [K, n_nodes]; gen is the encode's generator (or
+    None for a run that draws nothing). Returns the state — the argument's
+    own tensors, updated in place, its step advanced by K — and each
+    metric stacked [K] on the device."""
+
+    def __init__(self, step: EngineStep, *, with_mask: bool = False):
+        if not isinstance(step, EngineStep):
+            raise TypeError("the chunk driver takes an EngineStep (from "
+                            "make_swarm_step / make_algorithm)")
+        self.step = step
+        self.with_mask = with_mask
+        self.graphs = {}          # graph key -> (CUDAGraph, launches)
+        self.pool_bytes = {}      # graph key -> pool bytes after its capture
+        self._state: Optional[SwarmState] = None
+        self._inp: Optional[StepInputs] = None
+        self._batch: Optional[dict] = None
+        self._metrics: Optional[dict] = None
+        self._pool = None
+        self._stream = None
+
+    # -- static buffers ----------------------------------------------------
+
+    def _adopt(self, state: SwarmState) -> None:
+        """Make `state`'s tensors the static ones on the first call; later
+        calls take the state the chunk returned (the same tensors)."""
+        if self._state is None:
+            self._state = SwarmState(state.params, state.opt, state.prev,
+                                     state.step, state.inflight,
+                                     state.residual)
+            return
+        mine, theirs = _state_leaves(self._state), _state_leaves(state)
+        if len(mine) != len(theirs) or any(
+                a is not b for a, b in zip(mine, theirs)):
+            raise ValueError("a chunk driver updates the state it was "
+                             "first given in place: pass the state it "
+                             "returned (or build a new driver)")
+        self._state.step = state.step
+
+    def _stage(self, device, n_nodes: int, batch: dict, k: int, lr: float,
+               perm_d, h_d, mask_d, h_host) -> None:
+        if self._inp is None:
+            self._inp = StepInputs.static(n_nodes, device, self.with_mask)
+            self._batch = {name: torch.empty_like(v[0])
+                           for name, v in batch.items()}
+        inp = self._inp
+        inp.lr.fill_(lr)
+        inp.perm.copy_(perm_d[k])
+        inp.h.copy_(h_d[k])
+        if self.with_mask:
+            inp.mask.copy_(mask_d[k])
+        inp.h_host = h_host
+        for name, v in batch.items():
+            self._batch[name].copy_(v[k])
+
+    # -- one superstep -----------------------------------------------------
+
+    def _body(self, gen) -> None:
+        """The captured function: one superstep from the static inputs,
+        its state and metrics written into the static tensors."""
+        new, m = self.step.run(self._state, self._batch, self._inp, gen)
+        _write_back(self._state, new)
+        del new
+        if self._metrics is None:
+            self._metrics = {k: v.clone() for k, v in m.items()}
+        else:
+            for k, v in m.items():
+                self._metrics[k].copy_(v)
+
+    def _cuda_superstep(self, key, gen) -> None:
+        entry = self.graphs.get(key)
+        if entry is not None:
+            graph, launches = entry
+            graph.replay()
+            K.add_launches(launches)
+            return
+        first = self._stream is None
+        if first:
+            self._stream = torch.cuda.Stream()
+            self._pool = torch.cuda.graph_pool_handle()
+            # warm-up, once per driver: this superstep, eagerly, on the
+            # current stream, where the state's memory was allocated and
+            # cached (lazy initialisation must not happen under capture:
+            # cuBLAS handles, the permute's side stream, cached device
+            # constants, the kernels' libraries); later keys find it done
+            # and capture at once, so no eager run's memory sits beside
+            # the graphs' pool
+            _release()
+            self._body(gen)
+        # the capture allocates from the shared pool what the warm-up and
+        # earlier eager work left cached in the default pool
+        _release()
+        side, current = self._stream, torch.cuda.current_stream()
+        side.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        before = dict(K.LAUNCHES)
+        # the autograd engine runs the backward on its own thread, on the
+        # capturing stream: "thread_local" refuses unsafe calls of this
+        # thread only
+        with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                              capture_error_mode="thread_local"):
+            self._body(gen)
+        launches = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        K.LAUNCHES.update(before)       # the capture ran nothing
+        self.graphs[key] = (graph, launches)
+        current.wait_stream(side)
+        self._check_pool(key)
+        if not first:
+            graph.replay()               # this superstep
+            K.add_launches(launches)
+
+    def _check_pool(self, key) -> None:
+        """Graphs replay in schedule order, not in capture order. A tensor
+        that a capture leaves allocated in the shared pool may sit where
+        an earlier graph kept its temporaries, and that graph's replay
+        would overwrite it; so no capture but the first may leave a byte
+        there, and the first only its workspaces (scratch, rewritten
+        before every read), at most `_POOL_ALLOWANCE`."""
+        gc.collect()
+        live = _pool_bytes(self._pool)
+        before = max(self.pool_bytes.values(), default=0)
+        self.pool_bytes[key] = live
+        allowed = _POOL_ALLOWANCE if len(self.pool_bytes) == 1 else before
+        if live > allowed:
+            raise RuntimeError(
+                f"the capture of graph key {key} left {live} bytes "
+                f"allocated in the graphs' shared pool (allowed {allowed}): "
+                f"a replay out of capture order could overwrite them")
+
+    # -- the chunk ---------------------------------------------------------
+
+    def __call__(self, state: SwarmState, gen, batch: dict, perm, h,
+                 mask=None):
+        if self.with_mask != (mask is not None):
+            raise ValueError(f"with_mask={self.with_mask} but mask is "
+                             f"{'given' if mask is not None else 'None'}")
+        perm, h = np.asarray(perm), np.asarray(h)
+        n_steps, n_nodes = h.shape
+        self._adopt(state)
+        device = _state_leaves(self._state)[0].device
+        on_card = device.type == "cuda"
+        # the chunk's schedule rows, moved to the device once
+        perm_d = torch.as_tensor(perm.astype(np.int64), device=device)
+        h_d = torch.as_tensor(h.astype(np.int32), device=device)
+        mask_d = torch.as_tensor(np.asarray(mask, bool), device=device) \
+            if mask is not None else None
+        out = {}
+        for k in range(n_steps):
+            st = self._state
+            h_host = tuple(int(x) for x in h[k])
+            self._stage(device, n_nodes, batch, k, self.step.lr_fn(st.step),
+                        perm_d, h_d, mask_d, h_host)
+            if on_card:
+                self._cuda_superstep(self.step.graph_key(st, h_host), gen)
+            else:
+                self._body(gen)
+            st.step += 1
+            for name, v in self._metrics.items():
+                out.setdefault(name, []).append(v.clone())
+        return self._state, {k: torch.stack(v) for k, v in out.items()}
+
+
+def make_superstep_scan(step_fn: EngineStep, *,
+                        with_mask: bool = False) -> SuperstepChunk:
+    """Wrap a per-superstep engine step (from make_swarm_step /
+    make_algorithm) into a K-superstep chunk: chunk(state, gen, batch[K],
+    perm[K], h[K][, mask[K]]) -> (state, metrics stacked [K])."""
+    return SuperstepChunk(step_fn, with_mask=with_mask)

@@ -30,6 +30,15 @@ in ``SwarmState.inflight``; its permute is dispatched before the local
 steps (on a side CUDA stream on the card) and lands against the stale
 packed S. ``pipeline_prologue`` primes it, ``pipeline_epilogue`` drains it.
 
+The wire codec is ``cfg.codec`` (``quant/codecs.py``: q2..q16, bf16,
+top-k with its error-feedback residual in ``SwarmState.residual``); with
+``compress_state`` the blocking path keeps its comm copy as the codec's
+wire tuple encoded against zeros, decoded at the top of each superstep.
+
+Every step is an :class:`~repro_torch.core.exchange.EngineStep`: its
+``run`` half reads the superstep's inputs from device tensors and can be
+captured as a CUDA graph (``core/scan.py``).
+
 Elastic membership (a scheduler trace with ``--avail``): a join bin runs
 ``make_join_step`` — the joiner copies its donor's model, one row gather
 on the packed buffer, no batch, no encode — in place of a superstep, and
@@ -46,11 +55,11 @@ from torch.profiler import record_function
 
 from repro_torch.core import bucket as B
 from repro_torch.core.exchange import (
-    GossipTransport, _rows, as_mask, land, lr_on, make_local_steps,
+    EngineStep, GossipTransport, _rows, as_mask, land, make_local_steps,
     masked_mean_loss, select, stale_combine,
 )
 from repro_torch.core.potential import gamma_potential
-from repro_torch.quant.codecs import LatticeCodec
+from repro_torch.quant.codecs import make_codec
 from repro_torch.quant.schemes import ModularQuantConfig
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -66,10 +75,17 @@ class SwarmConfig:
     h_max: int = 8               # loop bound of the variable h modes
     nonblocking: bool = False    # Algorithm 2 semantics
     overlap: bool = False        # pipelined non-blocking superstep
-    quantize: bool = False       # Extension 3: lattice gossip at quant.bits
+    quantize: bool = False       # Extension 3: codec-compressed gossip
     quant: ModularQuantConfig = ModularQuantConfig()
+    # the wire codec (quant/codecs.py): None follows `quant` (the lattice
+    # at quant.bits, q8 by default); "q2".."q16" | "bf16" | "topk:<frac>"
+    codec: Optional[str] = None
     average_momentum: bool = False  # the paper averages models only
     track_potential: bool = True    # Γ in the metrics
+    # keep the comm copy as the codec's wire tuple, encoded against zeros
+    # and decoded lazily in the superstep (quantized blocking path, lattice
+    # codecs; validated in algorithms/registry.py)
+    compress_state: bool = False
 
     def __post_init__(self):
         if self.h_mode not in H_MODES:
@@ -77,6 +93,11 @@ class SwarmConfig:
         if self.overlap and not self.nonblocking:
             raise ValueError("overlap=True pipelines Algorithm 2: set "
                              "nonblocking=True")
+
+    def make_codec(self):
+        """The run's wire codec (the lattice of `quant` when codec is
+        None)."""
+        return make_codec(self.codec, self.quant)
 
     @property
     def h_loop_bound(self) -> int:
@@ -96,8 +117,8 @@ class SwarmState:
     # and when quantized "prev": the packed comm copy, "wire": the encoded
     # payload in flight}
     inflight: Any = None
-    # the error-feedback residual of the top-k codec; that codec is not
-    # ported (algorithms.validate_run_config refuses it), so always None
+    # error-feedback codecs only: the untransmitted remainder of the last
+    # encode, [n_nodes, n_padded] fp32; it re-enters the next encode
     residual: Any = None
 
 
@@ -105,7 +126,9 @@ def swarm_init(gen: torch.Generator, cfg: SwarmConfig,
                param_init: Callable, opt_init: Callable) -> SwarmState:
     """Every node starts from the same model, drawn once from `gen`. In
     overlap mode the pipeline is primed here (its encode draws from
-    `gen`)."""
+    `gen`); under compress_state the comm copy is encoded here (its
+    uniforms drawn from `gen`); an error-feedback codec starts from a zero
+    residual."""
     one = param_init(gen)
     params = tree_map(lambda x: x.unsqueeze(0).repeat(
         (cfg.n_nodes,) + (1,) * x.ndim), one)
@@ -114,22 +137,32 @@ def swarm_init(gen: torch.Generator, cfg: SwarmConfig,
     if cfg.overlap:
         # pipelined mode: the comm copy lives packed in `inflight`
         return pipeline_prologue(cfg, SwarmState(params, opt, None, 0), gen)
-    prev = tree_map(torch.clone, params) \
-        if cfg.quantize or cfg.nonblocking else None
-    return SwarmState(params, opt, prev, 0)
+    codec = cfg.make_codec()
+    prev = residual = None
+    if cfg.compress_state:
+        layout = B.build_layout(params, block=codec.block)
+        prev = codec.encode_state(B.pack(layout, params), gen)
+    elif cfg.quantize or cfg.nonblocking:
+        prev = tree_map(torch.clone, params)
+    if cfg.quantize and codec.carries_residual:
+        layout = B.build_layout(params, block=codec.block)
+        residual = torch.zeros((cfg.n_nodes, layout.n_padded),
+                               dtype=torch.float32,
+                               device=tree_leaves(params)[0].device)
+    return SwarmState(params, opt, prev, 0, None, residual)
 
 
 def pipeline_prologue(cfg: SwarmConfig, state: SwarmState, rng, *,
                       u: Optional[torch.Tensor] = None) -> SwarmState:
     """Prime the pipeline: pack (and, quantized, encode against the comm
-    copy with the lattice codec of `cfg.quant`, with uniforms `u` or drawn
-    from `rng`) the first in-flight payload. `swarm_init` calls it in
+    copy with the codec of `cfg`, with uniforms `u` or drawn from `rng`)
+    the first in-flight payload. `swarm_init` calls it in
     overlap mode; it is also the re-entry point after
     `pipeline_epilogue`."""
     if not cfg.nonblocking:
         raise ValueError("overlap pipelining implements Algorithm 2: set "
                          "nonblocking=True")
-    codec = LatticeCodec(cfg.quant)
+    codec = cfg.make_codec()
     layout = B.build_layout(state.params, block=codec.block)
     buf = B.pack(layout, state.params)
     if cfg.quantize:
@@ -151,18 +184,21 @@ def pipeline_epilogue(cfg: SwarmConfig, state: SwarmState) -> SwarmState:
     new state; `state` itself is left as it was."""
     prev = state.prev
     if state.inflight is not None and "prev" in state.inflight:
-        layout = B.build_layout(state.params, block=cfg.quant.block)
+        layout = B.build_layout(state.params, block=cfg.make_codec().block)
         prev = B.unpack(layout, state.inflight["prev"])
     return SwarmState(state.params, state.opt, prev, state.step, None)
 
 
 def codec_checkpoint_tree(state: SwarmState) -> dict:
-    """What a quantized run persists to resume its codec state: params and
-    the comm copy (drain an overlapped state with `pipeline_epilogue`
-    first). Feed to ``checkpoint.save_checkpoint``."""
+    """What a quantized run persists to resume its codec state: params,
+    the comm copy (a tree, or compress_state's wire tuple) and an
+    error-feedback codec's residual (drain an overlapped state with
+    `pipeline_epilogue` first). Feed to ``checkpoint.save_checkpoint``."""
     tree = {"params": state.params}
     if state.prev is not None:
         tree["prev"] = state.prev
+    if state.residual is not None:
+        tree["residual"] = state.residual
     return tree
 
 
@@ -171,7 +207,17 @@ def restore_codec_state(state: SwarmState, tree: dict) -> SwarmState:
     state onto a freshly initialized SwarmState (same config)."""
     return SwarmState(tree["params"], state.opt,
                       tree.get("prev", state.prev), state.step,
-                      state.inflight)
+                      state.inflight, tree.get("residual", state.residual))
+
+
+def select_rows(m_rows, new, old):
+    """Per wire row: `new` where m_rows, else `old` (bitwise; uint16
+    codes through an int16 view)."""
+    if new.dtype == torch.uint16:
+        return select_rows(m_rows, new.view(torch.int16),
+                           old.view(torch.int16)).view(torch.uint16)
+    return torch.where(m_rows.reshape((-1,) + (1,) * (new.ndim - 1)), new,
+                       old)
 
 
 def _avg_matched(x, node_perm, matched):
@@ -185,73 +231,106 @@ def _avg_matched(x, node_perm, matched):
 def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                     lr_fn: Callable,
                     transport: Optional[GossipTransport] = None):
-    """Returns superstep(state, batch, perm, h_counts, rng, mask=None, *,
-    u=None) -> (state, metrics). batch leaves are [n_nodes, h_loop_bound,
-    local_batch, ...] tensors on the device; perm is an involution
-    [n_nodes]; h_counts the per-node local-step counts; rng the
-    torch.Generator of the encode's uniforms, or `u` the uniforms
-    themselves ([n_nodes, n_padded]); `mask` the optional participation
-    gate (bool [n_nodes]). With cfg.overlap the step is the pipelined
-    steady state and needs a primed state."""
-    tr = transport or GossipTransport(cfg.n_nodes, quant=cfg.quant)
+    """Returns the superstep, an :class:`EngineStep`: step(state, batch,
+    perm, h_counts, rng, mask=None, *, u=None, u_state=None) -> (state,
+    metrics). batch leaves are [n_nodes, h_loop_bound, local_batch, ...]
+    tensors on the device; perm is an involution [n_nodes]; h_counts the
+    per-node local-step counts; rng the torch.Generator of the encode's
+    uniforms, or `u` the uniforms themselves ([n_nodes, n_padded]; under
+    compress_state `u_state` those of the comm copy's re-encode); `mask`
+    the optional participation gate (bool [n_nodes]). With cfg.overlap the
+    step is the pipelined steady state and needs a primed state."""
+    tr = transport or GossipTransport(cfg.n_nodes, quant=cfg.quant,
+                                      codec=cfg.make_codec())
+    ef = cfg.quantize and tr.codec.carries_residual
+    cs = cfg.compress_state
+    if cs and (tr.codec.carries_residual or not cfg.quantize
+               or cfg.nonblocking):
+        raise ValueError("compress_state keeps the quantized blocking "
+                         f"path's comm copy, lattice codecs only (codec "
+                         f"{tr.codec.name}, quantize={cfg.quantize}, "
+                         f"nonblocking={cfg.nonblocking})")
     if cfg.overlap:
         tr.check_overlap(cfg.quantize)
     local_steps = make_local_steps(loss_fn, opt_update, cfg.h_loop_bound)
 
-    def start(state):
-        lr = lr_on(lr_fn, state.step, state.params)
-        return lr.device, lr
-
-    def matching(perm, mask, device):
+    def matching(inp, device):
         """-> (perm, node perm, participation mask, landing mask)."""
-        perm_t = torch.as_tensor(np.asarray(perm), dtype=torch.int64,
-                                 device=device)
-        node_perm, _ = tr.resolve_perm(perm_t)
+        node_perm, _ = tr.resolve_perm(inp.perm)
         matched = node_perm != torch.arange(cfg.n_nodes, device=device)
-        mask = as_mask(mask, device)
-        if mask is not None:
-            matched = matched & mask
-        return perm_t, node_perm, mask, matched
+        if inp.mask is not None:
+            matched = matched & inp.mask
+        return inp.perm, node_perm, inp.mask, matched
 
     def average_momentum(opt, node_perm, matched):
         if not cfg.average_momentum or not tree_leaves(opt):
             return opt
         return tree_map(lambda x: _avg_matched(x, node_perm, matched), opt)
 
-    def finish(state, params, opt, prev, inflight, losses, matched, mask,
-               lr):
+    def finish(state, params, opt, prev, inflight, residual, losses,
+               matched, mask, lr):
         metrics = {"loss": masked_mean_loss(losses, mask), "lr": lr,
                    "matched_frac": torch.mean(matched.to(torch.float32))}
         if cfg.track_potential:
             with record_function("swarm.gamma"):
                 metrics["gamma"] = gamma_potential(params)
         return SwarmState(params, opt, prev, state.step + 1,
-                          inflight), metrics
+                          inflight, residual), metrics
 
-    def superstep(state: SwarmState, batch, perm, h_counts, rng, mask=None,
-                  *, u=None):
-        device, lr = start(state)
+    def superstep(state: SwarmState, batch, inp, rng, *, u=None,
+                  u_state=None):
+        lr = inp.lr
+        device = lr.device
         S = state.params                      # superstep-start models
-        params, opt, losses = local_steps(S, state.opt, batch, h_counts, lr)
-        perm_t, node_perm, mask, matched = matching(perm, mask, device)
+        params, opt, losses = local_steps(S, state.opt, batch, inp)
+        perm_t, node_perm, mask, matched = matching(inp, device)
+        layout = B.build_layout(S, block=tr.codec.block)
+        prev_buf = None
+        if cs:
+            # the compressed comm copy, decoded to the packed buffer the
+            # encode measures its distance against
+            with record_function("swarm.prev"):
+                prev_buf = tr.codec.decode_state(
+                    state.prev, (cfg.n_nodes, layout.n_padded))
+        new_residual = state.residual
+
+        def mix(tree):
+            nonlocal new_residual
+            out = tr.mix_pair(tree, perm_t, matched, quantize=cfg.quantize,
+                              prev=None if cs else state.prev,
+                              prev_buf=prev_buf, rng=rng, u=u, mask=mask,
+                              residual=state.residual)
+            if ef:
+                out, new_residual = out
+            return out
+
         with record_function("swarm.gossip"):
             if cfg.nonblocking:
                 # Algorithm 2: X_i <- (S_i + X_j')/2 + (X_i - S_i), the
                 # partner's contribution its superstep-start model. The
                 # averaged base is in the leaf dtype before the fp32 delta
                 # is added, as the reference's tree-level combine does
-                base = tr.mix_pair(S, perm_t, matched, quantize=cfg.quantize,
-                                   prev=state.prev, rng=rng, u=u, mask=mask)
+                base = mix(S)
                 params = stale_combine(base, params, S, matched)
                 del base
             else:
                 # Algorithm 1: average the post-local-step models
-                params = tr.mix_pair(params, perm_t, matched,
-                                     quantize=cfg.quantize, prev=state.prev,
-                                     rng=rng, u=u, mask=mask)
+                params = mix(params)
+        del prev_buf
         opt = average_momentum(opt, node_perm, matched)
         new_prev = None
-        if state.prev is not None:
+        if cs:
+            # compressed refresh: re-encode the post-interaction model
+            # against zeros once, then take the matched nodes' wire rows;
+            # unmatched nodes keep their old bytes (no re-quantization)
+            with record_function("swarm.prev"):
+                enc = tr.codec.encode_state(B.pack(layout, params), rng,
+                                            u=u_state)
+                m_rows = B.row_mask(matched, layout.rows_per_node)
+                new_prev = tuple(select_rows(m_rows, e, o)
+                                 for e, o in zip(enc, state.prev))
+                del enc
+        elif state.prev is not None:
             # refresh the comm copy on interaction. Blocking: to the
             # post-interaction model (the next encode input is h local
             # steps away from it, so the distance proxy |x - prev| stays
@@ -262,11 +341,10 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             src = S if cfg.nonblocking else params
             with record_function("swarm.prev"):
                 new_prev = select(matched, src, state.prev)
-        return finish(state, params, opt, new_prev, None, losses, matched,
-                      mask, lr)
+        return finish(state, params, opt, new_prev, None, new_residual,
+                      losses, matched, mask, lr)
 
-    def pipelined_superstep(state: SwarmState, batch, perm, h_counts, rng,
-                            mask=None, *, u=None):
+    def pipelined_superstep(state: SwarmState, batch, inp, rng, *, u=None):
         """The steady state of the overlapped pipeline: the in-flight
         payload's permute is dispatched first (a side stream on the card),
         the local steps run under it, the decode + average lands against
@@ -276,10 +354,11 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
         if infl is None:
             raise ValueError("the overlapped superstep needs a primed "
                              "pipeline (pipeline_prologue)")
-        device, lr = start(state)
+        lr = inp.lr
+        device = lr.device
         codec = tr.codec
         layout = B.build_layout(state.params, block=codec.block)
-        perm_t, node_perm, mask, matched = matching(perm, mask, device)
+        perm_t, node_perm, mask, matched = matching(inp, device)
 
         # 1. the in-flight payload's permute, before any local compute
         payload = infl["wire"] if cfg.quantize else (infl["sbuf"],)
@@ -288,14 +367,14 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
 
         # 2. local steps, overlapping the permute
         params, opt, losses = local_steps(state.params, state.opt, batch,
-                                          h_counts, lr)
+                                          inp)
 
         # 3. land: decode + average against the STALE packed model S
         sbuf = infl["sbuf"]
         with record_function("swarm.gossip"):
             land(ready)
             if cfg.quantize:
-                m_rows = matched.repeat_interleave(layout.rows_per_node)
+                m_rows = B.row_mask(matched, layout.rows_per_node)
                 with record_function("gossip.decode"):
                     base_buf = codec.decode_avg(recv, sbuf, m_rows)
             else:
@@ -323,10 +402,11 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             new_infl = {"sbuf": new_buf, "prev": prev_buf, "wire": wire}
         else:
             new_infl = {"sbuf": new_buf}
-        return finish(state, params, opt, None, new_infl, losses, matched,
-                      mask, lr)
+        return finish(state, params, opt, None, new_infl, None, losses,
+                      matched, mask, lr)
 
-    return pipelined_superstep if cfg.overlap else superstep
+    return EngineStep(pipelined_superstep if cfg.overlap else superstep,
+                      lr_fn, h_max=cfg.h_loop_bound)
 
 
 _WIRE_PREV = ("join bootstrap re-bases the per-leaf comm copy; the "
@@ -353,7 +433,7 @@ def make_join_step(cfg: SwarmConfig):
     assert not cfg.overlap, \
         "join bootstrap needs the non-pipelined driver (overlap=False): " \
         "an in-flight payload packed before the join would go stale"
-    block = LatticeCodec(cfg.quant).block
+    block = cfg.make_codec().block
 
     def join_step(state: SwarmState, perm, join_mask) -> SwarmState:
         assert not isinstance(state.prev, tuple), _WIRE_PREV
@@ -386,9 +466,8 @@ def retire_nodes(state: SwarmState, left_mask) -> SwarmState:
     the scheduler never matches it again (its mask rows are False from
     then on), so its parameters, momentum and comm copy freeze in place;
     what is retired here is its error-feedback residual, zeroed so that
-    the post-leave state does not depend on when it was saved. The port
-    carries no residual yet (the top-k codec is not ported), so the
-    state comes back as it was."""
+    the post-leave state does not depend on when it was saved; a state
+    without a residual comes back as it was."""
     if state.residual is None:
         return state
     lm = as_mask(left_mask, state.residual.device)

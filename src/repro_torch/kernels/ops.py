@@ -27,6 +27,16 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def add_launches(counts: dict) -> None:
+    """Add a CUDA graph's launches per replay: `_launch` counts a kernel
+    in Python, which a captured graph runs once at capture (where nothing
+    runs on the card) and never at replay, so ``core/scan.py`` records
+    each graph's launches at capture, takes them back out and adds them
+    here at every replay."""
+    for k, v in counts.items():
+        LAUNCHES[k] += v
+
+
 def _to_blocks(x: torch.Tensor, block: int, tile_rows: int):
     flat = x.reshape(-1)
     n_rows = -(-flat.numel() // block)

@@ -34,12 +34,21 @@ and as any device work on another stream. A device event belongs to every
 span whose host range holds its launch (matched by correlation id, on the
 launching thread); the backward of the vmapped model launches from
 autograd's thread and so belongs to no span.
+
+With ``--scan-chunk K`` (the chunk driver, ``core/scan.py``) it runs
+``--warmup`` chunks of K supersteps (the first captures the CUDA graphs),
+then profiles one chunk: a replayed graph has no ``record_function`` spans,
+so the chunk is reported as its wall time between two CUDA events against
+the union of its kernel, memcpy and memset intervals (``chunk_ms``,
+``device_busy_ms``, ``idle_share``; ``superstep_ms`` is chunk_ms / K).
+``--codec`` and ``--compress-state`` pick the wire as in the driver.
 """
 from __future__ import annotations
 
 import json
 import os
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -171,6 +180,54 @@ def advance(tr, t: int):
     return float(tr.superstep(t)["loss"])
 
 
+def profile_chunk(args) -> dict:
+    """``--scan-chunk K``: --warmup chunks, then one chunk under the
+    profiler, timed by CUDA events on the card."""
+    k = args.scan_chunk
+    args.steps = (args.warmup + 1) * k
+    tr = build(args)
+    on_card = tr.device.type == "cuda"
+    for c in range(args.warmup):
+        t = c * k
+        tr.chunk(t, k, [tr.node_batches(s) for s in range(t, t + k)])
+    t = args.warmup * k
+    nbs = [tr.node_batches(s) for s in range(t, t + k)]
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        if on_card:
+            ev[0].record()
+        ms = tr.chunk(t, k, nbs)
+        if on_card:
+            ev[1].record()
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    chunk_ms = ev[0].elapsed_time(ev[1]) if on_card else None
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "chunk_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            summary = summarize(json.load(f), chunk_ms or host_ms)
+    summary.pop("spans")
+    summary.pop("permute_overlap")
+    if not on_card or summary["n_kernels"] == 0:
+        # no device in this run, or no kernel in the trace of the replay:
+        # the device metrics were not measured
+        summary.update(device_busy_ms=None, idle_share=None)
+    summary.update(chunk=k, first_step=t, chunk_ms=chunk_ms,
+                   superstep_ms=None if chunk_ms is None else chunk_ms / k,
+                   host_ms=host_ms, graphs=len(tr.chunker.graphs),
+                   loss=[float(x) for x in ms["loss"]],
+                   device=str(tr.device),
+                   device_name=(torch.cuda.get_device_name(0) if on_card
+                                else "cpu"))
+    return summary
+
+
 def main(argv=None) -> dict:
     ap = build_parser()
     ap.add_argument("--warmup", type=int, default=1,
@@ -182,6 +239,13 @@ def main(argv=None) -> dict:
                     help="profile the first join bin at or after --warmup "
                          "(needs --avail; the schedule spans --steps)")
     args = ap.parse_args(argv)
+    if args.scan_chunk:
+        if args.profile_join or args.avail:
+            ap.error("--scan-chunk profiles gossip chunks: drop "
+                     "--profile-join and --avail")
+        summary = profile_chunk(args)
+        print(json.dumps(summary), flush=True)
+        return summary
     if not args.profile_join:
         args.steps = args.warmup + 1
     tr = build(args)

@@ -12,7 +12,14 @@
 
 ``--algo`` is swarm (the default), allreduce, localsgd, dpsgd, adpsgd or
 sgp; every combination is checked against the capability matrix
-(``repro_torch.algorithms``) before anything is built.
+(``repro_torch.algorithms``) before anything is built. ``--codec`` picks
+the wire codec of ``--quantize`` (q2..q16, bf16, topk:<frac>; q8 when
+unset), ``--compress-state`` keeps the blocking path's comm copy as the
+codec's wire, and ``--scan-chunk K`` runs K supersteps per chunk, as
+CUDA graphs on the card (``core/scan.py``): bitwise the per-step driver on
+the CPU, and on the card when both runs use
+``torch.use_deterministic_algorithms`` with one pinned
+``CUBLAS_WORKSPACE_CONFIG`` (``chip_smoke.py`` sets both).
 
 ``--rate-profile`` drives training from the discrete-event scheduler
 (``repro_torch.sched``): per-node Poisson clocks (``uniform_async`` or
@@ -54,6 +61,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.exchange import transport_from_config
 from repro_torch.core.graph import GRAPH_KINDS, make_graph, sample_matching
 from repro_torch.core.hier import parse_topology
+from repro_torch.core.scan import make_superstep_scan
 from repro_torch.core.swarm import (
     SwarmConfig, SwarmState, codec_checkpoint_tree, make_join_step,
     make_mean_model_eval, pipeline_epilogue, retire_nodes, sample_h_counts,
@@ -244,7 +252,7 @@ def sched_cost(args, cfg, caps, graph, schedule, trace) -> dict:
     a global rendezvous + collective per bin (`predict_bsp_walltime`)."""
     cp = S.cost_params_from_model(cfg, seq_len=args.seq,
                                   local_batch=args.batch,
-                                  quantize=args.quantize,
+                                  quantize=args.quantize, codec=args.codec,
                                   topology=args.topology)
     if caps.pricing == "pairwise":
         return S.predict_all_modes(trace, cp, tiers=trace.meta.get("tiers"))
@@ -285,7 +293,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--quantize", action="store_true",
-                    help="q8 lattice gossip (quantize_mod + decode_avg)")
+                    help="codec-compressed gossip (the q8 lattice, "
+                         "quantize_mod + decode_avg, unless --codec)")
+    ap.add_argument("--codec", default=None,
+                    help="wire codec of --quantize: q2..q16 (lattice), "
+                         "bf16 (cast) or topk:<frac> (top-k with error "
+                         "feedback); default q8")
+    ap.add_argument("--compress-state", action="store_true",
+                    help="keep the comm copy as the codec's wire, encoded "
+                         "against zeros (blocking --quantize with a "
+                         "lattice codec)")
     ap.add_argument("--nonblocking", action="store_true",
                     help="Algorithm 2: average the superstep-start models")
     ap.add_argument("--overlap", action="store_true",
@@ -323,6 +340,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="use the smoke-scale variant of the arch")
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--d-model", type=int, default=256)
+    ap.add_argument("--scan-chunk", type=int, default=0,
+                    help="K supersteps per chunk, replayed as CUDA graphs "
+                         "on the card (core/scan.py); bitwise the per-step "
+                         "driver on the CPU, and on the card under "
+                         "torch.use_deterministic_algorithms with a pinned "
+                         "CUBLAS_WORKSPACE_CONFIG; chunk boundaries are the "
+                         "checkpointable points. 0 = per-step driver")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--eval-mean", action="store_true",
@@ -361,6 +385,7 @@ class Trainer:
     trace: Optional[S.Trace] = None
     clocks: Optional[S.PoissonClocks] = None
     join: Optional[Callable] = None       # --avail: the join bootstrap
+    chunker: Optional[Callable] = None    # --scan-chunk: the chunk driver
 
     @property
     def h_max(self) -> int:
@@ -411,6 +436,22 @@ class Trainer:
                                   mask)
         return m
 
+    def chunk(self, t: int, n: int, nbs: list) -> dict:
+        """Supersteps t .. t+n-1 as one chunk (``core/scan.py``) from their
+        numpy batches `nbs`; -> the metrics, numpy [n] each (read once)."""
+        a = self.args
+        if self.chunker is None:
+            self.chunker = make_superstep_scan(
+                self.step, with_mask=self.masks is not None)
+        batch = {k: torch.from_numpy(np.stack(
+            [nb[k].reshape(a.nodes, self.h_max, a.batch, a.seq)
+             for nb in nbs])).to(self.device) for k in nbs[0]}
+        masks = None if self.masks is None else self.masks[t:t + n]
+        self.state, ms = self.chunker(self.state, self.enc_gen, batch,
+                                      self.perms[t:t + n], self.hs[t:t + n],
+                                      masks)
+        return {k: v.cpu().numpy() for k, v in ms.items()}
+
     def eval_mean(self, nb: dict) -> dict:
         """The mean-model losses on node 0's batch of the step, as the JAX
         driver evaluates them."""
@@ -438,8 +479,10 @@ class Trainer:
             if self.scfg.overlap:
                 ck_state = pipeline_epilogue(self.scfg, ck_state)
             tree = codec_checkpoint_tree(ck_state)
-            meta["codec"] = {"spec": "q8", "state": sorted(tree),
-                             "compress_state": False}
+            # compress_state changes the saved prev's shape (the wire
+            # tuple), so a reader needs the flag to build its template
+            meta["codec"] = {"spec": a.codec or "q8", "state": sorted(tree),
+                             "compress_state": bool(self.scfg.compress_state)}
             save_checkpoint(path, tree, meta)
         else:
             save_checkpoint(path, ck_state.params, meta)
@@ -456,7 +499,9 @@ def build(args, cfg=None) -> Trainer:
                                nonblocking=args.nonblocking,
                                overlap=args.overlap,
                                rate_profile=args.rate_profile,
-                               avail=args.avail, topology=args.topology,
+                               codec=args.codec, avail=args.avail,
+                               topology=args.topology,
+                               compress_state=args.compress_state,
                                n_nodes=args.nodes)
     device = resolve_device(args.device)
     if cfg is None:
@@ -480,7 +525,9 @@ def build(args, cfg=None) -> Trainer:
     scfg = SwarmConfig(n_nodes=args.nodes, H=H, h_mode=h_mode,
                        h_max=args.h_max,
                        nonblocking=args.nonblocking or args.overlap,
-                       overlap=args.overlap, quantize=args.quantize)
+                       overlap=args.overlap, quantize=args.quantize,
+                       codec=args.codec,
+                       compress_state=args.compress_state)
     model = TransformerLM(cfg)
     kw = dict(loss_fn=model.functional_loss, opt_update=opt.update,
               lr_fn=lambda s: args.lr, n_nodes=args.nodes,
@@ -537,6 +584,13 @@ def check_args(ap: argparse.ArgumentParser, args) -> None:
     if args.avail and args.rate_profile in ("none", "uniform"):
         ap.error("--avail rides the asynchronous Poisson clocks; use "
                  "--rate-profile uniform_async or lognormal")
+    if args.avail and args.scan_chunk:
+        ap.error("--avail schedules contain join bins, which branch per "
+                 "superstep (join-bootstrap vs gossip) — the fused scan "
+                 "driver replays gossip bins only; drop --scan-chunk "
+                 "(DESIGN.md §Churn)")
+    if args.scan_chunk < 0:
+        ap.error("--scan-chunk takes K >= 0 (0 = per-step driver)")
 
 
 def run(args, tr: Optional[Trainer] = None) -> list:
@@ -557,27 +611,53 @@ def run(args, tr: Optional[Trainer] = None) -> list:
                       step_no)
         written = step_no
 
+    def log(rec):
+        history.append(rec)
+        print(json.dumps(rec), flush=True)
+
     t0 = time.time()
-    for t in range(n_steps):
-        tr.retire(t)
-        if tr.is_join(t):
-            rec = tr.join_bin(t)
-            rec["wall_s"] = time.time() - t0
-            history.append(rec)
-            print(json.dumps(rec), flush=True)
-            continue
-        nb = tr.node_batches(t)
-        m = tr.superstep(t, nb)
-        if t % args.log_every == 0 or t == n_steps - 1:
-            rec = {"step": t, "loss": float(m["loss"]),
-                   "gamma": float(m.get("gamma", 0.0)),
-                   "wall_s": time.time() - t0}
-            if args.eval_mean:
-                rec.update(tr.eval_mean(nb))
-            history.append(rec)
-            print(json.dumps(rec), flush=True)
-        if args.ckpt and args.ckpt_every and (t + 1) % args.ckpt_every == 0:
-            periodic_ckpt(t + 1)
+    if args.scan_chunk > 0:
+        # K supersteps a chunk; the metrics are read once a chunk, the
+        # mean model is evaluated and checkpoints land at chunk boundaries
+        # (the checkpointable points), as in the reference's scan driver
+        for t in range(0, n_steps, args.scan_chunk):
+            k = min(args.scan_chunk, n_steps - t)
+            nbs = [tr.node_batches(s) for s in range(t, t + k)]
+            ms = tr.chunk(t, k, nbs)
+            em = tr.eval_mean(nbs[-1]) if args.eval_mean else None
+            for i in range(k):
+                s = t + i
+                boundary = em is not None and i == k - 1
+                if s % args.log_every == 0 or s == n_steps - 1 or boundary:
+                    rec = {"step": s, "loss": float(ms["loss"][i]),
+                           "gamma": float(ms["gamma"][i])
+                           if "gamma" in ms else 0.0,
+                           "wall_s": time.time() - t0}
+                    if boundary:
+                        rec.update(em)
+                    log(rec)
+            if args.ckpt and args.ckpt_every and \
+                    (t + k) // args.ckpt_every > t // args.ckpt_every:
+                periodic_ckpt(t + k)
+    else:
+        for t in range(n_steps):
+            tr.retire(t)
+            if tr.is_join(t):
+                rec = tr.join_bin(t)
+                rec["wall_s"] = time.time() - t0
+                log(rec)
+                continue
+            nb = tr.node_batches(t)
+            m = tr.superstep(t, nb)
+            if t % args.log_every == 0 or t == n_steps - 1:
+                rec = {"step": t, "loss": float(m["loss"]),
+                       "gamma": float(m.get("gamma", 0.0)),
+                       "wall_s": time.time() - t0}
+                if args.eval_mean:
+                    rec.update(tr.eval_mean(nb))
+                log(rec)
+            if args.ckpt and args.ckpt_every and (t + 1) % args.ckpt_every == 0:
+                periodic_ckpt(t + 1)
     tr.retire(n_steps)
     predicted = None
     if tr.schedule is not None:

@@ -92,8 +92,9 @@ def rope_freqs(head_dim: int, rot_frac: float, theta: float, device=None):
     rot_dim -= rot_dim % 2
     exps = torch.arange(0, rot_dim, 2, dtype=torch.float32,
                         device=device) / rot_dim
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                       device=device), exps)
+    # a device fill, not a host copy: a CUDA graph capture runs this
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=device), exps)
     return inv, rot_dim
 
 

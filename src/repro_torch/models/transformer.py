@@ -126,7 +126,8 @@ def forward(cfg, params, tokens, *, mode: str = "train"):
                                   "(training only)")
     dtype = getattr(torch, cfg.dtype)
     x = params["embed"][tokens.to(torch.int64)].to(dtype)
-    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+    # a device fill, not a host copy: a CUDA graph capture runs this
+    x = x * torch.full((), cfg.d_model ** 0.5, dtype=dtype, device=x.device)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     if cfg.n_full_blocks:

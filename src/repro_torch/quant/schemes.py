@@ -1,11 +1,12 @@
 """Distance-bounded modular (lattice) quantization: the configuration and
 the closed-form wire size. Counterpart of ``repro/quant/schemes.py``; the
 encode and decode themselves are the kernels behind ``quant/codecs.py``.
-The scale always follows the distance proxy (the reference's optional
-fixed resolution ε is not ported)."""
+The scale follows the sender's distance proxy, or is the fixed absolute
+resolution ε (``resolution``, the paper's ε) when one is given."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -13,6 +14,7 @@ class ModularQuantConfig:
     bits: int = 8
     block: int = 256            # coordinates per scale block
     safety: float = 8.0         # κ: scale headroom over the distance proxy
+    resolution: Optional[float] = None  # fixed absolute resolution (ε)
     min_scale: float = 1e-8
 
 

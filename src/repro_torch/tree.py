@@ -3,9 +3,13 @@
 ``jax.tree.flatten`` visits dict keys sorted at every level; the flat-buffer
 layout (``core/bucket.py``) and therefore the wire offsets, padding and byte
 counts depend on that order, so the port flattens the same way. A tree
-definition is a hashable nested tuple: ``None`` marks a leaf and a tuple of
+definition is a hashable nested tuple: ``None`` marks a leaf, a tuple of
 ``(key, subtree)`` pairs a dict (empty dicts survive a round trip, as the
-parameter-free norms of ``nonparam_ln`` need).
+parameter-free norms of ``nonparam_ln`` need) and, with ``tuples=True``,
+``(TUPLE, subtrees)`` a tuple, whose elements JAX visits in order (the
+checkpoint of a codec's wire tuple, as ``compress_state`` keeps its comm
+copy). By default a tuple is a leaf: the model maps over tuples of
+per-block tensors as single values.
 """
 from __future__ import annotations
 
@@ -16,22 +20,34 @@ from __future__ import annotations
 # garbage collector happens to run (whole-model tensors, on the card).
 
 
-def _flatten(t, leaves: list):
+TUPLE = "<tuple>"
+
+
+def _is_tuple_def(s) -> bool:
+    return isinstance(s, tuple) and s[:1] == (TUPLE,)
+
+
+def _flatten(t, leaves: list, tuples: bool):
     if isinstance(t, dict):
-        return tuple((k, _flatten(t[k], leaves)) for k in sorted(t))
+        return tuple((k, _flatten(t[k], leaves, tuples)) for k in sorted(t))
+    if tuples and isinstance(t, tuple):
+        return (TUPLE, tuple(_flatten(v, leaves, tuples) for v in t))
     leaves.append(t)
     return None
 
 
-def tree_flatten(tree):
-    """-> (leaves in sorted-key order, treedef)."""
+def tree_flatten(tree, *, tuples: bool = False):
+    """-> (leaves in sorted-key order, treedef); `tuples` descends into
+    tuples as JAX does."""
     leaves = []
-    return leaves, _flatten(tree, leaves)
+    return leaves, _flatten(tree, leaves, tuples)
 
 
 def _unflatten(s, it):
     if s is None:
         return next(it)
+    if _is_tuple_def(s):
+        return tuple(_unflatten(v, it) for v in s[1])
     return {k: _unflatten(v, it) for k, v in s}
 
 
@@ -54,18 +70,22 @@ def tree_map(fn, tree, *rest):
                           [fn(*xs) for xs in zip(leaves, *others)])
 
 
-def _paths(t, prefix: tuple, out: list):
+def _paths(t, prefix: tuple, out: list, tuples: bool):
     if isinstance(t, dict):
         for k in sorted(t):
-            _paths(t[k], prefix + (k,), out)
+            _paths(t[k], prefix + (k,), out, tuples)
+    elif tuples and isinstance(t, tuple):
+        for i, v in enumerate(t):
+            _paths(v, prefix + (i,), out, tuples)
     else:
         out.append(prefix)
 
 
-def tree_key_paths(tree) -> list:
-    """Each leaf's tuple of dict keys, in flatten order."""
+def tree_key_paths(tree, *, tuples: bool = False) -> list:
+    """Each leaf's tuple of dict keys (and, with `tuples`, tuple
+    indices), in flatten order."""
     out = []
-    _paths(tree, (), out)
+    _paths(tree, (), out, tuples)
     return out
 
 

@@ -639,8 +639,9 @@ MODES = {"blocking": {}, "nonblocking": {"nonblocking": True},
 def test_validate_accepts_the_reference_set_minus_unported(algo,
                                                           monkeypatch):
     """Over algo x impl x mode x quantize x codec the port accepts exactly
-    what JAX accepts, minus the transports other than gather and the bf16
-    and top-k codecs, which the port refuses by name."""
+    what JAX accepts, minus the transports other than gather, which the
+    port refuses by name (every codec, bf16 and top-k included, is
+    ported)."""
     for var in ("REPRO_DEFAULT_GOSSIP_IMPL", "REPRO_CODEC", "REPRO_TOPOLOGY",
                 "REPRO_AVAIL_PROFILE"):
         monkeypatch.delenv(var, raising=False)
@@ -652,8 +653,7 @@ def test_validate_accepts_the_reference_set_minus_unported(algo,
                     kw = dict(gossip_impl=impl, quantize=quantize,
                               codec=codec, **mkw)
                     j = _accepts(jvalidate, algo, **kw)
-                    unported = impl != "gather" or (
-                        quantize and codec in ("bf16", "topk:0.25"))
+                    unported = impl != "gather"
                     assert _accepts(validate_run_config, algo, **kw) == \
                         (j and not unported), (algo, kw, j)
                     n_accept += j and not unported
@@ -662,16 +662,10 @@ def test_validate_accepts_the_reference_set_minus_unported(algo,
 
 @pytest.mark.parametrize("kw,item", [
     (dict(gossip_impl="ppermute_pool"), "NCCL"),
-    (dict(quantize=True, codec="bf16"), "bf16/top-k"),
-    (dict(quantize=True, codec="topk:0.25"), "bf16/top-k"),
     (dict(rate_profile="lognormal", gossip_impl="ppermute_pool"), "NCCL"),
-    (dict(rate_profile="uniform", quantize=True, codec="bf16"),
-     "bf16/top-k"),
     (dict(topology="hier:4", rate_profile="lognormal",
-          gossip_impl="ppermute_pool"), "NCCL"),
-    (dict(quantize=True, compress_state=True), "bf16/top-k"),
-    (dict(avail="day_night:period=4,duty=0.5", rate_profile="lognormal",
-          quantize=True, codec="topk:0.25"), "bf16/top-k")])
+          gossip_impl="ppermute_pool"), "NCCL")],
+    ids=["kw0-NCCL", "kw3-NCCL", "kw5-NCCL"])
 def test_validate_names_the_roadmap_item(kw, item, monkeypatch):
     """What JAX accepts for swarm and the port does not carry yet is
     refused with the ROADMAP item it waits for — also under the
@@ -683,6 +677,26 @@ def test_validate_names_the_roadmap_item(kw, item, monkeypatch):
     with pytest.raises(ValueError, match="ROADMAP") as e:
         validate_run_config("swarm", n_nodes=8, **kw)
     assert item in str(e.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(quantize=True, codec="bf16"),
+    dict(quantize=True, codec="topk:0.25"),
+    dict(rate_profile="uniform", quantize=True, codec="bf16"),
+    dict(quantize=True, compress_state=True),
+    dict(avail="day_night:period=4,duty=0.5", rate_profile="lognormal",
+         quantize=True, codec="topk:0.25")],
+    ids=["bf16", "topk", "uniform-bf16", "compress-state", "avail-topk"])
+def test_validate_accepts_the_ported_codecs(kw, monkeypatch):
+    """The bf16 and top-k codecs and --compress-state, which the port
+    refused until they were ported, are accepted where JAX accepts them
+    (also under the scheduler's flags), with the same capability row."""
+    for var in ("REPRO_DEFAULT_GOSSIP_IMPL", "REPRO_CODEC", "REPRO_TOPOLOGY",
+                "REPRO_AVAIL_PROFILE"):
+        monkeypatch.delenv(var, raising=False)
+    want = jvalidate("swarm", n_nodes=8, **kw)
+    got = validate_run_config("swarm", n_nodes=8, **kw)
+    assert (got.codecs, got.modes) == (want.codecs, want.modes)
 
 
 def test_validate_rejects_like_the_reference():
@@ -833,13 +847,18 @@ def test_driver_checkpoint_metadata_names_the_algo(tmp_path):
 
 
 def test_driver_refuses_unported_flags():
+    """The transports' flags and unknown choices still do not parse;
+    --compress-state, --codec and --scan-chunk are ported and do."""
     for argv in (["--gossip-impl", "ppermute"], ["--rate-profile", "explicit"],
-                 ["--pool-size", "4"], ["--compress-state"],
-                 ["--codec", "bf16"], ["--scan-chunk", "2"],
-                 ["--graph", "petersen"], ["--algo", "sgd"]):
+                 ["--pool-size", "4"], ["--graph", "petersen"],
+                 ["--algo", "sgd"]):
         with pytest.raises(SystemExit) as e:
             ttrain.build_parser().parse_args(argv)
         assert e.value.code == 2
+    args = ttrain.build_parser().parse_args(
+        ["--compress-state", "--codec", "bf16", "--scan-chunk", "2"])
+    assert (args.compress_state, args.codec, args.scan_chunk) == \
+        (True, "bf16", 2)
     for argv in (["--algo", "localsgd", "--quantize"],
                  ["--algo", "sgp", "--nonblocking"],
                  ["--algo", "adpsgd", "--overlap"]):

@@ -133,10 +133,12 @@ def test_gossip_flat_coded_bitwise(trees, spec, seed):
     u = np.array(jax.random.uniform(key, buf_j.shape, jnp.float32))
     tcodec = TC.make_codec(spec)
     buf_t = TB.pack(TB.build_layout(ttree), ttree)
-    out_t = TB.gossip_flat_coded(tcodec, buf_t, torch.from_numpy(prev_np),
-                                 torch.from_numpy(perm).long(),
-                                 torch.from_numpy(matched), None,
-                                 u=torch.from_numpy(u))
+    out_t, res_t = TB.gossip_flat_coded(tcodec, buf_t,
+                                        torch.from_numpy(prev_np),
+                                        torch.from_numpy(perm).long(),
+                                        torch.from_numpy(matched), None,
+                                        u=torch.from_numpy(u))
+    assert res_t is None
     np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
     # the wire itself: codes and scales bitwise, bytes as declared
     jw = jcodec.encode(buf_j, jnp.asarray(prev_np), key)
@@ -169,11 +171,19 @@ def test_permute_rows_uint16_and_groups():
 
 
 def test_unported_codecs_refuse_by_name():
-    for spec in ("bf16", "topk:0.25"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.make_codec(spec)
-    with pytest.raises(ValueError):
-        TC.make_codec("q17")
+    """The bf16 and top-k codecs are ported now: make_codec builds them
+    under the reference's names and families; bogus specs still raise
+    ValueError with the grammar, as in the reference."""
+    for spec, name, family in (("bf16", "bf16", "bf16"),
+                               ("topk:0.25", "topk:0.25", "topk")):
+        c, jc = TC.make_codec(spec), JC.make_codec(spec)
+        assert (c.name, c.family) == (name, family) == (jc.name, jc.family)
+        assert c.carries_residual == jc.carries_residual
+    for bad in ("q17", "topk:2", "topk:x", "fp8"):
+        with pytest.raises(ValueError):
+            TC.make_codec(bad)
+        with pytest.raises(ValueError):
+            JC.make_codec(bad)
     assert TC.make_codec(None).name == "q8"
 
 

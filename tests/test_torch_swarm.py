@@ -571,11 +571,15 @@ def test_cli_smoke_cpu(tmp_path):
 
 
 def test_cli_refuses_other_algos_and_flags():
-    for argv in (["--rate-profile", "explicit"], ["--scan-chunk", "2"],
-                 ["--codec", "q4"]):
+    """An unknown rate profile or algorithm does not parse; --scan-chunk
+    and --codec are ported and do."""
+    for argv in (["--rate-profile", "explicit"], ["--algo", "sgd"]):
         with pytest.raises(SystemExit) as e:
             ttrain.build_parser().parse_args(argv)
         assert e.value.code == 2
+    args = ttrain.build_parser().parse_args(["--scan-chunk", "2",
+                                             "--codec", "q4"])
+    assert (args.scan_chunk, args.codec) == (2, "q4")
 
 
 def test_cli_without_device_needs_a_gpu():
