@@ -105,9 +105,38 @@ Phases, each printed on its own line:
 18. ``--scan-chunk 4`` at full width, 8 supersteps: the blocking q8
     command (its supersteps 0-3 bitwise `main_path`'s records of the same
     call, beside that run's per-step median) and the overlapped geometric
-    one (on 6 nodes: 8 do not fit beside the
-    graphs' pool); launches Σ_t max_i h_{t,i} / 8 / 8, and the second
-    chunk's time per superstep.
+    one, both on 8 nodes; launches Σ_t max_i h_{t,i} / 8 / 8, and the
+    second chunk's time per superstep;
+19. serving's reference: transformer-wmt, olmo-1b and mamba2-780m cut to
+    2 layers of d_model 32 (fp32), card against CPU from the same weights
+    and prompts — prefill, teacher-forced decode, paged decode and ragged
+    chunk logits and states within 2e-5, one-shot greedy tokens equal,
+    the dense, paged (page 4) and chunked (chunk 4) engines' tokens equal
+    the CPU's with no added shape signature; planted faults (the cache
+    written at len + 1, a page table shifted by one page, padded chunk
+    tokens with dt != 0) must fail the bound;
+20. serving at full width and depth in bf16, transformer-wmt and
+    mamba2-780m: ``repro_torch.launch.serve --batch 8 --prompt-len 512
+    --gen 64`` (prefill ms, decode ms a token, finite logits), then the
+    engine with 8 slots and 16 requests of 512 + 64 tokens four ways
+    (dense blocking, dense --prefill-chunk 128, paged --page-size 16 with
+    chunk 128, blocking with a hot swap after 8 decode steps): paged ==
+    dense bitwise, the swap's first lanes bitwise the no-swap run's,
+    nothing dropped, no added shape signature; it prints tokens/s,
+    latency and TTFT p50/p99, peak memory, KV bytes dense and paged, and
+    the chunked schedule's token agreement with blocking;
+21. serving checkpoints of both full-width models, q8, q4 and bf16:
+    quantize_mod 1 on export and decode_avg 1 on load per lattice codec
+    (0 / 0 for bf16), the load bitwise a plain decode of the same wire,
+    wire bytes the declared layout, greedy tokens those of the plain
+    decode's weights, and the codec times at these shapes;
+22. the follower and the live source: the port's driver writes two
+    ``--compress-state`` checkpoints of transformer-wmt x 4 nodes,
+    ``repro_torch.launch.serve --follow`` serves 8 requests from them, the
+    two land one after the other beside a running engine that adopts both
+    in order, and ``--source live`` serves across more than one
+    generation (launches 8/9/8 for the training run, 0/0/0 serving, 6/0/0
+    live).
 
 The card's line is printed again before the kernels' JSON record, which
 is the line before the last; the last line is
@@ -1975,13 +2004,12 @@ def phase_scan_bitwise():
     log("scan_bitwise", **out)
 
 
-# the overlapped geometric command runs 6 nodes, not 8: its eager peak is
-# 65.1 GB, and the graphs' pool holds a superstep's transients beside the
-# 22.2 GB state with more room lost to fragmentation than the default pool
-# loses (8 nodes ran out of the card's 79.18 GiB in its first capture)
+# both at the main path's 8 nodes: under expandable segments the
+# overlapped geometric command fits (with the allocator's fixed segments
+# it ran out of the card's 79.18 GiB in its first capture)
 SCAN_FULL_WIDTH = {
     "scan_blocking_q8": ["--nodes", "8", "--quantize"],
-    "scan_overlap_q8_geometric": ["--nodes", "6", "--h-mode", "geometric",
+    "scan_overlap_q8_geometric": ["--nodes", "8", "--h-mode", "geometric",
                                   "--h-max", "8", "--quantize",
                                   "--nonblocking", "--overlap", "--non-iid",
                                   "0.5", "--eval-mean"],
@@ -1989,8 +2017,8 @@ SCAN_FULL_WIDTH = {
 
 
 def phase_scan_full_width(main_records):
-    """The two commands with --scan-chunk 4 at full width (the overlapped
-    one on 6 nodes), 8 supersteps (two chunks: the first captures, the
+    """The two commands with --scan-chunk 4 at full width (8 nodes), 8
+    supersteps (two chunks: the first captures, the
     second replays what it can), launch
     counters at 0 just before each; -> {path: launches}. The blocking one
     is `main_path`'s command, whose per-step median of this call is
@@ -2053,11 +2081,623 @@ def phase_scan_full_width(main_records):
     return by_path
 
 
+# -- serving: the model's inference modes, the engine, checkpoints --
+
+SERVE_REF_ARCHS = ("transformer-wmt", "olmo-1b", "mamba2-780m")
+SERVE_FULL_ARCHS = ("transformer-wmt", "mamba2-780m")
+SERVE_BOUND = 2e-5
+SERVE_LENS = (3, 8, 5, 1, 7)         # ragged prompts of the engine checks
+
+
+class _planted:
+    """Replace module attributes for the body of a `with` (a planted
+    fault on the card side), restored after."""
+
+    def __init__(self, *patches):
+        self.patches = patches            # (module, name, replacement)
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
+        for m, n, f in self.patches:
+            setattr(m, n, f)
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def _serve_faults():
+    """name -> (archs it applies to, the patches that plant it)."""
+    import torch
+    from repro_torch.models import attention, ssm
+    from repro_torch.models import transformer as tf
+    write = tf._cache_write
+    gather = attention.gather_pages
+    mask = ssm.mask_padded_dt
+    return {
+        "cache_at_len_plus_1": (
+            ("transformer-wmt", "olmo-1b"),
+            ((tf, "_cache_write",
+              lambda c, new, idx: write(c, new, idx + 1)),)),
+        "page_table_shifted": (
+            ("transformer-wmt", "olmo-1b"),
+            ((attention, "gather_pages",
+              lambda pool, pages: gather(pool,
+                                         torch.roll(pages, 1, dims=-1))),)),
+        "padded_dt_nonzero": (
+            ("mamba2-780m",),
+            ((ssm, "mask_padded_dt",
+              lambda dt, nv: mask(dt, nv + 1)),)),
+    }
+
+
+def _serve_readings(cfg, params, dev, prompts, chunks, step_tokens):
+    """The model's serving modes on `dev` from `params`: prefill logits,
+    teacher-forced decode logits (the tokens `step_tokens` fed to every
+    device), the same decode through page pools (attention archs) and
+    ragged chunk-mode logits and states -> dict of CPU fp32 tensors."""
+    import torch
+    from repro_torch.launch.serve import make_serve_fns
+    from repro_torch.models import forward, init_cache, logits_head
+    from repro_torch.serve import paged as P
+    from repro_torch.serve.engine import grow_cache
+    from repro_torch.tree import keystr, tree_key_paths, tree_leaves
+    prefill, decode_step = make_serve_fns(cfg)
+    toks = torch.from_numpy(prompts).to(dev)
+    B, L = toks.shape
+    logits, c = prefill(params, toks)
+    out = {"prefill": logits}
+    cache = grow_cache(init_cache(cfg, B, 16, device=dev), c)
+    steps = []
+    for t in step_tokens:
+        lg, cache = decode_step(params, cache, torch.from_numpy(t).to(dev))
+        steps.append(lg)
+    out["decode"] = torch.cat(steps, dim=1)
+    if P.attn_layer_entries(cfg):
+        dense = grow_cache(init_cache(cfg, B, 16, device=dev), c)
+        lane, rows = P.strip_attn_kv(cfg, dense)
+        lane["len"] = torch.full((B,), L, dtype=torch.int32, device=dev)
+        tables = torch.tensor([[5, 1, 7, 3], [2, 6, 0, 4]],
+                              dtype=torch.int32, device=dev)
+        pools = P.scatter_tree(
+            P.build_pools(cfg, 8, 4, torch.float32, dev), rows, tables,
+            torch.zeros(B, dtype=torch.int64, device=dev),
+            torch.full((B,), L, dtype=torch.int64, device=dev),
+            torch.ones(B, dtype=torch.bool, device=dev), 4)
+        lane["pages"] = tables
+        steps = []
+        for t in step_tokens:
+            h, c2 = forward(cfg, params, torch.from_numpy(t).to(dev),
+                            mode="decode", cache=lane, pools=pools)
+            c2, new_rows = P.split_new_rows(c2)
+            pools = P.scatter_tree(pools, new_rows, tables, lane["len"],
+                                   torch.ones(B, dtype=torch.int64,
+                                              device=dev),
+                                   torch.ones(B, dtype=torch.bool,
+                                              device=dev), 4)
+            lane = c2
+            steps.append(logits_head(cfg, params, h))
+        out["paged_decode"] = torch.cat(steps, dim=1)
+    cache = init_cache(cfg, B, 16, device=dev)
+    for ch, nv in chunks:
+        h, cache = forward(cfg, params, torch.from_numpy(ch).to(dev),
+                           mode="chunk", cache=cache,
+                           n_valid=torch.tensor(nv, device=dev))
+        out.setdefault("chunk", []).append(logits_head(cfg, params, h))
+    out["chunk"] = torch.cat(out["chunk"], dim=1)
+    for path, leaf in zip(tree_key_paths(cache), tree_leaves(cache)):
+        if leaf.is_floating_point():
+            out["chunk_state" + keystr(path)] = leaf
+    return {k: v.detach().float().cpu() for k, v in out.items()}
+
+
+def _serve_engine_tokens(cfg, params, dev, prompts, **kw):
+    """Greedy tokens of the engine on `dev` over ragged `prompts`."""
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    eng = ServeEngine(cfg, EngineConfig(max_slots=2, prompt_len=8,
+                                        max_new_tokens=8, queue_depth=16,
+                                        **kw), params=params, device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p))
+    eng.drain()
+    s = eng.metrics.summary()
+    return {c.rid: c.tokens.tolist() for c in eng.completions}, s
+
+
+def phase_serve_reference():
+    """Reduced serving (2 layers, d_model 32, fp32) of transformer-wmt,
+    olmo-1b and mamba2-780m on the card against the CPU from the same
+    weights and prompts: prefill, teacher-forced decode, paged decode and
+    ragged chunk logits and states within 2e-5; one-shot greedy tokens
+    and the dense, paged (page 4) and chunked (chunk 4) engines' tokens
+    equal the CPU's; planted faults (the cache written at len + 1, a page
+    table shifted by one page, padded chunk tokens with dt != 0) must
+    fail the bound."""
+    import argparse
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import make_generators, run_oneshot
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+    faults = _serve_faults()
+    out = {}
+    for arch in SERVE_REF_ARCHS:
+        cfg = reduced(get_config(arch), n_layers=2, d_model=32)
+        gen = torch.Generator().manual_seed(0)
+        cpu_p = init_params(gen, cfg, "cpu")
+        card_p = tree_map(lambda x: x.to("cuda"), cpu_p)
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+        steps = [rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int64)
+                 for _ in range(6)]
+        chunks = [(rng.integers(0, cfg.vocab_size, (2, 4)).astype(np.int64),
+                   nv) for nv in ([4, 4], [4, 1], [2, 0])]
+        want = _serve_readings(cfg, cpu_p, "cpu", prompts, chunks, steps)
+
+        def reading(got):
+            return {k: float((got[k] - want[k]).abs().max()) for k in want}
+        clean = reading(_serve_readings(cfg, card_p, "cuda", prompts,
+                                        chunks, steps))
+        planted = {}
+        for name, (archs, patches) in faults.items():
+            if arch in archs:
+                with _planted(*patches):
+                    planted[name] = reading(_serve_readings(
+                        cfg, card_p, "cuda", prompts, chunks, steps))
+        one = {}
+        for dev, p in (("cpu", cpu_p), ("cuda", card_p)):
+            args = argparse.Namespace(device=dev, gen=8, temperature=0.0,
+                                      batch=2, prompt_len=8)
+            one[dev] = run_oneshot(cfg, args, p, make_generators(0, dev),
+                                   prompts=prompts)["tokens"].tolist()
+        ragged = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+                  for L in SERVE_LENS]
+        engines = {}
+        for mode, kw in (("dense", {}),
+                         ("paged", dict(paged=True, page_size=4)),
+                         ("chunked", dict(prefill_chunk=4)),
+                         ("chunked_paged", dict(prefill_chunk=4, paged=True,
+                                                page_size=4))):
+            cpu_tok, _ = _serve_engine_tokens(cfg, cpu_p, "cpu", ragged,
+                                              **kw)
+            card_tok, s = _serve_engine_tokens(cfg, card_p, "cuda", ragged,
+                                               **kw)
+            engines[mode] = dict(equal=card_tok == cpu_tok,
+                                 decode_cache_misses=s["decode_cache_misses"],
+                                 prefill_cache_misses=s[
+                                     "prefill_cache_misses"])
+        out[arch] = dict(max_abs=clean, planted=planted,
+                         oneshot_tokens_equal=one["cpu"] == one["cuda"],
+                         engines=engines)
+        check(all(v <= SERVE_BOUND for v in clean.values()),
+              f"{arch}: card vs CPU beyond {SERVE_BOUND}: {clean}")
+        check(one["cpu"] == one["cuda"], f"{arch}: one-shot tokens differ")
+        check(all(e["equal"] and e["decode_cache_misses"] == 0
+                  and e["prefill_cache_misses"] == 0
+                  for e in engines.values()),
+              f"{arch}: engine tokens or signatures {engines}")
+        for name, r in planted.items():
+            check(any(v > SERVE_BOUND for v in r.values()),
+                  f"{arch}: planted fault {name} passes the bound: {r}")
+    log("serve_reference", bound=SERVE_BOUND, **out)
+
+
+def _profile_decode_step(cfg, params, batch: int = 8, plen: int = 512):
+    """One decode step of the one-shot path (8 lanes over 512 cached
+    rows) under torch.profiler, after two warm-up steps: its wall time
+    (host clock to a sync, profiler on), device busy time (union of the
+    kernel, memcpy and memset intervals), idle share, kernels launched and
+    the top kernels (``repro_torch.launch.profile.summarize``)."""
+    import tempfile
+    import torch
+    from repro_torch.launch.profile import summarize
+    from repro_torch.launch.serve import make_serve_fns
+    from repro_torch.models import init_cache
+    from repro_torch.serve.engine import grow_cache
+    prefill, decode_step = make_serve_fns(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (batch, plen), device="cuda",
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(2))
+    logits, c = prefill(params, toks)
+    cache = grow_cache(init_cache(cfg, batch, plen + 8, device="cuda"), c)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for _ in range(2):
+        logits, cache = decode_step(params, cache, tok)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "decode_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            s = summarize(json.load(f), wall_ms, top=5)
+    return {k: s[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                              "n_kernels", "top_kernels")}
+
+
+def _serve_engine_run(cfg, params, prompts, *, swap=None, **kw):
+    """The engine at full width: 8 slots, prompts of 512, 64 new tokens;
+    `swap` = (params, decode steps before the publish). -> (completions,
+    summary, peak bytes, wall s)."""
+    import torch
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    _fresh_memory()
+    eng = ServeEngine(cfg, EngineConfig(max_slots=8, prompt_len=512,
+                                        max_new_tokens=64, queue_depth=32,
+                                        **kw), params=params, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p))
+    t0 = time.time()
+    if swap is not None:
+        new, n_steps = swap
+        eng.step()                       # admits (and prefills) 8 lanes
+        while min(len(ln.tokens) for ln in eng.lanes if ln.active) \
+                < 1 + n_steps:
+            eng.step()
+        eng.swap.publish(new, tag="B")
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return (eng.completions, eng.metrics.summary(),
+            torch.cuda.max_memory_allocated(), wall)
+
+
+def phase_serve_full_width():
+    """Both serving configurations at full width and depth in bf16: the
+    one-shot command (--batch 8 --prompt-len 512 --gen 64) through
+    ``repro_torch.launch.serve``, then the engine (8 slots, 16 requests of
+    512 tokens, 64 new) four ways: dense blocking, dense --prefill-chunk
+    128, paged --page-size 16 with chunk 128, and dense blocking with a
+    hot swap after 8 decode steps. Asserts paged == dense bitwise under
+    the same prefill schedule, the swap's first lanes bitwise the no-swap
+    run's on generation 1 and the later ones on generation 2, nothing
+    dropped, no added shape signature and finite logits; prints the
+    chunked schedule's agreement with blocking and the largest logit
+    difference of one prompt prefilled both ways; launches 0/0/0."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import forward, init_cache, init_params, \
+        logits_head
+    out, by_path = {}, {}
+    for arch in SERVE_FULL_ARCHS:
+        cfg = get_config(arch)
+        _fresh_memory()
+        reset_launch_counts()
+        argv = ["--arch", arch, "--batch", "8", "--prompt-len", "512",
+                "--gen", "64"]
+        one = serve.main(argv)
+        one_peak = torch.cuda.max_memory_allocated()
+        check(one["finite"] and one["tokens"].shape == (8, 64),
+              f"{arch}: one-shot logits not finite or tokens missing")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        pA = init_params(gen, cfg, "cuda")
+        pB = init_params(gen, cfg, "cuda")
+        step_profile = _profile_decode_step(cfg, pA)
+        prompts = make_prompts(cfg, 16, 512,
+                               torch.Generator().manual_seed(1))
+        runs = {}
+        for name, kw in (("dense_blocking", {}),
+                         ("dense_chunked", dict(prefill_chunk=128)),
+                         ("paged_chunked", dict(paged=True, page_size=16,
+                                                prefill_chunk=128)),
+                         ("dense_swap", dict(swap=(pB, 8)))):
+            done, s, peak, wall = _serve_engine_run(cfg, pA, prompts, **kw)
+            runs[name] = dict(tokens={c.rid: (c.tokens.tolist(), c.gen)
+                                      for c in done},
+                              summary=s, peak=peak, wall_s=wall)
+        counts = dict(LAUNCHES)
+        toks = {k: v["tokens"] for k, v in runs.items()}
+        for name, r in runs.items():
+            s = r["summary"]
+            check(s["completed"] == 16 and s["dropped_in_flight"] == 0
+                  and s["decode_cache_misses"] == 0
+                  and s["prefill_cache_misses"] == 0,
+                  f"{arch} {name}: {s}")
+        check(toks["paged_chunked"] == toks["dense_chunked"],
+              f"{arch}: paged != dense under chunked prefill")
+        before = [r for r in range(16) if toks["dense_swap"][r][1] == 1]
+        check(before and all(toks["dense_swap"][r] == toks[
+            "dense_blocking"][r] for r in before)
+              and all(toks["dense_swap"][r][1] == 2
+                      for r in range(16) if r not in before),
+              f"{arch}: hot swap: lanes before it differ or later lanes "
+              "not on generation 2")
+        agree = np.mean([a == b for r in range(16) for a, b in
+                         zip(toks["dense_chunked"][r][0],
+                             toks["dense_blocking"][r][0])])
+        # one prompt prefilled blocking vs in 4 chunks of 128
+        p0 = torch.from_numpy(prompts[:1]).to("cuda")
+        hb, _ = forward(cfg, pA, p0, mode="prefill")
+        cache = init_cache(cfg, 1, 576, device="cuda")
+        for c in range(4):
+            hc, cache = forward(cfg, pA, p0[:, 128 * c:128 * (c + 1)],
+                                mode="chunk", cache=cache, n_valid=128)
+        lb = logits_head(cfg, pA, hb[:, -1:])
+        lc = logits_head(cfg, pA, hc[:, -1:])
+        check(bool(torch.isfinite(lb).all() and torch.isfinite(lc).all()),
+              f"{arch}: non-finite logits")
+        out[arch] = dict(
+            oneshot=dict(argv=argv, prefill_ms=one["prefill_ms"],
+                         decode_ms_per_token=one["decode_ms_per_token"],
+                         tokens_per_s=8e3 / one["decode_ms_per_token"],
+                         max_memory_allocated_bytes=one_peak),
+            decode_step_profile=step_profile,
+            engine={k: dict(wall_s=v["wall_s"],
+                            max_memory_allocated_bytes=v["peak"],
+                            **{m: v["summary"][m] for m in (
+                                "tokens", "tokens_per_s", "latency_p50_ms",
+                                "latency_p99_ms", "ttft_p50_ms",
+                                "ttft_p99_ms", "kv_bytes", "kv_dense_bytes",
+                                "kv_pool_pages", "pool_pages_peak",
+                                "swaps_adopted", "decode_cache_misses",
+                                "prefill_cache_misses")})
+                    for k, v in runs.items()},
+            swap_lanes_before=before,
+            chunked_vs_blocking_token_agreement=float(agree),
+            chunked_vs_blocking_max_logit_diff=float(
+                (lb - lc).abs().max()),
+            launches=counts)
+        check(counts == {"sgd_update": 0, "quantize_mod": 0,
+                         "decode_avg": 0}, f"{arch}: launches {counts}")
+        by_path[f"serve_{arch}"] = counts
+        del pA, pB
+    _fresh_memory()
+    log("serve_full_width", **out)
+    return by_path
+
+
+SERVE_CKPT_SPECS = ("q8", "q4", "bf16")
+
+
+def phase_serve_checkpoint():
+    """Serving checkpoints of both full-width models: export then load,
+    q8, q4 and bf16, launch counters at 0 just before each. Asserts
+    quantize_mod 1 / decode_avg 0 on export and 0 / 1 on load for a
+    lattice codec (0 / 0 for bf16), the load bitwise a plain decode of the
+    same wire on the CPU, the wire bytes the codec's declared layout, and
+    the loaded model's greedy tokens those of the plain decode's; prints
+    the codec times at these shapes (CUDA events) and the bytes."""
+    import argparse
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, load_metadata
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucket as B
+    from repro_torch.kernels import LAUNCHES, ops, ref, reset_launch_counts
+    from repro_torch.launch.serve import (make_generators, params_like,
+                                          run_oneshot)
+    from repro_torch.models import init_params
+    from repro_torch.quant.codecs import make_codec
+    from repro_torch.serve import (export_serving_checkpoint,
+                                   load_serving_checkpoint)
+    from repro_torch.tree import tree_leaves
+    root = os.path.join(ROOT, "build", "chip_smoke_serve_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    out, by_path = {}, {}
+    for arch in SERVE_FULL_ARCHS:
+        cfg = get_config(arch)
+        _fresh_memory()
+        params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, "cuda")
+        like = params_like(cfg)
+        flat = B.build_flat_layout(like)
+        for spec in SERVE_CKPT_SPECS:
+            codec = make_codec(spec)
+            lattice = spec != "bf16"
+            path = os.path.join(root, f"{arch}_{spec}")
+            reset_launch_counts()
+            n_bytes = export_serving_checkpoint(path, params, spec)
+            torch.cuda.synchronize()
+            c_export = dict(LAUNCHES)
+            reset_launch_counts()
+            loaded = load_serving_checkpoint(path, like, device="cuda")
+            torch.cuda.synchronize()
+            c_load = dict(LAUNCHES)
+            meta = load_metadata(path)
+            rows = flat.n_padded // codec.block
+            wire_like = {f"wire_{g.name}": torch.empty(
+                (rows, g.cols), device="cuda",
+                dtype=torch.bfloat16 if g.dtype == "bfloat16"
+                else getattr(torch, g.dtype))
+                for g in codec.wire_layout().groups}
+            wire_t = load_checkpoint(path, wire_like)
+            wire = tuple(wire_t[f"wire_{n}"] for n in meta["wire_groups"])
+            del wire_t, wire_like
+            zero = torch.zeros((rows, codec.block), device="cuda")
+            # the plain version of the same decode, on the card
+            dec = ref.decode_avg(*wire, zero, bits=codec.quant.bits,
+                                 average=False, pack4=codec.packed) \
+                if lattice else codec.decode(wire, zero)
+            plain = B.unpack_flat(flat, dec.reshape(-1))
+            del dec
+            same = all(same_bits(a, b) for a, b in
+                       zip(tree_leaves(loaded), tree_leaves(plain)))
+            declared = codec.payload_num_bytes(flat.n_padded)
+            real = sum(w.numel() * w.element_size() for w in wire)
+            args = argparse.Namespace(device="cuda", gen=8, temperature=0.0,
+                                      batch=2, prompt_len=64)
+            prompts = np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (2, 64)).astype(np.int32)
+            tk = [run_oneshot(cfg, args, p, make_generators(0, "cuda"),
+                              prompts=prompts)["tokens"].tolist()
+                  for p in (loaded, plain)]
+            timing = {}
+            if lattice:
+                # each kernel alone at this model's shape, beside its bound
+                q = codec.quant
+                buf = B.pack_flat(flat, loaded)
+                zbuf = torch.zeros_like(buf)
+                u = torch.rand(buf.shape, device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(0))
+                enc = dict(bits=q.bits, pack4=codec.packed)
+                e_ms = time_ms(lambda: ops.quantize_mod(
+                    buf, zbuf, u, safety=q.safety, min_scale=q.min_scale,
+                    **enc))
+                d_ms = time_ms(lambda: ops.decode_avg(*wire, zbuf,
+                                                      average=False, **enc))
+                eb_ms, eb_by = bound(nbytes(buf, zbuf, u, *wire),
+                                     7 * buf.numel())
+                db_ms, db_by = bound(nbytes(*wire, zbuf, buf),
+                                     9 * buf.numel())
+                timing = dict(rows=rows, encode_ms=e_ms, encode_bound_ms=eb_ms,
+                              encode_bound_by=eb_by, decode_ms=d_ms,
+                              decode_bound_ms=db_ms, decode_bound_by=db_by)
+                del buf, zbuf, u
+            want_e = {"sgd_update": 0, "quantize_mod": int(lattice),
+                      "decode_avg": 0}
+            want_l = {"sgd_update": 0, "quantize_mod": 0,
+                      "decode_avg": int(lattice)}
+            out[f"{arch}_{spec}"] = dict(
+                launches_export=c_export, launches_load=c_load,
+                load_bitwise_plain=same, wire_bytes=n_bytes,
+                declared_bytes=declared, file_bytes=os.path.getsize(
+                    path + ".npz"), greedy_tokens_equal=tk[0] == tk[1],
+                n_padded=flat.n_padded, **timing)
+            by_path[f"serve_ckpt_{arch}_{spec}"] = {
+                k: c_export[k] + c_load[k] for k in c_export}
+            check(c_export == want_e and c_load == want_l,
+                  f"{arch} {spec}: launches {c_export} {c_load}")
+            check(same, f"{arch} {spec}: kernel decode != plain decode")
+            check(n_bytes == declared == real,
+                  f"{arch} {spec}: wire bytes {n_bytes} {declared} {real}")
+            check(tk[0] == tk[1], f"{arch} {spec}: greedy tokens differ")
+            del loaded, plain, wire, zero
+            os.remove(path + ".npz")
+            os.remove(path + ".json")
+        del params
+    shutil.rmtree(root, ignore_errors=True)
+    _fresh_memory()
+    log("serve_checkpoint", **out)
+    return by_path
+
+
+def phase_serve_follow():
+    """The port's training driver writes two --compress-state checkpoints
+    of transformer-wmt x 4 nodes at full width; ``repro_torch.launch.serve
+    --source follow`` serves 8 requests from them; the two checkpoints then
+    land one after the other beside a running engine, which adopts both
+    in order (the follower reads the params and leaves the comm copy's
+    wire undecoded, as the reference does: 0 decode_avg launches); then
+    ``--source live`` serves across more than one generation. The
+    checkpoints are deleted after."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve, train
+    from repro_torch.serve import (CheckpointFollower, EngineConfig,
+                                   Request, ServeEngine)
+    from repro_torch.launch.serve import make_prompts, params_like
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_follow")
+    landing = os.path.join(ROOT, "build", "chip_smoke_follow_landing")
+    for d in (run_dir, landing):
+        shutil.rmtree(d, ignore_errors=True)
+    by_path, out = {}, {}
+    _fresh_memory()
+    reset_launch_counts()
+    hist = train.main(["--arch", "transformer-wmt", "--nodes", "4",
+                       "--steps", "4", "--quantize", "--compress-state",
+                       "--ckpt", run_dir, "--ckpt-every", "2",
+                       "--log-every", "1"])
+    torch.cuda.synchronize()
+    by_path["serve_follow_train"] = dict(LAUNCHES)
+    # counted from before the build: the comm copy's first encode is in
+    check(by_path["serve_follow_train"] == {"sgd_update": 8,
+                                            "quantize_mod": 9,
+                                            "decode_avg": 8},
+          f"follow: training launches {by_path['serve_follow_train']}")
+    check(sorted(os.listdir(run_dir)) == [
+        "step_000002.json", "step_000002.npz", "step_000004.json",
+        "step_000004.npz"], f"follow: checkpoints {os.listdir(run_dir)}")
+    _fresh_memory()
+    reset_launch_counts()
+    argv = ["--arch", "transformer-wmt", "--source", "follow", "--follow",
+            run_dir, "--nodes", "4", "--requests", "8", "--slots", "8",
+            "--prompt-len", "64", "--gen", "16"]
+    done, s_cli = serve.main(argv)
+    by_path["serve_follow"] = dict(LAUNCHES)
+    check(s_cli["completed"] == 8 and s_cli["dropped_in_flight"] == 0
+          and s_cli["decode_cache_misses"] == 0
+          and s_cli["swaps_adopted"] == 1
+          and all(c.gen == 1 for c in done),
+          f"follow CLI: {s_cli}")
+    # the two checkpoints land one after the other beside the engine
+    cfg = get_config("transformer-wmt")
+    _fresh_memory()
+    os.makedirs(landing)
+    fol = CheckpointFollower(landing, params_like(cfg), 4, device="cuda")
+    eng = ServeEngine(cfg, EngineConfig(max_slots=4, prompt_len=64,
+                                        max_new_tokens=16, queue_depth=16),
+                      source=fol, device="cuda")
+    prompts = make_prompts(cfg, 8, 64, torch.Generator().manual_seed(0))
+    reset_launch_counts()
+    for wave, step in enumerate((2, 4)):
+        for ext in (".npz", ".json"):          # the json marks it complete
+            name = f"step_{step:06d}{ext}"
+            shutil.move(os.path.join(run_dir, name),
+                        os.path.join(landing, name))
+        os.utime(os.path.join(landing, name))  # it lands now
+        for i in range(4 * wave, 4 * wave + 4):
+            eng.submit(Request(i, prompts[i]))
+        eng.drain()
+    by_path["serve_follow_landing"] = dict(LAUNCHES)
+    s_land = eng.metrics.summary()
+    tags = [os.path.basename(eng.swap.tag(g)) for g in (1, 2)]
+    gens = {c.rid: c.gen for c in eng.completions}
+    check(tags == ["step_000002", "step_000004"]
+          and s_land["swaps_adopted"] == 2
+          and all(gens[r] == 1 + r // 4 for r in range(8))
+          and len(s_land["time_to_fresh_s"]) == 2
+          and s_land["dropped_in_flight"] == 0
+          and s_land["decode_cache_misses"] == 0,
+          f"follow landing: tags {tags} gens {gens} {s_land}")
+    del eng, fol
+    shutil.rmtree(run_dir)
+    shutil.rmtree(landing)
+    _fresh_memory()
+    reset_launch_counts()
+    done, s_live = serve.main(["--arch", "transformer-wmt", "--source",
+                               "live", "--nodes", "4", "--live-steps", "6",
+                               "--requests", "8", "--slots", "4",
+                               "--prompt-len", "64", "--gen", "16"])
+    by_path["serve_live"] = dict(LAUNCHES)
+    live_gens = sorted({c.gen for c in done})
+    check(s_live["completed"] == 8 and len(live_gens) > 1
+          and s_live["dropped_in_flight"] == 0,
+          f"live: {s_live} generations {live_gens}")
+    check(by_path["serve_live"] == {"sgd_update": 6, "quantize_mod": 0,
+                                    "decode_avg": 0},
+          f"live launches {by_path['serve_live']}")
+    for k in ("serve_follow", "serve_follow_landing"):
+        check(by_path[k] == {"sgd_update": 0, "quantize_mod": 0,
+                             "decode_avg": 0}, f"{k}: {by_path[k]}")
+    out = dict(train_records=hist, follow_cli=dict(argv=argv, **s_cli),
+               landing=dict(tags=tags, **s_land),
+               live=dict(generations=live_gens, **s_live),
+               launches=by_path)
+    _fresh_memory()
+    log("serve_follow", **out)
+    return by_path
+
+
 def main() -> int:
-    # expandable segments, set before the allocator starts: the 8-node
-    # overlapped runs peak at 65.1 GB of the card's 79.18 GiB, and with
-    # fixed segments one run of `sched_full_width` fragmented past the card
-    # (17.88 GiB reserved but free, no room for a 5.50 GiB buffer)
+    # expandable segments, set before the allocator starts, as the port's
+    # entry points set them (launch/train.py `use_expandable_segments`):
+    # the smoke calls the drivers' functions, not their `main`, in one
+    # process. With fixed segments the 8-node overlapped scheduled command
+    # fragments past the card's 79.18 GiB
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
     if not torch.cuda.is_available():
@@ -2101,6 +2741,10 @@ def main() -> int:
     codecs = phase_codecs_full_width()
     phase_scan_bitwise()
     scan = phase_scan_full_width(main_records)
+    phase_serve_reference()
+    serving = phase_serve_full_width()
+    serving.update(phase_serve_checkpoint())
+    serving.update(phase_serve_follow())
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": TPU_KERNELS[n], "launches": counts[n],
                 "launches_by_path": {"overlap_q8_geometric": counts[n],
@@ -2112,7 +2756,9 @@ def main() -> int:
                                      **{p: c[n] for p, c in
                                         codecs.items()},
                                      **{p: c[n] for p, c in
-                                        scan.items()}},
+                                        scan.items()},
+                                     **{p: c[n] for p, c in
+                                        serving.items()}},
                 **{k: records[n][k] for k in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}} for n in TPU_KERNELS]

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.tree import (
-    TUPLE, tree_flatten, tree_key_paths, tree_unflatten,
+    TUPLE, keystr, tree_flatten, tree_key_paths, tree_unflatten,
 )
 
 _NP_DTYPES = {torch.float32: "float32", torch.float64: "float64",
@@ -36,8 +36,7 @@ _NP_DTYPES = {torch.float32: "float32", torch.float64: "float64",
 def _names(tree) -> list:
     """Leaf names in flatten order, as ``jax.tree_util.keystr`` writes
     them."""
-    return ["".join(f"[{k!r}]" for k in p)
-            for p in tree_key_paths(tree, tuples=True)]
+    return [keystr(p) for p in tree_key_paths(tree, tuples=True)]
 
 
 def _treedef_body(s) -> str:

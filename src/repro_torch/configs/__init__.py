@@ -1,7 +1,7 @@
-"""Arch config registry (the dense archs ported so far)."""
+"""Arch config registry (the archs ported so far)."""
 import importlib
 
-_ARCH_MODULES = ["olmo_1b", "transformer_wmt"]
+_ARCH_MODULES = ["mamba2_780m", "olmo_1b", "transformer_wmt"]
 
 _loaded = False
 
@@ -16,5 +16,6 @@ def load_all():
 
 
 from repro_torch.configs.base import (  # noqa: E402,F401
-    InputShape, ModelConfig, get_config, list_archs, reduced, register,
+    InputShape, ModelConfig, SSMConfig, get_config, list_archs, reduced,
+    register,
 )

@@ -1,9 +1,11 @@
-"""Model configuration: the dense slice of ``repro/configs/base.py``.
+"""Model configuration: the dense and Mamba2 slice of
+``repro/configs/base.py``.
 
 A config describes the decoder stack as a repeated *layer pattern* of
-``(mixer, ffn)`` pairs; the port runs ``("attn", "dense")`` layers. The
-stack is ``n_full_blocks`` stacked copies of the pattern (leaf arrays carry
-a leading ``[n_blocks]`` dim, as the JAX package's scanned blocks do).
+``(mixer, ffn)`` pairs; the port runs ``("attn", "dense")`` and
+``("mamba", "none")`` layers. The stack is ``n_full_blocks`` stacked copies
+of the pattern (leaf arrays carry a leading ``[n_blocks]`` dim, as the JAX
+package's scanned blocks do).
 """
 from __future__ import annotations
 
@@ -15,9 +17,19 @@ Layer = Tuple[str, str]  # (mixer, ffn)
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_kernel: int = 4
+    chunk: int = 256
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                  # dense (the only type ported so far)
+    arch_type: str                  # dense | ssm
     source: str                     # paper / model-card citation
     n_layers: int
     d_model: int
@@ -35,6 +47,7 @@ class ModelConfig:
     gated_mlp: bool = True
     tie_embeddings: bool = True
     logit_softcap: float = 0.0
+    ssm: Optional[SSMConfig] = None
     dtype: str = "bfloat16"
     remat: bool = True              # no effect in the port (eager autograd)
     subquadratic: bool = False
@@ -70,12 +83,23 @@ class ModelConfig:
             total += self.vocab_size * d
         total += norm_p
         for mixer, ffn in self.layers:
-            if mixer != "attn" or ffn != "dense":
+            if (mixer, ffn) not in (("attn", "dense"), ("mamba", "none")):
                 raise NotImplementedError(f"layer {(mixer, ffn)} not ported")
-            total += 2 * norm_p
-            total += d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
-            total += (self.n_heads * hd) * d
-            total += (3 if self.gated_mlp else 2) * d * self.d_ff
+            total += norm_p
+            if mixer == "attn":
+                total += norm_p
+                total += d * (self.n_heads * hd) + \
+                    2 * d * (self.n_kv_heads * hd)
+                total += (self.n_heads * hd) * d
+                total += (3 if self.gated_mlp else 2) * d * self.d_ff
+            else:
+                s = self.ssm
+                d_in = s.expand * d
+                n_h = d_in // s.head_dim
+                conv_dim = d_in + 2 * s.n_groups * s.d_state
+                total += d * (2 * d_in + 2 * s.n_groups * s.d_state + n_h)
+                total += conv_dim * s.conv_kernel + 3 * n_h + d_in
+                total += d_in * d
         return total
 
     def n_active_params(self) -> int:
@@ -119,11 +143,14 @@ def list_archs() -> list[str]:
 def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
             vocab: int = 512, seq_cap: int = 4096) -> ModelConfig:
     """Smoke-test variant of the same family (the JAX package's `reduced`
-    for dense configs): <=2 layers by default, d_model<=512, <=4 heads."""
+    for dense and SSM configs): <=2 layers by default, d_model<=512, <=4
+    heads; an SSM keeps d_state<=32 with head_dim 32 and chunk 64."""
     d_model = min(d_model, 512)
     heads = max(1, min(cfg.n_heads, 4))
     kv = max(1, min(cfg.n_kv_heads, heads))
     pattern = cfg.pattern[:max(1, min(len(cfg.pattern), n_layers))]
+    ssm = None if cfg.ssm is None else dataclasses.replace(
+        cfg.ssm, d_state=min(cfg.ssm.d_state, 32), head_dim=32, chunk=64)
     return dataclasses.replace(
         cfg, n_layers=n_layers, d_model=d_model, n_heads=heads,
         n_kv_heads=kv,
@@ -132,4 +159,4 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
         vocab_size=min(cfg.vocab_size, vocab), pattern=pattern,
         dtype="float32", opt_state_dtype="float32", remat=False,
         big_model=False, max_seq_len=seq_cap,
-        sliding_window=min(cfg.sliding_window, 64))
+        sliding_window=min(cfg.sliding_window, 64), ssm=ssm)

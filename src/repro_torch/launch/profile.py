@@ -54,7 +54,9 @@ from collections import defaultdict
 
 import torch
 
-from repro_torch.launch.train import build, build_parser
+from repro_torch.launch.train import (
+    build, build_parser, use_expandable_segments,
+)
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -229,6 +231,7 @@ def profile_chunk(args) -> dict:
 
 
 def main(argv=None) -> dict:
+    use_expandable_segments()
     ap = build_parser()
     ap.add_argument("--warmup", type=int, default=1,
                     help="supersteps run before the profiled one")

@@ -261,12 +261,24 @@ def sched_cost(args, cfg, caps, graph, schedule, trace) -> dict:
         payload_factor=S.bsp_payload_factor(args.algo, graph))
 
 
-def resolve_device(name: str) -> torch.device:
+def use_expandable_segments() -> None:
+    """Turn on the caching allocator's expandable segments unless the
+    caller chose an allocator setting: with fixed segments the 8-node
+    overlapped commands fragment past the card (on one H100 80GB, the
+    overlapped scheduled command alone stopped with 55.12 GiB allocated
+    and 19.71 GiB reserved but free). Takes effect only before the first
+    CUDA allocation of the process, so the entry points call it first."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+
+
+def resolve_device(name: str, prog: str = "repro_torch.launch.train"
+                   ) -> torch.device:
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("repro_torch.launch.train: no CUDA device is "
-                         "available; pass --device cpu to run the plain "
-                         "kernel versions on the CPU")
+        raise SystemExit(f"{prog}: no CUDA device is available; pass "
+                         "--device cpu to run the plain kernel versions on "
+                         "the CPU")
     if dev.type == "cuda":
         # D-PSGD's mixing product is fp32, as the reference's: never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -690,6 +702,7 @@ def run(args, tr: Optional[Trainer] = None) -> list:
 
 
 def main(argv=None) -> list:
+    use_expandable_segments()
     ap = build_parser()
     args = ap.parse_args(argv)
     check_args(ap, args)

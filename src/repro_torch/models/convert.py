@@ -2,7 +2,10 @@
 
 ``params_from_numpy`` turns the JAX package's parameter tree (nested dicts
 of numpy arrays, as ``jax.device_get(init_params(...))`` gives) into the
-port's tensors, so both packages compute from identical weights;
+port's tensors, leaf by leaf whatever the layer (attention, MLP, and
+Mamba2's ``in_proj``, ``conv_w``, ``A_log``, ``dt_bias``, ``D``,
+``gate_norm``, ``out_proj``), so both packages compute from identical
+weights;
 ``params_to_numpy`` is its inverse. bfloat16 arrays cross as their raw
 16-bit patterns (numpy has no bfloat16 of its own); the inverse returns
 them widened to float32, which is exact.

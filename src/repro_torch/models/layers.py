@@ -1,5 +1,6 @@
-"""Shared building blocks (dense slice of ``repro/models/layers.py``):
-parameter templates, norms, RoPE, MLPs and the chunked cross-entropy.
+"""Shared building blocks (dense and Mamba2 slice of
+``repro/models/layers.py``): parameter templates, norms, RoPE, MLPs and the
+chunked cross-entropy.
 
 Every function keeps the JAX package's layouts and its order of operations
 (fp32 statistics, bf16 matmuls in the parameter dtype), so the same weights
@@ -53,6 +54,15 @@ def stack_template(template, n: int, axis_name: str = "layers"):
                                         i.init, i.scale), template)
 
 
+def per_lane(x, batch: int, device) -> torch.Tensor:
+    """A scalar or per-lane [B] integer (a cache length, a chunk's valid
+    count) -> int64 [B] on `device`. The serving engine runs its slots as
+    one batch where the reference vmaps a batch-1 call over them, so each
+    lane carries its own length."""
+    t = torch.as_tensor(x, device=device).to(torch.int64).reshape(-1)
+    return t.expand(batch) if t.numel() == 1 else t
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -80,6 +90,13 @@ def apply_norm(cfg, p, x, eps: float = 1e-6):
     if cfg.norm == "layernorm":
         xf = xf * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
     return xf.to(x.dtype)              # nonparam_ln: no affine
+
+
+def rms_norm_simple(x, scale, eps: float = 1e-6):
+    """RMS norm with an explicit scale (Mamba2's gated norm)."""
+    xf = x.to(torch.float32)
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale.to(torch.float32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -92,3 +92,17 @@ def tree_key_paths(tree, *, tuples: bool = False) -> list:
 def tree_paths(tree, sep: str = "."):
     """Leaf paths joined by `sep`, in flatten order ("blocks.layer_0.attn.wq")."""
     return [sep.join(p) for p in tree_key_paths(tree)]
+
+
+def keystr(path) -> str:
+    """A key path as ``jax.tree_util.keystr`` writes it: ``['a']['b']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def tree_map_with_path(fn, tree, *rest):
+    """`tree_map` whose `fn` also takes each leaf's key path first."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(treedef, [fn(p, *xs) for p, *xs in
+                                    zip(tree_key_paths(tree), leaves,
+                                        *others)])
