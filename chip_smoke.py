@@ -1543,7 +1543,9 @@ def phase_sched_full_width():
             bin_median_s=statistics.median(steady) if steady else None,
             bin_note="wall time of each bin from the driver's records; the "
                      "median is over the gossip bins after the first",
-            max_memory_allocated_bytes=peak, run_s=run_s,
+            max_memory_allocated_bytes=peak,
+            max_memory_reserved_bytes=torch.cuda.max_memory_reserved(),
+            run_s=run_s,
             sched_cost=cost,
             priced_on={"card": HW.CARD, "power_limit_w": HW.POWER_LIMIT_W,
                        "peak_flops_bf16": HW.PEAK_FLOPS_BF16,
@@ -2070,7 +2072,9 @@ def phase_scan_full_width(main_records):
                          chunk_end_s=ends,
                          second_chunk_superstep_s=(ends[1] - ends[0]) / 4,
                          first_chunk_s=ends[0],
-                         max_memory_allocated_bytes=peak, run_s=run_s)
+                         max_memory_allocated_bytes=peak,
+                         max_memory_reserved_bytes=torch.cuda
+                         .max_memory_reserved(), run_s=run_s)
         by_path[name] = counts
         del tr
     walls = [h["wall_s"] for h in main_records]
@@ -2357,9 +2361,11 @@ def phase_serve_full_width():
     hot swap after 8 decode steps. Asserts paged == dense bitwise under
     the same prefill schedule, the swap's first lanes bitwise the no-swap
     run's on generation 1 and the later ones on generation 2, nothing
-    dropped, no added shape signature and finite logits; prints the
-    chunked schedule's agreement with blocking and the largest logit
-    difference of one prompt prefilled both ways; launches 0/0/0."""
+    dropped, no shape signature added by a swap or by chunking (a bf16
+    SSM bank's one widening apart) and finite logits; prints the chunked
+    schedule's agreement with blocking and the largest logit difference of
+    one prompt prefilled both ways, from the bank before and after its
+    first decode; launches 0/0/0."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2368,6 +2374,7 @@ def phase_serve_full_width():
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models import forward, init_cache, init_params, \
         logits_head
+    from repro_torch.tree import tree_map_with_path
     out, by_path = {}, {}
     for arch in SERVE_FULL_ARCHS:
         cfg = get_config(arch)
@@ -2397,12 +2404,19 @@ def phase_serve_full_width():
                               summary=s, peak=peak, wall_s=wall)
         counts = dict(LAUNCHES)
         toks = {k: v["tokens"] for k, v in runs.items()}
+        # a bf16 SSM state widens to fp32 once, at the bank's first decode,
+        # as the reference's does: one more signature for the decode step
+        # and for the chunk step (which runs before and after it); a swap
+        # and chunked admission add none
+        widen = int(cfg.dtype != "float32" and any(
+            mx == "mamba" for mx, _ in cfg.pattern + cfg.tail_pattern))
         for name, r in runs.items():
             s = r["summary"]
+            chunked = name.endswith("chunked")
             check(s["completed"] == 16 and s["dropped_in_flight"] == 0
-                  and s["decode_cache_misses"] == 0
-                  and s["prefill_cache_misses"] == 0,
-                  f"{arch} {name}: {s}")
+                  and s["decode_cache_misses"] == widen
+                  and s["prefill_cache_misses"] == widen * chunked,
+                  f"{arch} {name}: {s} (the bank's widening: {widen})")
         check(toks["paged_chunked"] == toks["dense_chunked"],
               f"{arch}: paged != dense under chunked prefill")
         before = [r for r in range(16) if toks["dense_swap"][r][1] == 1]
@@ -2415,17 +2429,29 @@ def phase_serve_full_width():
         agree = np.mean([a == b for r in range(16) for a, b in
                          zip(toks["dense_chunked"][r][0],
                              toks["dense_blocking"][r][0])])
-        # one prompt prefilled blocking vs in 4 chunks of 128
+        # one prompt prefilled blocking vs in 4 chunks of 128, from a
+        # cache as the engine's bank holds it before its first decode (the
+        # SSM state in the model's dtype: the engine's first wave) and
+        # after it (the SSM state in fp32: every later admission)
         p0 = torch.from_numpy(prompts[:1]).to("cuda")
         hb, _ = forward(cfg, pA, p0, mode="prefill")
-        cache = init_cache(cfg, 1, 576, device="cuda")
-        for c in range(4):
-            hc, cache = forward(cfg, pA, p0[:, 128 * c:128 * (c + 1)],
-                                mode="chunk", cache=cache, n_valid=128)
         lb = logits_head(cfg, pA, hb[:, -1:])
-        lc = logits_head(cfg, pA, hc[:, -1:])
-        check(bool(torch.isfinite(lb).all() and torch.isfinite(lc).all()),
-              f"{arch}: non-finite logits")
+        chunk_diff = {}
+        for bank, ssm_dtype in (("first_wave", None),
+                                ("after_first_decode", torch.float32)):
+            cache = init_cache(cfg, 1, 576, device="cuda")
+            if ssm_dtype is not None:
+                cache = tree_map_with_path(
+                    lambda p, x: x.to(ssm_dtype) if p[-1] == "ssm" else x,
+                    cache)
+            for c in range(4):
+                hc, cache = forward(cfg, pA, p0[:, 128 * c:128 * (c + 1)],
+                                    mode="chunk", cache=cache, n_valid=128)
+            lc = logits_head(cfg, pA, hc[:, -1:])
+            check(bool(torch.isfinite(lb).all()
+                       and torch.isfinite(lc).all()),
+                  f"{arch}: non-finite logits")
+            chunk_diff[bank] = float((lb - lc).abs().max())
         out[arch] = dict(
             oneshot=dict(argv=argv, prefill_ms=one["prefill_ms"],
                          decode_ms_per_token=one["decode_ms_per_token"],
@@ -2444,8 +2470,7 @@ def phase_serve_full_width():
                     for k, v in runs.items()},
             swap_lanes_before=before,
             chunked_vs_blocking_token_agreement=float(agree),
-            chunked_vs_blocking_max_logit_diff=float(
-                (lb - lc).abs().max()),
+            chunked_vs_blocking_max_logit_diff=chunk_diff,
             launches=counts)
         check(counts == {"sgd_update": 0, "quantize_mod": 0,
                          "decode_avg": 0}, f"{arch}: launches {counts}")
@@ -2463,8 +2488,10 @@ def phase_serve_checkpoint():
     """Serving checkpoints of both full-width models: export then load,
     q8, q4 and bf16, launch counters at 0 just before each. Asserts
     quantize_mod 1 / decode_avg 0 on export and 0 / 1 on load for a
-    lattice codec (0 / 0 for bf16), the load bitwise a plain decode of the
-    same wire on the CPU, the wire bytes the codec's declared layout, and
+    lattice codec (0 / 0 for bf16); for a lattice codec, the exported wire
+    and the kernel's encode of the export's buffer and uniforms each
+    bitwise the plain encode of them; the load bitwise a plain decode of
+    the same wire, the wire bytes the codec's declared layout, and
     the loaded model's greedy tokens those of the plain decode's; prints
     the codec times at these shapes (CUDA events) and the bytes."""
     import argparse
@@ -2532,19 +2559,30 @@ def phase_serve_checkpoint():
             tk = [run_oneshot(cfg, args, p, make_generators(0, "cuda"),
                               prompts=prompts)["tokens"].tolist()
                   for p in (loaded, plain)]
-            timing = {}
+            timing, encode_checks = {}, {}
             if lattice:
-                # each kernel alone at this model's shape, beside its bound
+                # the export's own buffer and uniforms (seed 0, drawn as
+                # export_serving_checkpoint draws them): the exported wire
+                # and the kernel's encode are each bitwise the plain encode
                 q = codec.quant
-                buf = B.pack_flat(flat, loaded)
+                buf = B.pack_flat(flat, params)
                 zbuf = torch.zeros_like(buf)
-                u = torch.rand(buf.shape, device="cuda",
-                               generator=torch.Generator(
-                                   device="cuda").manual_seed(0))
+                u = torch.rand(buf.shape, generator=torch.Generator(
+                    device="cuda").manual_seed(0), dtype=torch.float32,
+                    device="cuda")
                 enc = dict(bits=q.bits, pack4=codec.packed)
-                e_ms = time_ms(lambda: ops.quantize_mod(
-                    buf, zbuf, u, safety=q.safety, min_scale=q.min_scale,
-                    **enc))
+                qkw = dict(safety=q.safety, min_scale=q.min_scale, **enc)
+                pq, ps = ref.quantize_mod(*(t.reshape(rows, codec.block)
+                                            for t in (buf, zbuf, u)), **qkw)
+                kq, ks, _ = ops.quantize_mod(buf, zbuf, u, **qkw)
+                encode_checks = dict(
+                    export_wire_bitwise_plain=same_bits(wire[0], pq)
+                    and same_bits(wire[1], ps),
+                    encode_bitwise_plain=same_bits(kq, pq)
+                    and same_bits(ks, ps))
+                del pq, ps, kq, ks
+                # each kernel alone at this model's shape, beside its bound
+                e_ms = time_ms(lambda: ops.quantize_mod(buf, zbuf, u, **qkw))
                 d_ms = time_ms(lambda: ops.decode_avg(*wire, zbuf,
                                                       average=False, **enc))
                 eb_ms, eb_by = bound(nbytes(buf, zbuf, u, *wire),
@@ -2564,11 +2602,13 @@ def phase_serve_checkpoint():
                 load_bitwise_plain=same, wire_bytes=n_bytes,
                 declared_bytes=declared, file_bytes=os.path.getsize(
                     path + ".npz"), greedy_tokens_equal=tk[0] == tk[1],
-                n_padded=flat.n_padded, **timing)
+                n_padded=flat.n_padded, **encode_checks, **timing)
             by_path[f"serve_ckpt_{arch}_{spec}"] = {
                 k: c_export[k] + c_load[k] for k in c_export}
             check(c_export == want_e and c_load == want_l,
                   f"{arch} {spec}: launches {c_export} {c_load}")
+            check(all(encode_checks.values()),
+                  f"{arch} {spec}: encode != plain encode {encode_checks}")
             check(same, f"{arch} {spec}: kernel decode != plain decode")
             check(n_bytes == declared == real,
                   f"{arch} {spec}: wire bytes {n_bytes} {declared} {real}")

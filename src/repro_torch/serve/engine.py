@@ -37,7 +37,10 @@ counts the distinct shape signatures (tree structure, shapes, dtypes of
 every argument) dispatched to its decode and chunk steps;
 ``decode_cache_misses`` / ``prefill_cache_misses`` are that count minus
 one — exactly what jit would compile again. A swap and a chunked ragged
-admission add none.
+admission add none. The bank's dtypes are the reference's: an SSM state
+in bf16 widens to fp32 at the bank's first decode (the bf16 state times
+the fp32 decay), which adds one signature to each step that runs before
+and after it, as it adds one compile to the reference's.
 
 Admission control: a bounded FIFO queue (`queue_depth`); `submit` on a
 full queue REJECTS (backpressure) and counts it.
@@ -270,11 +273,16 @@ class ServeEngine:
 
     def _select(self, commit, new, old):
         """Per-lane commit: lanes with `commit` take `new`, the others keep
-        `old` bitwise; the bank keeps its dtypes."""
+        `old` bitwise. A floating leaf takes the wider of the two dtypes,
+        as ``jnp.where`` does: a bf16 SSM state widens to fp32 at the
+        bank's first decode (the bf16 state times the fp32 decay), as the
+        reference's does, and stays there."""
         def sel(path, n, o):
             ax = lane_axis(path)
             m = commit.reshape((1,) * ax + (-1,) + (1,) * (n.ndim - ax - 1))
-            return torch.where(m, n.to(o.dtype), o)
+            dt = torch.promote_types(n.dtype, o.dtype) \
+                if o.is_floating_point() else o.dtype
+            return torch.where(m, n.to(dt), o.to(dt))
         return tree_map_with_path(sel, new, old)
 
     def _decode_masked(self, params, commit):
@@ -343,11 +351,6 @@ class ServeEngine:
                           device=self.device)
         bank["len"] = torch.zeros((ecfg.max_slots,), dtype=torch.int32,
                                   device=self.device)
-        # the SSM state in fp32: the reference's bank settles there after
-        # its first decode (a bf16 state times the fp32 decay promotes),
-        # so the bank's dtypes never change
-        bank = tree_map_with_path(
-            lambda p, x: x.to(torch.float32) if p[-1] == "ssm" else x, bank)
         if self._paged:
             bank, _ = P.strip_attn_kv(self.cfg, bank)
             bank["pages"] = torch.full(

@@ -10,7 +10,9 @@ the serving checkpoints bitwise on weights; against JAX's engine, greedy
 tokens equal from the same weights and prompts (the logits agree to 1e-5,
 tests/test_torch_serve_model.py). A mean model materialized by each
 package from the same checkpoint agrees within 1e-6 (fp32 means summed in
-each library's order).
+each library's order). At bf16, the chunked mamba engine is held to
+JAX's step by step: SSM states within 5% of their largest magnitude, the
+same dtypes, shape-signature counts and greedy tokens.
 """
 import json
 import os
@@ -43,7 +45,8 @@ from repro_torch.serve import (CheckpointFollower, EngineConfig, LiveSource,
                                load_serving_checkpoint)
 from repro_torch.serve import paged as P
 from repro_torch.serve.engine import grow_cache
-from repro_torch.tree import tree_flatten, tree_leaves, tree_map
+from repro_torch.tree import (tree_flatten, tree_key_paths, tree_leaves,
+                              tree_map)
 
 try:                                   # property tests: hypothesis when
     from hypothesis import given, strategies as st      # available,
@@ -527,6 +530,58 @@ def test_ragged_admission_chunked_matches_blocking(arch):
                    queue_depth=16, prefill_chunk=4, paged=False),
         _np_params(arch), _ragged(_cfg(arch), lens))
     assert {r: t for r, (t, _) in want.items()} == base
+
+
+def _ssm_banks(eng, jax_engine: bool):
+    """The engine bank's SSM leaves, in the port's [n_blocks, slots, ...]
+    layout (JAX's bank stacks batch-1 caches: [slots, n_blocks, 1, ...])."""
+    if jax_engine:
+        return [x[:, :, 0].swapaxes(0, 1) for p, x in
+                jax.tree_util.tree_leaves_with_path(eng._caches)
+                if "ssm" in jax.tree_util.keystr(p)]
+    return [x for p, x in zip(tree_key_paths(eng._caches),
+                              tree_leaves(eng._caches)) if "ssm" in p]
+
+
+def test_bf16_chunked_mamba_bank_follows_jax():
+    """At bf16 the bank's SSM state starts in bf16 and widens to fp32 at
+    the first decode, as JAX's does, so chunked prefill before it rounds
+    the state to bf16 between chunks as JAX's does. Held to JAX's engine
+    step by step on ragged prompts: the SSM leaves' dtypes equal before
+    and after every step, the states within 5% of their largest magnitude
+    (bf16 activations in two libraries), the same shape-signature counts
+    (1 and 1: the widening) and the same greedy tokens."""
+    import dataclasses
+    jc = dataclasses.replace(_jcfg(), dtype="bfloat16")
+    cfg = dataclasses.replace(_cfg(), dtype="bfloat16")
+    npp = jax.device_get(jinit_params(jax.random.PRNGKey(0), jc))
+    kw = dict(max_slots=2, prompt_len=8, max_new_tokens=8, queue_depth=16,
+              prefill_chunk=4)
+    je = JServeEngine(jc, JEngineConfig(paged=False, **kw),
+                      params=jax.tree.map(jnp.asarray, npp))
+    te = ServeEngine(cfg, EngineConfig(**kw),
+                     params=params_from_numpy(npp, CPU), device=CPU)
+    for i, p in enumerate(_ragged(cfg, [3, 8, 5, 1, 7])):
+        je.submit(JRequest(i, p))
+        te.submit(Request(i, p))
+    assert [str(x.dtype) for x in _ssm_banks(je, True)] == \
+        [str(x.dtype).removeprefix("torch.") for x in _ssm_banks(te, False)] \
+        == ["bfloat16"]
+    for _ in range(100):
+        if not je.queue and not any(ln.active for ln in je.lanes):
+            break
+        je.step()
+        te.step()
+        for a, b in zip(_ssm_banks(je, True), _ssm_banks(te, False)):
+            assert str(a.dtype) == str(b.dtype).removeprefix("torch.")
+            a = np.asarray(a.astype(jnp.float32))
+            err = np.abs(a - b.float().numpy()).max()
+            assert err <= 0.05 * np.abs(a).max(), (err, np.abs(a).max())
+    assert not te.queue and not any(ln.active for ln in te.lanes)
+    js, ts = je.metrics.summary(), te.metrics.summary()
+    for k in ("decode_cache_misses", "prefill_cache_misses"):
+        assert js[k] == ts[k] == 1, (k, js[k], ts[k])
+    assert _tokens(te) == {c.rid: c.tokens.tolist() for c in je.completions}
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "olmo-1b"])
