@@ -125,18 +125,41 @@ Phases, each printed on its own line:
     nothing dropped, no added shape signature; it prints tokens/s,
     latency and TTFT p50/p99, peak memory, KV bytes dense and paged, and
     the chunked schedule's token agreement with blocking;
-21. serving checkpoints of both full-width models, q8, q4 and bf16:
-    quantize_mod 1 on export and decode_avg 1 on load per lattice codec
-    (0 / 0 for bf16), the load bitwise a plain decode of the same wire,
-    wire bytes the declared layout, greedy tokens those of the plain
-    decode's weights, and the codec times at these shapes;
+21. serving checkpoints of both full-width models, q8, q4 and bf16, and
+    of granite-moe-3b-a800m (its expert leaves packed into the flat
+    buffer), q8: quantize_mod 1 on export and decode_avg 1 on load per
+    lattice codec (0 / 0 for bf16), the export bitwise the plain encode,
+    the load bitwise a plain decode of the same wire, wire bytes the
+    declared layout, greedy tokens those of the plain decode's weights,
+    and the codec times at these shapes;
 22. the follower and the live source: the port's driver writes two
     ``--compress-state`` checkpoints of transformer-wmt x 4 nodes,
     ``repro_torch.launch.serve --follow`` serves 8 requests from them, the
     two land one after the other beside a running engine that adopts both
     in order, and ``--source live`` serves across more than one
     generation (launches 8/9/8 for the training run, 0/0/0 serving, 6/0/0
-    live).
+    live);
+23. the zoo's reference: chatglm3-6b, gemma3-4b, gemma3-27b,
+    granite-moe-3b-a800m, qwen3-moe-30b-a3b, jamba-1.5-large-398b (8
+    layers), paligemma-3b and musicgen-large at ``reduced`` (d_model 64,
+    fp32, 4 nodes, sequences of 192 so that sliding-window layers take the
+    band path): one blocking q8 superstep on the card against the CPU from
+    the CPU's state, held to the reference's bound and the loss to 1e-4;
+    the MoE routing choices that differ between card and CPU from the
+    same weights (0 required); a planted fault, the router's aux loss
+    dropped from the loss, must fail the bound;
+24. granite-moe-3b-a800m at full width (40 experts top-8, vocab 49,155,
+    bf16, fp32 momentum) cut to 4 layers, 4 nodes, ``--H 2 --quantize``,
+    4 supersteps through the training driver: finite losses and router
+    aux, launches 8 / 4 / 4, superstep times and peak memory;
+25. the zoo served at full width and depth in bf16: granite-moe-3b-a800m
+    (8 requests of 512 + 64 on 8 slots, 12 across the swap) and
+    gemma3-4b (8 requests of 3072 + 32 on 4 slots: the rings wrap, the
+    prefill takes the band path), dense blocking, chunked and paged + chunked, granite also with
+    a hot swap: paged == dense and swap == no swap bitwise, no added shape
+    signature, finite one-shot logits, tokens/s, TTFT, KV bytes and the
+    chunked schedule's agreement with blocking; paligemma-3b served
+    one-shot with its 256-row prefix, and refused by the engine.
 
 The card's line is printed again before the kernels' JSON record, which
 is the line before the last; the last line is
@@ -373,8 +396,9 @@ def phase_kernels():
 
 
 def _reduced_engine(device, quantize: bool, fault: str = "",
-                    mode: str = "blocking", h_mode: str = "fixed"):
-    """A superstep of a reduced transformer-wmt swarm on `device` in
+                    mode: str = "blocking", h_mode: str = "fixed", cfg=None):
+    """A superstep of a reduced transformer-wmt swarm (or of `cfg`) on
+    `device` in
     `mode` (blocking | nonblocking | overlap) with fixed or geometric
     local-step counts (h_max 4), its q8 codec (which
     remembers the scale of every encode) and a function that runs
@@ -396,11 +420,12 @@ def _reduced_engine(device, quantize: bool, fault: str = "",
     class Codec(LatticeCodec):
         def __init__(self):
             super().__init__(ModularQuantConfig())
-            self.scales = []
+            self.scales, self.codes = [], []
 
         def encode(self, *a, **kw):
             q, sc = super().encode(*a, **kw)
             self.scales.append(sc.reshape(-1).cpu())
+            self.codes.append(q.reshape(-1).cpu())
             return q, sc
 
         def decode_avg(self, wire, ybuf, matched_rows=None, **kw):
@@ -418,7 +443,8 @@ def _reduced_engine(device, quantize: bool, fault: str = "",
             return super().mix_pair(tree, perm, matched, quantize=quantize,
                                     **kw)
 
-    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
+    cfg = cfg or reduced(get_config("transformer-wmt"), n_layers=1,
+                         d_model=64)
     codec = Codec()
     opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
     scfg = SwarmConfig(n_nodes=4, H=2, quantize=quantize,
@@ -2171,8 +2197,8 @@ def _serve_readings(cfg, params, dev, prompts, chunks, step_tokens):
         lane["pages"] = tables
         steps = []
         for t in step_tokens:
-            h, c2 = forward(cfg, params, torch.from_numpy(t).to(dev),
-                            mode="decode", cache=lane, pools=pools)
+            h, c2, _ = forward(cfg, params, torch.from_numpy(t).to(dev),
+                               mode="decode", cache=lane, pools=pools)
             c2, new_rows = P.split_new_rows(c2)
             pools = P.scatter_tree(pools, new_rows, tables, lane["len"],
                                    torch.ones(B, dtype=torch.int64,
@@ -2184,9 +2210,9 @@ def _serve_readings(cfg, params, dev, prompts, chunks, step_tokens):
         out["paged_decode"] = torch.cat(steps, dim=1)
     cache = init_cache(cfg, B, 16, device=dev)
     for ch, nv in chunks:
-        h, cache = forward(cfg, params, torch.from_numpy(ch).to(dev),
-                           mode="chunk", cache=cache,
-                           n_valid=torch.tensor(nv, device=dev))
+        h, cache, _ = forward(cfg, params, torch.from_numpy(ch).to(dev),
+                              mode="chunk", cache=cache,
+                              n_valid=torch.tensor(nv, device=dev))
         out.setdefault("chunk", []).append(logits_head(cfg, params, h))
     out["chunk"] = torch.cat(out["chunk"], dim=1)
     for path, leaf in zip(tree_key_paths(cache), tree_leaves(cache)):
@@ -2325,16 +2351,19 @@ def _profile_decode_step(cfg, params, batch: int = 8, plen: int = 512):
                               "n_kernels", "top_kernels")}
 
 
-def _serve_engine_run(cfg, params, prompts, *, swap=None, **kw):
-    """The engine at full width: 8 slots, prompts of 512, 64 new tokens;
-    `swap` = (params, decode steps before the publish). -> (completions,
-    summary, peak bytes, wall s)."""
+def _serve_engine_run(cfg, params, prompts, *, swap=None, slots=8,
+                      new_tokens=64, **kw):
+    """The engine at full width: `slots` slots (8), the prompts' length,
+    `new_tokens` new tokens (64); `swap` = (params, decode steps before
+    the publish). -> (completions, summary, peak bytes, wall s)."""
     import torch
     from repro_torch.serve import EngineConfig, Request, ServeEngine
     _fresh_memory()
-    eng = ServeEngine(cfg, EngineConfig(max_slots=8, prompt_len=512,
-                                        max_new_tokens=64, queue_depth=32,
-                                        **kw), params=params, device="cuda")
+    eng = ServeEngine(cfg, EngineConfig(max_slots=slots,
+                                        prompt_len=len(prompts[0]),
+                                        max_new_tokens=new_tokens,
+                                        queue_depth=32, **kw),
+                      params=params, device="cuda")
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p))
     t0 = time.time()
@@ -2434,7 +2463,7 @@ def phase_serve_full_width():
         # SSM state in the model's dtype: the engine's first wave) and
         # after it (the SSM state in fp32: every later admission)
         p0 = torch.from_numpy(prompts[:1]).to("cuda")
-        hb, _ = forward(cfg, pA, p0, mode="prefill")
+        hb, _, _ = forward(cfg, pA, p0, mode="prefill")
         lb = logits_head(cfg, pA, hb[:, -1:])
         chunk_diff = {}
         for bank, ssm_dtype in (("first_wave", None),
@@ -2445,8 +2474,9 @@ def phase_serve_full_width():
                     lambda p, x: x.to(ssm_dtype) if p[-1] == "ssm" else x,
                     cache)
             for c in range(4):
-                hc, cache = forward(cfg, pA, p0[:, 128 * c:128 * (c + 1)],
-                                    mode="chunk", cache=cache, n_valid=128)
+                hc, cache, _ = forward(
+                    cfg, pA, p0[:, 128 * c:128 * (c + 1)], mode="chunk",
+                    cache=cache, n_valid=128)
             lc = logits_head(cfg, pA, hc[:, -1:])
             check(bool(torch.isfinite(lb).all()
                        and torch.isfinite(lc).all()),
@@ -2481,12 +2511,30 @@ def phase_serve_full_width():
     return by_path
 
 
-SERVE_CKPT_SPECS = ("q8", "q4", "bf16")
+def _by_rows(fn, *ts, rows_a_part: int = 1 << 20):
+    """`fn` (a plain version that works row by row) over slices of about
+    `rows_a_part` rows of `ts`, its outputs concatenated: bitwise the one
+    call, with fp32 temporaries of at most ~1 GiB at a large model's
+    shape."""
+    import torch
+    n = ts[0].shape[0]
+    outs = [fn(*(t[i:i + rows_a_part] for t in ts))
+            for i in range(0, n, rows_a_part)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
+SERVE_CKPT_CASES = (("transformer-wmt", ("q8", "q4", "bf16")),
+                    ("mamba2-780m", ("q8", "q4", "bf16")),
+                    ("granite-moe-3b-a800m", ("q8",)))
 
 
 def phase_serve_checkpoint():
-    """Serving checkpoints of both full-width models: export then load,
-    q8, q4 and bf16, launch counters at 0 just before each. Asserts
+    """Serving checkpoints of both full-width models, q8, q4 and bf16, and
+    of granite-moe-3b-a800m (its [E, D, F] expert leaves in the flat
+    buffer), q8: export then load, launch counters at 0 just before
+    each. Asserts
     quantize_mod 1 / decode_avg 0 on export and 0 / 1 on load for a
     lattice codec (0 / 0 for bf16); for a lattice codec, the exported wire
     and the kernel's encode of the export's buffer and uniforms each
@@ -2512,14 +2560,14 @@ def phase_serve_checkpoint():
     root = os.path.join(ROOT, "build", "chip_smoke_serve_ckpt")
     shutil.rmtree(root, ignore_errors=True)
     out, by_path = {}, {}
-    for arch in SERVE_FULL_ARCHS:
+    for arch, specs in SERVE_CKPT_CASES:
         cfg = get_config(arch)
         _fresh_memory()
         params = init_params(torch.Generator(device="cuda").manual_seed(0),
                              cfg, "cuda")
         like = params_like(cfg)
         flat = B.build_flat_layout(like)
-        for spec in SERVE_CKPT_SPECS:
+        for spec in specs:
             codec = make_codec(spec)
             lattice = spec != "bf16"
             path = os.path.join(root, f"{arch}_{spec}")
@@ -2543,8 +2591,9 @@ def phase_serve_checkpoint():
             del wire_t, wire_like
             zero = torch.zeros((rows, codec.block), device="cuda")
             # the plain version of the same decode, on the card
-            dec = ref.decode_avg(*wire, zero, bits=codec.quant.bits,
-                                 average=False, pack4=codec.packed) \
+            dec = _by_rows(lambda *t: ref.decode_avg(
+                *t, bits=codec.quant.bits, average=False,
+                pack4=codec.packed), *wire, zero) \
                 if lattice else codec.decode(wire, zero)
             plain = B.unpack_flat(flat, dec.reshape(-1))
             del dec
@@ -2559,6 +2608,7 @@ def phase_serve_checkpoint():
             tk = [run_oneshot(cfg, args, p, make_generators(0, "cuda"),
                               prompts=prompts)["tokens"].tolist()
                   for p in (loaded, plain)]
+            del loaded, plain
             timing, encode_checks = {}, {}
             if lattice:
                 # the export's own buffer and uniforms (seed 0, drawn as
@@ -2566,14 +2616,15 @@ def phase_serve_checkpoint():
                 # and the kernel's encode are each bitwise the plain encode
                 q = codec.quant
                 buf = B.pack_flat(flat, params)
-                zbuf = torch.zeros_like(buf)
+                zbuf = zero.reshape(-1)
                 u = torch.rand(buf.shape, generator=torch.Generator(
                     device="cuda").manual_seed(0), dtype=torch.float32,
                     device="cuda")
                 enc = dict(bits=q.bits, pack4=codec.packed)
                 qkw = dict(safety=q.safety, min_scale=q.min_scale, **enc)
-                pq, ps = ref.quantize_mod(*(t.reshape(rows, codec.block)
-                                            for t in (buf, zbuf, u)), **qkw)
+                pq, ps = _by_rows(lambda *t: ref.quantize_mod(*t, **qkw),
+                                  *(t.reshape(rows, codec.block)
+                                    for t in (buf, zbuf, u)))
                 kq, ks, _ = ops.quantize_mod(buf, zbuf, u, **qkw)
                 encode_checks = dict(
                     export_wire_bitwise_plain=same_bits(wire[0], pq)
@@ -2613,7 +2664,7 @@ def phase_serve_checkpoint():
             check(n_bytes == declared == real,
                   f"{arch} {spec}: wire bytes {n_bytes} {declared} {real}")
             check(tk[0] == tk[1], f"{arch} {spec}: greedy tokens differ")
-            del loaded, plain, wire, zero
+            del wire, zero
             os.remove(path + ".npz")
             os.remove(path + ".json")
         del params
@@ -2732,6 +2783,359 @@ def phase_serve_follow():
     return by_path
 
 
+ZOO_ARCHS = ("chatglm3-6b", "gemma3-4b", "gemma3-27b",
+             "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+             "jamba-1.5-large-398b", "paligemma-3b", "musicgen-large")
+ZOO_LAYERS = {"gemma3-4b": 8, "gemma3-27b": 8, "jamba-1.5-large-398b": 8}
+ZOO_SEQ = 192          # > window 64 + its query chunk 64: the band path
+
+
+def _route_choices(cfg, params, tokens):
+    """Every MoE layer's expert choices [T, k] of one train forward, in
+    layer order (route recorded on the way)."""
+    from repro_torch.models import forward, moe
+    seen = []
+    route = moe.route
+
+    def recording(*a, **kw):
+        out = route(*a, **kw)
+        seen.append(out[1].cpu())
+        return out
+    with _planted((moe, "route", recording)):
+        forward(cfg, params, tokens)
+    return seen
+
+
+def _loss_without_aux(cfg, params, batch):
+    """The planted fault of zoo_reference: the router's aux loss dropped."""
+    from repro_torch.models import forward
+    from repro_torch.models.layers import chunked_softmax_xent
+    hidden, _, _ = forward(cfg, params, batch["tokens"])
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return chunked_softmax_xent(hidden, table, batch["targets"],
+                                softcap=cfg.logit_softcap)
+
+
+def phase_zoo_reference():
+    """Each of the eight newly ported archs at ``reduced`` (d_model 64;
+    gemma3 and jamba at 8 layers, so that the 5:1 and 1:7 patterns hold a
+    global attention layer), fp32, 4 nodes, sequences of 192 (the
+    sliding-window layers' band path): one blocking q8 superstep on the
+    card (kernels) against the CPU (plain versions) from the same state,
+    weights, batches, matching and uniforms, held to `_within_bound` and
+    the loss to 1e-4 relative, as `phase_reference` holds them, and the
+    same superstep with exact gossip within 2e-5. A deeper stack's local
+    steps differ more card vs CPU (jamba at 8 layers: 8.0e-6 with exact
+    gossip), so more q8 codes sit within that noise of a rounding edge
+    and flip (0.33% of them on the H100) than the share of 99.9% within
+    2e-5 allows; where the exact superstep holds 2e-5, the q8 one passes
+    with every coordinate within one lattice step of its row. It prints
+    the codes that flip and the coordinates beyond 2e-5 that no flipped
+    code of the node or its partner explains. Counts the
+    MoE routing choices (expert index of every token and choice, every
+    layer and node) that differ between card and CPU from the same
+    weights: 0 at fp32 reduced. A planted fault — the router's aux loss
+    dropped from the loss on the card — must fail the bound."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import bucket as B
+    from repro_torch.core.graph import complete, sample_matching
+    from repro_torch.core.swarm import SwarmState
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.data import make_node_batches
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+    n, H, S = 4, 2, ZOO_SEQ
+    out = {}
+    for arch in ZOO_ARCHS:
+        cfg = reduced(get_config(arch), n_layers=ZOO_LAYERS.get(arch, 2),
+                      d_model=64)
+        g = torch.Generator().manual_seed(0)
+        params = tree_map(lambda x: x[None].repeat((n,) + (1,) * x.ndim),
+                          init_params(g, cfg, "cpu"))
+        rng = np.random.default_rng(0)
+        perm = sample_matching(complete(n), rng)
+        ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, S, seed=0), n)
+        nb = make_node_batches(ds, 0, 2 * H)
+        batches = {H: {k: v.reshape(1, n, H, 2, S) for k, v in nb.items()}}
+        us = rng.random((1, n, B.build_layout(params).n_padded),
+                        dtype=np.float32)
+        inputs = (perm[None], batches, us, {"fixed": np.full((1, n), H,
+                                                             np.int32)})
+        run, cpu_codec, opt, _ = _reduced_engine("cpu", True, cfg=cfg)
+        state = SwarmState(params, opt.init(params),
+                           tree_map(torch.clone, params), 0)
+        want, m_cpu = run(state, 0, inputs)
+
+        def card(fault=None):
+            run, codec, _, _ = _reduced_engine("cuda", True, cfg=cfg)
+            if fault is None:
+                got, m = run(state, 0, inputs)
+            else:
+                with _planted((tf, "loss_fn", fault)):
+                    got, m = run(state, 0, inputs)
+            r = _readings(got.params, want.params, codec.scales[-1], perm)
+            r["loss_card"], r["loss_cpu"] = float(m["loss"]), \
+                float(m_cpu["loss"])
+            r["loss_rel"] = abs(r["loss_card"] - r["loss_cpu"]) / \
+                abs(r["loss_cpu"])
+            # a coordinate whose own or partner's q8 code differs card vs
+            # CPU moves by half a lattice step; any other must agree
+            flips = (codec.codes[-1] != cpu_codec.codes[-1]).reshape(n, -1)
+            r["code_flips"] = int(flips.sum())
+            d = (B.pack(B.build_layout(got.params), got.params).cpu() -
+                 B.pack(B.build_layout(want.params), want.params)).abs()
+            explained = flips | flips[torch.as_tensor(perm,
+                                                      dtype=torch.long)]
+            r["unexplained_beyond_2e-5"] = int(
+                ((d.reshape(n, -1) > 2e-5) & ~explained).sum())
+            r["within"] = r["loss_rel"] <= 1e-4 and (
+                _within_bound(r) or r["beyond_one_step"] == 0)
+            return r
+        # exact gossip from the same state: the local steps alone
+        run_x, _, _, _ = _reduced_engine("cpu", False, cfg=cfg)
+        sx = SwarmState(params, opt.init(params), None, 0)
+        want_x, _ = run_x(sx, 0, inputs)
+        run_x, _, _, _ = _reduced_engine("cuda", False, cfg=cfg)
+        got_x, _ = run_x(sx, 0, inputs)
+        exact = _readings(got_x.params, want_x.params, None, perm)
+        check(_within_bound(exact),
+              f"{arch}: exact superstep card vs CPU beyond 2e-5: {exact}")
+        rec = card()
+        rec["exact"] = exact
+        # routing from the same weights on both devices, every node
+        flips = total = 0
+        if cfg.moe is not None:
+            for i in range(n):
+                p_i = tree_map(lambda x: x[i], params)
+                toks = torch.from_numpy(nb["tokens"][i, :2].astype(np.int64))
+                a = _route_choices(cfg, p_i, toks)
+                b = _route_choices(cfg, tree_map(lambda x: x.cuda(), p_i),
+                                   toks.cuda())
+                flips += sum(int((x != y).sum()) for x, y in zip(a, b))
+                total += sum(x.numel() for x in a)
+            rec["planted"] = {"aux_dropped": card(_loss_without_aux)}
+        rec["routing_choices"], rec["routing_flips"] = total, flips
+        out[arch] = rec
+        check(math.isfinite(rec["loss_card"]), f"{arch}: non-finite loss")
+        check(rec["within"], f"{arch}: card vs CPU beyond the bound: {rec}")
+        check(flips == 0, f"{arch}: {flips} of {total} routing choices "
+              "differ between card and CPU")
+        for name, r in rec.get("planted", {}).items():
+            check(not r["within"],
+                  f"{arch}: planted fault {name} passes the bound: {r}")
+    log("zoo_reference", seq=S, nodes=n, **out)
+
+
+ZOO_TRAIN_ARCH = "granite-moe-3b-a800m"
+ZOO_TRAIN_LAYERS = 4       # full width; depth cut from 32 to fit 4 nodes
+
+
+def phase_zoo_train_full_width():
+    """granite-moe-3b-a800m at its full width (d_model 1536, 24 / 8
+    heads, 40 experts top-8 of d_ff 512, vocab 49,155, bf16 params, fp32
+    momentum), depth cut to 4 layers, 4 nodes: ``repro_torch.launch.train
+    --arch granite-moe-3b-a800m --nodes 4 --H 2 --quantize --steps 4``
+    through `launch/train.py`'s build / run, launch counters at 0 just
+    before. Asserts finite losses and router aux, and 8 / 4 / 4 launches
+    of sgd_update / quantize_mod / decode_avg; prints superstep times and
+    peak allocated and reserved memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models import forward
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(ZOO_TRAIN_ARCH),
+                              n_layers=ZOO_TRAIN_LAYERS)
+    argv = ["--arch", ZOO_TRAIN_ARCH, "--nodes", "4", "--H", "2",
+            "--steps", "4", "--quantize", "--log-every", "1"]
+    _fresh_memory()
+    args = train.build_parser().parse_args(argv)
+    tr = train.build(args, cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    hist = train.run(args, tr)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    # the router's aux of node 0's model on its last batch
+    p0 = tree_map(lambda x: x[0], tr.state.params)
+    toks = torch.from_numpy(tr.node_batches(3)["tokens"][0, :args.batch])
+    with torch.no_grad():
+        _, _, aux = forward(cfg, p0, toks.to(torch.int64).to("cuda"))
+    aux = float(aux)
+    walls = [h["wall_s"] for h in hist]
+    steady = [b - a for a, b in zip(walls, walls[1:])]
+    rec = dict(argv=argv, n_layers=ZOO_TRAIN_LAYERS,
+               params_per_node=cfg.n_params(),
+               active_params_per_node=cfg.n_active_params(), records=hist,
+               router_aux=aux, launches=counts, first_superstep_s=walls[0],
+               superstep_s=steady,
+               superstep_median_s=statistics.median(steady),
+               max_memory_allocated_bytes=peak,
+               max_memory_reserved_bytes=reserved)
+    log("zoo_train_full_width", **rec)
+    check(len(hist) == 4 and all(math.isfinite(h["loss"])
+                                 and math.isfinite(h["gamma"])
+                                 for h in hist) and math.isfinite(aux)
+          and aux > 0, f"zoo train: non-finite records or aux {hist} {aux}")
+    check(counts == {"sgd_update": 8, "quantize_mod": 4, "decode_avg": 4},
+          f"zoo train launch counts {counts}")
+    del tr, p0
+    _fresh_memory()
+    return {"zoo_train_granite_q8": counts}
+
+
+ZOO_SERVE = {
+    # arch: (requests, prompt, new tokens, slots, chunk, runs); the swap
+    # run takes half a wave of requests more, admitted after the swap
+    # (granite's requests cut from 16 to one wave of 8 to keep the script
+    # near 480 s: its eager decode step takes ~155 ms)
+    "granite-moe-3b-a800m": (8, 512, 64, 8, 128,
+                             ("dense_blocking", "dense_chunked",
+                              "paged_chunked", "dense_swap")),
+    "gemma3-4b": (8, 3072, 32, 4, 512,
+                  ("dense_blocking", "dense_chunked", "paged_chunked")),
+}
+
+
+def phase_zoo_serve_full_width():
+    """Serving at full width and depth in bf16 through the engine:
+    granite-moe-3b-a800m (8 requests of 512 + 64 tokens on 8 slots; 12
+    with the hot swap, 4 of them admitted after it) and
+    gemma3-4b (8 requests of 3072 + 32 on 4 slots: the rings of 1024
+    rows wrap, and a prefill of 3072 > window 1024 + query chunk 1024
+    takes the band path), each dense blocking, dense chunked (128; 512 <=
+    the window) and paged (page 16) + chunked, granite also blocking with
+    a hot swap after 8 decode steps. Asserts paged == dense and swap == no
+    swap bitwise, nothing dropped, no added shape signature, and finite
+    logits of the one-shot command (``repro_torch.launch.serve``, the
+    first requests' shape) for each; prints tokens/s, decode ms a token,
+    TTFT p50/p99, KV bytes, one profiled decode step (8 lanes over 512
+    cached rows) and the greedy agreement between chunked and blocking
+    (exact only where no expert overflows). paligemma-3b runs the
+    one-shot path with its 256-row prefix (8 x 512 + 64) and the engine
+    must refuse it; launches 0/0/0."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import init_params
+    from repro_torch.serve import EngineConfig, ServeEngine
+    out, by_path = {}, {}
+    reset_launch_counts()
+    for arch, (n_req, plen, new, slots, chunk, names) in ZOO_SERVE.items():
+        cfg = get_config(arch)
+        _fresh_memory()
+        argv = ["--arch", arch, "--batch", str(slots), "--prompt-len",
+                str(plen), "--gen", str(new)]
+        one = serve.main(argv)
+        one_peak = torch.cuda.max_memory_allocated()
+        check(one["finite"] and one["tokens"].shape == (slots, new),
+              f"{arch}: one-shot logits not finite or tokens missing")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        pA = init_params(gen, cfg, "cuda")
+        pB = init_params(gen, cfg, "cuda") if "dense_swap" in names \
+            else None
+        step_profile = _profile_decode_step(cfg, pA)
+        prompts = make_prompts(cfg, n_req + slots // 2, plen,
+                               torch.Generator().manual_seed(1))
+        kws = {"dense_blocking": {},
+               "dense_chunked": dict(prefill_chunk=chunk),
+               "paged_chunked": dict(paged=True, page_size=16,
+                                     prefill_chunk=chunk),
+               "dense_swap": dict(swap=(pB, 8))}
+        runs = {}
+        for name in names:
+            n = n_req + slots // 2 if name == "dense_swap" else n_req
+            done, s, peak, wall = _serve_engine_run(
+                cfg, pA, prompts[:n], slots=slots, new_tokens=new,
+                **kws[name])
+            runs[name] = dict(tokens={c.rid: (c.tokens.tolist(), c.gen)
+                                      for c in done},
+                              summary=s, peak=peak, wall_s=wall)
+        toks = {k: v["tokens"] for k, v in runs.items()}
+        for name, r in runs.items():
+            s = r["summary"]
+            check(s["completed"] == len(r["tokens"]) >= n_req
+                  and s["dropped_in_flight"] == 0
+                  and s["decode_cache_misses"] == 0
+                  and s["prefill_cache_misses"] == 0,
+                  f"{arch} {name}: {s}")
+        check(toks["paged_chunked"] == toks["dense_chunked"],
+              f"{arch}: paged != dense under chunked prefill")
+        before = []
+        if "dense_swap" in toks:
+            swapped = toks["dense_swap"]
+            before = [r for r in sorted(swapped) if swapped[r][1] == 1]
+            check(before and all(r < n_req and swapped[r] == toks[
+                "dense_blocking"][r] for r in before)
+                  and len(before) < len(swapped)
+                  and all(swapped[r][1] == 2
+                          for r in swapped if r not in before),
+                  f"{arch}: hot swap: lanes before it differ or later "
+                  "lanes not on generation 2")
+        agree = np.mean([a == b for r in range(n_req) for a, b in
+                         zip(toks["dense_chunked"][r][0],
+                             toks["dense_blocking"][r][0])])
+        out[arch] = dict(
+            oneshot=dict(argv=argv, prefill_ms=one["prefill_ms"],
+                         decode_ms_per_token=one["decode_ms_per_token"],
+                         tokens_per_s=slots * 1e3 /
+                         one["decode_ms_per_token"],
+                         max_memory_allocated_bytes=one_peak),
+            n_params=cfg.n_params(), decode_step_profile=step_profile,
+            engine={k: dict(wall_s=v["wall_s"],
+                            max_memory_allocated_bytes=v["peak"],
+                            **{m: v["summary"][m] for m in (
+                                "tokens", "tokens_per_s", "latency_p50_ms",
+                                "latency_p99_ms", "ttft_p50_ms",
+                                "ttft_p99_ms", "kv_bytes", "kv_dense_bytes",
+                                "kv_pool_pages", "pool_pages_peak",
+                                "swaps_adopted", "decode_cache_misses",
+                                "prefill_cache_misses")})
+                    for k, v in runs.items()},
+            swap_lanes_before=before,
+            chunked_vs_blocking_token_agreement=float(agree))
+        del pA, pB
+    # the frontend arch: one-shot with its prefix; the engine refuses it
+    cfg = get_config("paligemma-3b")
+    _fresh_memory()
+    argv = ["--arch", "paligemma-3b", "--batch", "8", "--prompt-len",
+            "512", "--gen", "64"]
+    one = serve.main(argv)
+    check(one["finite"] and one["tokens"].shape == (8, 64),
+          "paligemma-3b: one-shot logits not finite or tokens missing")
+    try:
+        ServeEngine(cfg, EngineConfig(), device="cuda")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "one-shot path" in refused,
+          f"paligemma-3b: the engine did not refuse it ({refused})")
+    out["paligemma-3b"] = dict(
+        oneshot=dict(argv=argv, n_prefix=cfg.frontend.n_prefix,
+                     prefill_ms=one["prefill_ms"],
+                     decode_ms_per_token=one["decode_ms_per_token"],
+                     max_memory_allocated_bytes=torch.cuda
+                     .max_memory_allocated()),
+        n_params=cfg.n_params(), engine_refusal=refused)
+    counts = dict(LAUNCHES)
+    check(counts == {"sgd_update": 0, "quantize_mod": 0, "decode_avg": 0},
+          f"zoo serving launches {counts}")
+    by_path["zoo_serve"] = counts
+    _fresh_memory()
+    log("zoo_serve_full_width", **out)
+    return by_path
+
+
 def main() -> int:
     # expandable segments, set before the allocator starts, as the port's
     # entry points set them (launch/train.py `use_expandable_segments`):
@@ -2785,6 +3189,9 @@ def main() -> int:
     serving = phase_serve_full_width()
     serving.update(phase_serve_checkpoint())
     serving.update(phase_serve_follow())
+    phase_zoo_reference()
+    serving.update(phase_zoo_train_full_width())
+    serving.update(phase_zoo_serve_full_width())
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": TPU_KERNELS[n], "launches": counts[n],
                 "launches_by_path": {"overlap_q8_geometric": counts[n],

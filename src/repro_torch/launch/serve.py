@@ -55,13 +55,14 @@ PROG = "repro_torch.launch.serve"
 
 
 def make_serve_fns(cfg):
-    def prefill(params, tokens):
-        hidden, cache = forward(cfg, params, tokens, mode="prefill")
+    def prefill(params, tokens, prefix_embeds=None):
+        hidden, cache, _ = forward(cfg, params, tokens, mode="prefill",
+                                   prefix_embeds=prefix_embeds)
         return logits_head(cfg, params, hidden[:, -1:]), cache
 
     def decode_step(params, cache, tokens):
-        hidden, cache = forward(cfg, params, tokens, mode="decode",
-                                cache=cache)
+        hidden, cache, _ = forward(cfg, params, tokens, mode="decode",
+                                   cache=cache)
         return logits_head(cfg, params, hidden), cache
 
     return prefill, decode_step
@@ -77,10 +78,12 @@ def sample_token(logits, gen, temperature: float):
 
 
 def make_generators(seed: int, device) -> dict:
-    """Independent streams for init / prompts / sampling."""
+    """Independent streams for init / prompts / sampling / the frontend
+    prefix."""
     gens = {}
     for i, (name, dev) in enumerate((("init", device), ("prompts", "cpu"),
-                                     ("sample", device))):
+                                     ("sample", device),
+                                     ("prefix", device))):
         gens[name] = torch.Generator(device=dev)
         gens[name].manual_seed(seed + i)
     return gens
@@ -97,11 +100,15 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def run_oneshot(cfg, args, params, gens, prompts=None) -> dict:
+def run_oneshot(cfg, args, params, gens, prompts=None, prefix=None) -> dict:
     """The one-shot batched path — the serving oracle the engine's tests
-    compare against. `prompts` ([batch, prompt_len] numpy) default to
-    draws from ``gens["prompts"]``. -> {"tokens": [batch, gen] numpy,
-    "finite": every logit finite, "prefill_ms", "decode_ms_per_token"}."""
+    compare against, and the path of a frontend arch. `prompts` ([batch,
+    prompt_len] numpy) default to draws from ``gens["prompts"]``; a
+    frontend's `prefix` ([batch, n_prefix, d_embed] numpy) to
+    ``synth_prefix_embeds`` from ``gens["prefix"]``. -> {"tokens": [batch,
+    gen] numpy, "finite": every logit finite, "prefill_ms",
+    "decode_ms_per_token"}."""
+    from repro_torch.models.multimodal import synth_prefix_embeds
     from repro_torch.serve.engine import grow_cache
     prefill, decode_step = make_serve_fns(cfg)
     device = args.device
@@ -110,12 +117,18 @@ def run_oneshot(cfg, args, params, gens, prompts=None) -> dict:
                                gens["prompts"])
     tokens = torch.from_numpy(np.asarray(prompts)).to(device)
     batch, plen = tokens.shape
+    n_prefix = 0
+    if cfg.frontend is not None:
+        n_prefix = cfg.frontend.n_prefix
+        prefix = synth_prefix_embeds(gens["prefix"], cfg, batch, device) \
+            if prefix is None else torch.from_numpy(np.asarray(prefix)).to(
+                device)
     _sync(device)
     t0 = time.time()
-    logits, cache = prefill(params, tokens)
-    # grow the cache to prompt+gen capacity (raises on any structural
-    # mismatch — serve/engine.py)
-    cache = grow_cache(init_cache(cfg, batch, plen + args.gen,
+    logits, cache = prefill(params, tokens, prefix)
+    # grow the cache to prefix+prompt+gen capacity (raises on any
+    # structural mismatch — serve/engine.py)
+    cache = grow_cache(init_cache(cfg, batch, n_prefix + plen + args.gen,
                                   device=device), cache)
     _sync(device)
     t_prefill = time.time() - t0

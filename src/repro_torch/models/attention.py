@@ -3,6 +3,8 @@
 * ``attention_causal`` — training and prefill: the reference's
   online-softmax formulation over KV chunks (query chunks bound the live
   score tensor to [B, H, Cq, Ckv]);
+* ``attention_banded`` — sliding-window training and prefill: each query
+  chunk attends only its [qpos - W, qpos] band, O(S * (W + C)) compute;
 * ``attention_decode`` — one query token over a KV cache;
 * ``attention_chunk_decode`` — a T-token chunk of queries over a cache
   that already holds the chunk's own rows (chunked prefill);
@@ -76,6 +78,57 @@ def attention_causal(q, k, v, *, q_offset: int = 0, chunk_kv: int = 1024,
         out = acc / torch.clamp_min(s, 1e-30)[..., None]
         outs.append(out.permute(0, 2, 1, 3).to(q.dtype))      # [B,Cq,H,hd]
     return outs[0] if nq == 1 else torch.cat(outs, dim=1)
+
+
+def attention_banded(q, k, v, *, window: int, q_offset: int = 0,
+                     chunk_q: int = 1024):
+    """Sliding-window causal attention: query chunk i attends keys in
+    [i*C - W, i*C + C). Compute O(Sq * (W + C)); when the band covers
+    every key, the dense path with a window mask."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    chunk_q = min(chunk_q, Sq)
+    if Sk <= window + chunk_q:
+        return _windowed_dense(q, k, v, window=window, q_offset=q_offset)
+    assert Sq % chunk_q == 0, (Sq, chunk_q)
+    band = window + chunk_q
+    kf = repeat_kv(k, H // KVH)
+    vf = repeat_kv(v, H // KVH)
+    outs = []
+    for qi in range(Sq // chunk_q):
+        qc = q[:, qi * chunk_q:(qi + 1) * chunk_q]
+        qpos = q_offset + qi * chunk_q + torch.arange(chunk_q,
+                                                      device=q.device)
+        start = min(max(q_offset + qi * chunk_q - window, 0), Sk - band)
+        kpos = start + torch.arange(band, device=q.device)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qc,
+                              kf[:, start:start + band]).to(torch.float32)
+        logits = logits * hd ** -0.5
+        mask = (qpos[:, None] >= kpos[None, :]) & \
+            (qpos[:, None] - kpos[None, :] < window)
+        logits = torch.where(mask[None, None], logits, NEG_INF)
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p,
+                           vf[:, start:start + band].to(torch.float32))
+        outs.append(out.to(q.dtype))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _windowed_dense(q, k, v, *, window: int, q_offset: int):
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    kf = repeat_kv(k, H // k.shape[2])
+    vf = repeat_kv(v, H // v.shape[2])
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kf).to(torch.float32) * \
+        hd ** -0.5
+    mask = (qpos[:, None] >= kpos[None, :]) & \
+        (qpos[:, None] - kpos[None, :] < window)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p,
+                        vf.to(torch.float32)).to(q.dtype)
 
 
 def gather_pages(pool, pages):

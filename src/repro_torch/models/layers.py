@@ -1,6 +1,5 @@
-"""Shared building blocks (dense and Mamba2 slice of
-``repro/models/layers.py``): parameter templates, norms, RoPE, MLPs and the
-chunked cross-entropy.
+"""Shared building blocks (``repro/models/layers.py``): parameter
+templates, norms, RoPE, MLPs and the chunked cross-entropy.
 
 Every function keeps the JAX package's layouts and its order of operations
 (fp32 statistics, bf16 matmuls in the parameter dtype), so the same weights
@@ -26,6 +25,10 @@ class ParamInfo:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def is_info(x) -> bool:
+    return isinstance(x, ParamInfo)
 
 
 def init_from_template(gen: torch.Generator, template, dtype, device):
@@ -93,7 +96,7 @@ def apply_norm(cfg, p, x, eps: float = 1e-6):
 
 
 def rms_norm_simple(x, scale, eps: float = 1e-6):
-    """RMS norm with an explicit scale (Mamba2's gated norm)."""
+    """RMS norm with an explicit scale (Mamba2's gated norm, QK-norm)."""
     xf = x.to(torch.float32)
     xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * scale.to(torch.float32)).to(x.dtype)

@@ -1,0 +1,125 @@
+"""Mixture-of-Experts FFN (``repro/models/moe.py``): token-choice top-k
+routing with capacity, GShard positions by cumsum, the Switch load-balance
+auxiliary loss, and index-based dispatch into [E, C, D] expert buffers,
+so compute is proportional to the active parameters.
+
+Every step keeps the reference's numerics and is out of place, so it runs
+under ``torch.func.vmap`` over the node axis and under ``grad``:
+
+* the router's logits are computed in the model dtype and only then
+  widened to fp32, as the reference's;
+* ``jax.lax.top_k`` puts the lower index first on ties; ``torch.topk``
+  promises no order, so the choices come from a stable descending sort;
+* dispatch adds each kept token's row into its own (expert, slot) of a
+  zero buffer; a token dropped by capacity has its slot clipped to C - 1
+  and its row zeroed, so it adds an exact 0 to whatever lands there;
+* the combine gathers the [T, k, D] expert outputs and sums the k choices
+  in a fixed loop from fp32 zeros — never an atomic ``index_add_``, whose
+  order on the card is not fixed — which is the reference's sequential
+  scatter-add of the same terms.
+
+The expert products ``ecd,edf->ecf`` are batched matmuls; the reference
+computes them outside any Pallas kernel too.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.models.layers import ParamInfo, activation
+
+
+def moe_template(cfg):
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff, m.n_experts
+    t = {
+        "router": ParamInfo((d, E), ("embed", "expert_unsharded"),
+                            "normal", 0.02),
+        "w_up": ParamInfo((E, d, f), ("expert", "embed", "expert_ffn")),
+        "w_down": ParamInfo((E, f, d), ("expert", "expert_ffn", "embed")),
+    }
+    if cfg.gated_mlp:
+        t["w_gate"] = ParamInfo((E, d, f), ("expert", "embed", "expert_ffn"))
+    return t
+
+
+def capacity(cfg, n_tokens: int) -> int:
+    """Slots per expert for a call of `n_tokens` tokens (rounded up to a
+    multiple of 8, at least 8, as the reference's)."""
+    m = cfg.moe
+    c = int(math.ceil(m.capacity_factor * n_tokens * m.top_k / m.n_experts))
+    return max(8, -(-c // 8) * 8)
+
+
+def route(cfg, router_w, x_flat):
+    """x_flat:[T,D] -> gates [T,k] fp32, expert idx [T,k], aux loss."""
+    m = cfg.moe
+    logits = torch.matmul(x_flat, router_w).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, :m.top_k], idx[:, :m.top_k]
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    experts = torch.arange(m.n_experts, device=x_flat.device)
+    top1 = (idx[:, :1] == experts).to(torch.float32)          # [T,E]
+    f_e = torch.mean(top1, dim=0)
+    P_e = torch.mean(probs, dim=0)
+    aux = m.n_experts * torch.sum(f_e * P_e)
+    return gates, idx, aux
+
+
+def dispatch_positions(cfg, idx, T: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slot of each (token, choice) in its expert's capacity buffer: the
+    k choices in priority order, a cumsum of the one-hot assignment over
+    tokens. -> pos [T,k] (clipped to C - 1) and keep [T,k]."""
+    m = cfg.moe
+    C = capacity(cfg, T)
+    experts = torch.arange(m.n_experts, device=idx.device)
+    counts = torch.zeros((m.n_experts,), dtype=torch.int64,
+                         device=idx.device)
+    pos_list, keep_list = [], []
+    for j in range(m.top_k):
+        e = idx[:, j]
+        oh = (e[:, None] == experts).to(torch.int64)          # [T,E]
+        pos_in_e = torch.cumsum(oh, dim=0) - oh               # 0-based
+        pos_j = torch.sum(pos_in_e * oh, dim=-1) + \
+            torch.gather(counts, 0, e)
+        keep_list.append(pos_j < C)
+        pos_list.append(torch.clamp(pos_j, max=C - 1))
+        counts = counts + torch.sum(oh, dim=0)
+    return torch.stack(pos_list, 1), torch.stack(keep_list, 1)
+
+
+def apply_moe(cfg, p, x):
+    """x:[B,S,D] -> ([B,S,D], aux loss). Capacity is that of the call's
+    B*S tokens, as the reference's."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T, E, k = B * S, m.n_experts, m.top_k
+    xf = x.reshape(T, D)
+    gates, idx, aux = route(cfg, p["router"], xf)
+    pos, keep = dispatch_positions(cfg, idx, T)
+    C = capacity(cfg, T)
+    slot = (idx * C + pos).reshape(-1)                        # [T*k]
+    keep_f = keep.reshape(-1)
+    rows = xf.repeat_interleave(k, dim=0)                     # token order
+    data = torch.where(keep_f[:, None], rows, torch.zeros_like(rows))
+    buf = torch.zeros((E * C, D), dtype=x.dtype, device=x.device)
+    buf = buf.scatter_add(0, slot[:, None].expand(-1, D), data)
+    buf = buf.reshape(E, C, D)
+
+    h = torch.bmm(buf, p["w_up"])
+    if cfg.gated_mlp:
+        h = activation(cfg, torch.bmm(buf, p["w_gate"])) * h
+    else:
+        h = activation(cfg, h)
+    out_buf = torch.bmm(h, p["w_down"]).reshape(E * C, D)
+
+    gathered = torch.gather(out_buf, 0, slot[:, None].expand(-1, D))
+    w = (gates.reshape(-1) * keep_f).to(torch.float32)
+    terms = (gathered.to(torch.float32) * w[:, None]).reshape(T, k, D)
+    combined = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        combined = combined + terms[:, j]
+    return combined.reshape(B, S, D).to(x.dtype), aux

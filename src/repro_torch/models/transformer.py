@@ -1,5 +1,7 @@
-"""Decoder stack (``repro/models/transformer.py``): dense attention and
-Mamba2 layers, for training and for serving.
+"""Decoder stack (``repro/models/transformer.py``): global and
+sliding-window attention (QK-norm, local RoPE), Mamba2, dense MLP and
+mixture-of-experts layers, and a modality prefix, for training and for
+serving.
 
 Parameters are a nested dict in the JAX package's layout: ``embed``
 [V, D], ``final_norm``, and ``blocks`` whose leaves carry a leading
@@ -12,14 +14,17 @@ same model as an ``nn.Module`` whose parameter names are the tree paths
 Entry points:
   param_template(cfg) / init_params(gen, cfg, device)
   forward(cfg, params, tokens, mode=...)     train / prefill / decode / chunk
-  loss_fn(cfg, params, batch)                chunked-CE training loss
-  init_cache(cfg, batch, cache_size)         KV / SSM cache tree
+  loss_fn(cfg, params, batch)                chunked CE + router aux loss
+  init_cache(cfg, batch, cache_size, device=...)   KV / ring / SSM cache tree
   logits_head(cfg, params, hidden)           fp32 logits
 
 A cache's leaves carry the batch on their first axis after the stacked
 block axis (``blocks`` leaves [n_blocks, B, ...], ``tail`` leaves [B, ...]),
 and its ``len`` is a scalar or one length per lane [B]: the serving engine
-runs its slots as one batch where the reference vmaps a batch-1 call.
+runs its slots as one batch where the reference vmaps a batch-1 call. A
+sliding-window layer caches a ring of min(window, capacity) rows: position
+p lives in slot p % w, so its slot, its unroll order and its first valid
+row are per-lane gathers of ``len``.
 """
 from __future__ import annotations
 
@@ -29,11 +34,13 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import multimodal as mm_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     ParamInfo, apply_mlp, apply_norm, apply_rope, chunked_softmax_xent,
     init_from_template, mlp_template, norm_template, per_lane,
-    stack_template,
+    rms_norm_simple, stack_template,
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
@@ -43,13 +50,6 @@ def _pick_chunk(s: int, cap: int = 1024) -> int:
     while c < cap and s % (c * 2) == 0:
         c *= 2
     return min(c, s)
-
-
-def _check_layer(mixer: str, ffn: str):
-    if mixer not in ("attn", "mamba") or ffn not in ("dense", "none"):
-        raise NotImplementedError(
-            f"layer {(mixer, ffn)} is not ported (attn / mamba mixers, "
-            "dense / none ffn)")
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +82,24 @@ def _cache_write_chunk(cache_arr, new, start):
     return torch.where(sel.any(dim=1)[:, :, None, None], scat, cache_arr)
 
 
+def _ring_write_chunk(ring, new, start, n_valid):
+    """Sliding-window variant of :func:`_cache_write_chunk`: token t of a
+    lane lands in ring slot ``(start + t) % w``, and ONLY the lane's first
+    ``n_valid`` tokens write — a padded token's slot may wrap onto a
+    still-in-window row, so ragged chunks mask here, not by a later
+    overwrite. ring:[B,w,kv,hd], new:[B,T,kv,hd] with T <= w."""
+    B, w, T = ring.shape[0], ring.shape[1], new.shape[1]
+    assert T <= w, (T, w)              # distinct slots per chunk
+    dev = ring.device
+    t = torch.arange(T, device=dev)
+    tpos = per_lane(start, B, dev)[:, None] + t                 # [B,T]
+    sel = ((tpos % w)[:, :, None] == torch.arange(w, device=dev)) & \
+        (t[None, :] < per_lane(n_valid, B, dev)[:, None])[:, :, None]
+    scat = torch.einsum("bts,btkh->bskh", sel.to(ring.dtype),
+                        new.to(ring.dtype))
+    return torch.where(sel.any(dim=1)[:, :, None, None], scat, ring)
+
+
 # ---------------------------------------------------------------------------
 # Templates
 # ---------------------------------------------------------------------------
@@ -95,19 +113,26 @@ def attn_template(cfg):
         "wv": ParamInfo((d, cfg.n_kv_heads * hd), ("embed", "kv_x_dim")),
         "wo": ParamInfo((cfg.n_heads * hd, d), ("heads_x_dim", "embed")),
     }
+    if cfg.qk_norm:
+        t["q_norm"] = ParamInfo((hd,), (None,), "ones")
+        t["k_norm"] = ParamInfo((hd,), (None,), "ones")
     return t
 
 
 def layer_template(cfg, mixer: str, ffn: str):
-    _check_layer(mixer, ffn)
     t: Dict[str, Any] = {"norm1": norm_template(cfg)}
-    if mixer == "attn":
+    if mixer in ("attn", "swa"):
         t["attn"] = attn_template(cfg)
-    else:
+    elif mixer == "mamba":
         t["mamba"] = ssm_lib.mamba_template(cfg)
-    if ffn == "dense":
+    else:
+        raise ValueError(mixer)
+    if ffn != "none":
         t["norm2"] = norm_template(cfg)
+    if ffn == "dense":
         t["mlp"] = mlp_template(cfg)
+    elif ffn == "moe":
+        t["moe"] = moe_lib.moe_template(cfg)
     return t
 
 
@@ -131,6 +156,8 @@ def param_template(cfg):
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamInfo((cfg.vocab_size, d), ("vocab", "embed"),
                                  "normal", 0.02)
+    if cfg.frontend is not None:
+        t["frontend"] = mm_lib.frontend_template(cfg)
     return t
 
 
@@ -146,14 +173,18 @@ def init_params(gen: torch.Generator, cfg, device):
 
 def _layer_cache(cfg, mixer: str, batch: int, cache_size: int, dtype,
                  device):
-    if mixer == "attn":
-        shape = (batch, cache_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if mixer in ("attn", "swa"):
+        rows = cache_size if mixer == "attn" \
+            else min(cfg.sliding_window, cache_size)
+        shape = (batch, rows, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-    return ssm_lib.init_mamba_state(cfg, batch, dtype, device)
+    if mixer == "mamba":
+        return ssm_lib.init_mamba_state(cfg, batch, dtype, device)
+    raise ValueError(mixer)
 
 
-def init_cache(cfg, batch: int, cache_size: int, dtype=None, device="cpu"):
+def init_cache(cfg, batch: int, cache_size: int, dtype=None, *, device):
     dtype = dtype or getattr(torch, cfg.dtype)
     cache: Dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32,
                                                 device=device)}
@@ -176,37 +207,71 @@ def init_cache(cfg, batch: int, cache_size: int, dtype=None, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
-def _attn_layer(cfg, p, x, positions, *, mode: str = "train", cache=None,
-                clen=None, pool=None, pages=None):
+def _attn_layer(cfg, p, x, positions, *, mixer: str, mode: str = "train",
+                cache=None, clen=None, pool=None, pages=None, n_valid=None):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
+    theta = cfg.rope_theta
+    if mixer == "swa" and cfg.rope_theta_local is not None:
+        theta = cfg.rope_theta_local
     q = torch.matmul(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
     k = torch.matmul(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = torch.matmul(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, theta=cfg.rope_theta,
-                   rot_frac=cfg.partial_rotary)
-    k = apply_rope(k, positions, theta=cfg.rope_theta,
-                   rot_frac=cfg.partial_rotary)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, p["q_norm"])
+        k = rms_norm_simple(k, p["k_norm"])
+    q = apply_rope(q, positions, theta=theta, rot_frac=cfg.partial_rotary)
+    k = apply_rope(k, positions, theta=theta, rot_frac=cfg.partial_rotary)
     new_cache = None
     if mode in ("decode", "chunk"):
-        # paged: reconstruct the CONTIGUOUS cache from the lanes' page
-        # tables (an exact gather — attention below is bitwise the dense
-        # path), attend on the copy, and hand the new k/v rows back for
-        # the engine to scatter into the pools
-        if pool is not None:
+        # paged full attention: reconstruct the CONTIGUOUS cache from the
+        # lanes' page tables (an exact gather — attention below is bitwise
+        # the dense path), attend on the copy, and hand the new k/v rows
+        # back for the engine to scatter into the pools
+        paged = pool is not None and mixer == "attn"
+        if paged:
             kc = attn_lib.gather_pages(pool["k"], pages)
             vc = attn_lib.gather_pages(pool["v"], pages)
         else:
             kc, vc = cache["k"], cache["v"]
+        w = kc.shape[1]
         if mode == "decode":
-            kc, vc = _cache_write(kc, k, clen), _cache_write(vc, v, clen)
+            slot = clen % w if mixer == "swa" else clen
+            kc, vc = _cache_write(kc, k, slot), _cache_write(vc, v, slot)
             out = attn_lib.attention_decode(q, kc, vc, clen + 1)
+        elif mixer == "swa":
+            assert S <= w, f"prefill chunk {S} exceeds sliding window ring {w}"
+            # unroll each lane's ring to position order and append the
+            # chunk: gathered row j holds absolute position len - w + j
+            lens = per_lane(clen, B, x.device)
+            idx = (lens[:, None] - w + torch.arange(w, device=x.device)) % w
+            lane = torch.arange(B, device=x.device)[:, None]
+            kg = torch.cat([kc[lane, idx], k.to(kc.dtype)], dim=1)
+            vg = torch.cat([vc[lane, idx], v.to(vc.dtype)], dim=1)
+            out = attn_lib.attention_chunk_decode(
+                q, kg, vg, w, window=cfg.sliding_window,
+                min_kpos=torch.clamp(w - lens, min=0))
+            kc = _ring_write_chunk(kc, k, clen, n_valid)
+            vc = _ring_write_chunk(vc, v, clen, n_valid)
         else:   # chunk: S tokens at positions clen..clen+S-1, then attend
             kc = _cache_write_chunk(kc, k, clen)
             vc = _cache_write_chunk(vc, v, clen)
             out = attn_lib.attention_chunk_decode(q, kc, vc, clen)
-        new_cache = {"new_k": k, "new_v": v} if pool is not None \
+        new_cache = {"new_k": k, "new_v": v} if paged \
             else {"k": kc, "v": vc}
+    elif mixer == "swa":
+        out = attn_lib.attention_banded(q, k, v, window=cfg.sliding_window,
+                                        chunk_q=_pick_chunk(S))
+        if mode == "prefill":
+            # the last min(window, S) rows, rolled so that position p sits
+            # in ring slot p % window
+            w = min(cfg.sliding_window, S)
+            klast, vlast = k[:, S - w:], v[:, S - w:]
+            if cfg.sliding_window <= S:
+                shift = S % cfg.sliding_window
+                klast = torch.roll(klast, shift, dims=1)
+                vlast = torch.roll(vlast, shift, dims=1)
+            new_cache = {"k": klast, "v": vlast}
     else:
         out = attn_lib.attention_causal(q, k, v, chunk_q=_pick_chunk(S),
                                         chunk_kv=_pick_chunk(S))
@@ -219,34 +284,43 @@ def _attn_layer(cfg, p, x, positions, *, mode: str = "train", cache=None,
 def _apply_layer(cfg, p, x, positions, *, mixer: str, ffn: str,
                  mode: str = "train", cache=None, clen=None, pool=None,
                  pages=None, n_valid=None):
+    """-> (x, the layer's new cache or None, router aux loss or None)."""
     h = apply_norm(cfg, p["norm1"], x)
     if mixer == "mamba":
         mix, new_cache = ssm_lib.apply_mamba(cfg, p["mamba"], h, state=cache,
                                              mode=mode, n_valid=n_valid)
     else:
-        mix, new_cache = _attn_layer(cfg, p["attn"], h, positions, mode=mode,
-                                     cache=cache, clen=clen, pool=pool,
-                                     pages=pages)
+        mix, new_cache = _attn_layer(cfg, p["attn"], h, positions,
+                                     mixer=mixer, mode=mode, cache=cache,
+                                     clen=clen, pool=pool, pages=pages,
+                                     n_valid=n_valid)
     x = x + mix
+    aux = None
     if ffn == "dense":
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-    return x, new_cache
+    elif ffn == "moe":
+        mo, aux = moe_lib.apply_moe(cfg, p["moe"],
+                                    apply_norm(cfg, p["norm2"], x))
+        x = x + mo
+    return x, new_cache, aux
 
 
 def _apply_block(cfg, pattern, bp, x, positions, bc=None, pb=None, **kw):
     """One pass over `pattern` with block params `bp`, block cache `bc` and
-    block pools `pb` -> (x, the block's new cache or None)."""
-    new_bc = {}
+    block pools `pb` -> (x, the block's new cache or None, the block's aux
+    loss summed from fp32 zero in layer order, or None without MoE)."""
+    new_bc, aux_total = {}, None
     for i, (mixer, ffn) in enumerate(pattern):
-        _check_layer(mixer, ffn)
         key = f"layer_{i}"
-        x, nc = _apply_layer(
+        x, nc, aux = _apply_layer(
             cfg, bp[key], x, positions, mixer=mixer, ffn=ffn,
             cache=None if bc is None else bc[key],
             pool=None if pb is None else pb.get(key), **kw)
         if nc is not None:
             new_bc[key] = nc
-    return x, (new_bc or None)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, (new_bc or None), aux_total
 
 
 def _unbind_blocks(tree):
@@ -266,17 +340,20 @@ def _unbind_blocks(tree):
 
 
 def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
-            n_valid=None, pools=None):
-    """-> (hidden [B,S,D], new_cache). The reference's third output, the
-    MoE router's aux loss, has no counterpart: the port has no MoE layer.
+            n_valid=None, pools=None, prefix_embeds=None):
+    """-> (hidden [B,S',D], new_cache, aux): aux is the router's
+    load-balance loss summed over the MoE layers (fp32 0 without them).
 
     mode="train": full causal pass, no cache (new_cache None).
-    mode="prefill": full pass, builds the cache (len = S).
+    mode="prefill": full pass, builds the cache (len = S').
     mode="decode": tokens [B,1]; requires cache.
     mode="chunk": tokens [B,T] — a fixed-shape prefill chunk extending the
     cache at positions [len, len+T); only the first ``n_valid`` tokens
     (scalar or per lane) are real, the tail is length masking for ragged
     prompts. ``len`` advances by n_valid.
+
+    ``prefix_embeds`` [B, P, d_embed] (train / prefill, frontend archs):
+    projected and prepended to the token embeddings, so S' = P + S.
 
     ``pools`` (paged KV): {"blocks"/"tail": {layer_i: {"k","v": [...,
     n_pages, page, KVH, hd]}}} global page pools for full-attention
@@ -288,6 +365,9 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
     x = params["embed"][tokens.to(torch.int64)].to(dtype)
     # a device fill, not a host copy: a CUDA graph capture runs this
     x = x * torch.full((), cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+    if prefix_embeds is not None and mode in ("train", "prefill"):
+        pref = mm_lib.project_prefix(params["frontend"], prefix_embeds, dtype)
+        x = torch.cat([pref, x], dim=1)
     B, S = x.shape[0], x.shape[1]
     clen = pages = None
     if mode in ("decode", "chunk"):
@@ -298,6 +378,7 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
     else:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     kw = dict(mode=mode, clen=clen, pages=pages, n_valid=n_valid)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {}
     if cfg.n_full_blocks:
         bp = _unbind_blocks(params["blocks"])
@@ -305,22 +386,26 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
         pb = _unbind_blocks(None if pools is None else pools.get("blocks"))
         outs = []
         for b in range(cfg.n_full_blocks):
-            x, nc = _apply_block(cfg, cfg.pattern, bp(b), x, positions,
-                                 bc(b), pb(b), **kw)
+            x, nc, aux = _apply_block(cfg, cfg.pattern, bp(b), x, positions,
+                                      bc(b), pb(b), **kw)
             outs.append(nc)
+            if aux is not None:
+                aux_total = aux_total + aux
         if mode != "train":
             new_cache["blocks"] = tree_map(lambda *xs: torch.stack(xs),
                                            *outs)
     if cfg.tail_pattern:
-        x, nc = _apply_block(
+        x, nc, aux = _apply_block(
             cfg, cfg.tail_pattern, params["tail"], x, positions,
             None if cache is None else cache.get("tail"),
             None if pools is None else pools.get("tail"), **kw)
+        if aux is not None:
+            aux_total = aux_total + aux
         if mode != "train":
             new_cache["tail"] = nc
     x = apply_norm(cfg, params["final_norm"], x)
     if mode == "train":
-        return x, None
+        return x, None, aux_total
     if mode == "prefill":
         new_cache["len"] = torch.full((), S, dtype=torch.int32,
                                       device=x.device)
@@ -329,7 +414,7 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
         new_cache["len"] = (clen + adv).to(torch.int32)
     if pages is not None:
         new_cache["pages"] = pages
-    return x, new_cache
+    return x, new_cache, aux_total
 
 
 def logits_head(cfg, params, hidden):
@@ -341,11 +426,18 @@ def logits_head(cfg, params, hidden):
 
 
 def loss_fn(cfg, params, batch):
-    """batch: tokens [B,S], targets [B,S] -> mean chunked-CE loss."""
-    hidden, _ = forward(cfg, params, batch["tokens"])
+    """batch: tokens [B,S], targets [B,S], optional prefix_embeds -> mean
+    chunked CE over the text positions + router_aux_coef * aux."""
+    hidden, _, aux = forward(cfg, params, batch["tokens"],
+                             prefix_embeds=batch.get("prefix_embeds"))
+    S = batch["targets"].shape[1]
+    hidden = hidden[:, -S:]   # drop the frontend prefix positions
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return chunked_softmax_xent(hidden, table, batch["targets"],
-                                softcap=cfg.logit_softcap)
+    ce = chunked_softmax_xent(hidden, table, batch["targets"],
+                              softcap=cfg.logit_softcap)
+    if cfg.moe is None:
+        return ce
+    return ce + cfg.moe.router_aux_coef * aux
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ Conventions (bf16 params/activations unless configured otherwise):
              + attention KV traffic
 
 The formulas are the reference's, term for term, so the same config gives
-the same counts; the port's configs carry attention layers only (no
-sliding-window or state-space mixers, no experts), so those terms are 0.
+the same counts: sliding-window layers attend over the window, Mamba2
+layers add the SSD scan's term, and a mixture of experts counts its
+active parameters.
 """
 from __future__ import annotations
 
@@ -32,11 +33,18 @@ def _attn_layer_counts(cfg: ModelConfig):
 
 def attention_flops_per_token(cfg: ModelConfig, ctx_len: int) -> float:
     """QK^T + PV fwd flops per token (full ctx for global, window for swa)."""
-    g, s, _ = _attn_layer_counts(cfg)
+    g, s, m = _attn_layer_counts(cfg)
     hd = cfg.resolved_head_dim
     width = cfg.n_heads * hd
     f = g * 4.0 * ctx_len * width
     f += s * 4.0 * min(cfg.sliding_window, ctx_len) * width
+    # SSD: intra-chunk scores and outputs over the chunk, state update
+    # and query over d_state
+    if m and cfg.ssm is not None:
+        d_in = cfg.ssm.expand * cfg.d_model
+        nh = d_in // cfg.ssm.head_dim
+        f += m * (4.0 * cfg.ssm.chunk * nh * cfg.ssm.head_dim +
+                  6.0 * d_in * cfg.ssm.d_state)
     return f
 
 

@@ -16,7 +16,15 @@ KV memory comes in two layouts:
   pools + per-lane page tables (serve/paged.py); pages alloc on admit,
   free on retire, and an admission that cannot get pages DEFERS. Decode
   gathers a lane's pages back to the contiguous layout, so the paged token
-  stream is BITWISE the dense engine's.
+  stream is BITWISE the dense engine's. Sliding-window rings and Mamba
+  states stay in the per-lane tree, side by side in a hybrid bank.
+
+A mixture-of-experts layer routes the whole dispatch at once: its
+capacity is that of the call's tokens (slots at decode, slots x chunk in
+a chunk step), idle lanes included, where the reference's vmap gives each
+lane its own. The two agree wherever no expert overflows (every reduced
+config: capacity factor 4.0 is dropless). Architectures with a modality
+frontend are refused: they serve through the one-shot path.
 
 Prefill comes in two schedules:
 
@@ -203,6 +211,11 @@ class ServeEngine:
 
     def __init__(self, cfg, ecfg: EngineConfig, *, params=None, source=None,
                  device="cuda"):
+        if cfg.frontend is not None:
+            raise ValueError(
+                f"{cfg.name}: the continuous-batching engine serves "
+                "token-only architectures; multimodal prefix serving runs "
+                "through the one-shot path (launch/serve.py)")
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = torch.device(device)
@@ -249,7 +262,7 @@ class ServeEngine:
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
 
     def _prefill(self, params, tokens):
-        hidden, cache = forward(self.cfg, params, tokens, mode="prefill")
+        hidden, cache, _ = forward(self.cfg, params, tokens, mode="prefill")
         logits = logits_head(self.cfg, params, hidden[:, -1:])  # [1,1,V]
         return self._sample(logits[:, -1]), cache
 
@@ -291,7 +304,7 @@ class ServeEngine:
         caches, pools, tokens = self._caches, self._pools, self._tokens
         self._decode_sigs.add(_signature(params, caches, pools, tokens,
                                          commit))
-        hidden, c2 = forward(self.cfg, params, tokens, mode="decode",
+        hidden, c2, _ = forward(self.cfg, params, tokens, mode="decode",
                              cache=caches, pools=pools)
         toks = self._sample(logits_head(self.cfg, params, hidden)[:, -1])
         c2, rows = P.split_new_rows(c2)
@@ -310,7 +323,7 @@ class ServeEngine:
         caches, pools, tokens = self._caches, self._pools, self._tokens
         self._chunk_sigs.add(_signature(params, caches, pools, tokens,
                                         chunks, n_valid, commit, finish))
-        hidden, c2 = forward(self.cfg, params, chunks, mode="chunk",
+        hidden, c2, _ = forward(self.cfg, params, chunks, mode="chunk",
                              cache=caches, n_valid=n_valid, pools=pools)
         last = torch.clamp(n_valid.to(torch.int64) - 1, min=0)
         hidden = hidden[torch.arange(hidden.shape[0], device=self.device),

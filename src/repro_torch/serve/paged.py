@@ -9,8 +9,9 @@ on admission and freed on retirement by a host-side LIFO free list; an
 admission that cannot get its pages DEFERS at the queue head — pool
 pressure is a second backpressure signal next to the bounded queue.
 
-What stays dense: SSM (mamba) lane states are already O(1) per lane. Only
-``mixer == "attn"`` layers page.
+What stays dense: SSM (mamba) lane states are already O(1) per lane, and
+sliding-window layers keep their ring buffers (a ring IS a fixed-size
+page). Only ``mixer == "attn"`` layers page.
 
 Bitwise contract: decode reconstructs each lane's contiguous cache with
 ``attention.gather_pages`` — same rows, same order, same shape as the
@@ -106,9 +107,9 @@ def build_pools(cfg, n_pages: int, page: int, dtype, device) -> Dict[str, Any]:
 def strip_attn_kv(cfg, cache):
     """Split a dense cache tree into (paged-lane tree, stripped rows).
 
-    The lane tree keeps everything per-lane (len, mamba states) with
-    full-attention layers reduced to ``{}`` — their KV lives in the
-    pools. The stripped {"k","v"} subtrees are returned for the
+    The lane tree keeps everything per-lane (len, mamba states, swa
+    rings) with full-attention layers reduced to ``{}`` — their KV lives
+    in the pools. The stripped {"k","v"} subtrees are returned for the
     blocking-admit install path (scattered into the pools)."""
     cache = dict(cache)
     rows: Dict[str, Any] = {}

@@ -318,8 +318,8 @@ def test_follower_follows_a_jax_run_dir(tmp_path, capsys, monkeypatch):
 
 def test_grow_cache_raises_on_rank_mismatch():
     cfg = _cfg()
-    small = init_cache(cfg, 1, 8)
-    full = init_cache(cfg, 1, 16)
+    small = init_cache(cfg, 1, 8, device="cpu")
+    full = init_cache(cfg, 1, 16, device="cpu")
     grown = grow_cache(full, small)
     assert tree_flatten(grown)[1] == tree_flatten(full)[1]
     broken = tree_map(lambda x: x[None] if x.ndim > 2 else x, small)

@@ -106,7 +106,7 @@ def test_param_template_and_cache_equal_jax(arch):
     assert [(ti.shape, ti.axes, ti.init, ti.scale) for ti in tleaves] == \
         [(ji.shape, ji.axes, ji.init, ji.scale) for _, ji in jt]
     jcache = jinit_cache(jc, 3, 16)
-    tcache = init_cache(tc, 3, 16)
+    tcache = init_cache(tc, 3, 16, device="cpu")
     jpaths = [tuple(k.key for k in p) for p, _ in
               jax.tree_util.tree_flatten_with_path(jcache)[0]]
     assert tree_key_paths(tcache) == jpaths
@@ -308,20 +308,20 @@ def test_prefill_then_decode_equals_jax(arch):
     rng = np.random.default_rng(0)
     toks = rng.integers(0, jc.vocab_size, (2, 8)).astype(np.int32)
     jh, jcache, _ = _jfwd(jc, jp, jnp.asarray(toks), mode="prefill")
-    th, tcache = forward(tc, tp, _t(toks), mode="prefill")
+    th, tcache, _ = forward(tc, tp, _t(toks), mode="prefill")
     _close(jh, th)
     _caches_close(jcache, tcache)
     jl, tl = jtf.logits_head(jc, jp, jh[:, -1:]), logits_head(tc, tp,
                                                                th[:, -1:])
     _close(jl, tl)
     jcache = jgrow_cache(jinit_cache(jc, 2, 16), jcache)
-    tcache = grow_cache(init_cache(tc, 2, 16), tcache)
+    tcache = grow_cache(init_cache(tc, 2, 16, device="cpu"), tcache)
     for _ in range(4):
         jt = jnp.argmax(jl[:, -1], -1).astype(jnp.int32)[:, None]
         tt = torch.argmax(tl[:, -1], -1)[:, None]
         assert np.asarray(jt).tolist() == tt.tolist()
         jh, jcache, _ = _jfwd(jc, jp, jt, mode="decode", cache=jcache)
-        th, tcache = forward(tc, tp, tt, mode="decode", cache=tcache)
+        th, tcache, _ = forward(tc, tp, tt, mode="decode", cache=tcache)
         jl, tl = jtf.logits_head(jc, jp, jh), logits_head(tc, tp, th)
         _close(jl, tl)
         _caches_close(jcache, tcache)
@@ -335,13 +335,14 @@ def test_chunk_mode_equals_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _weights(jc, 1)
     rng = np.random.default_rng(1)
-    jcache, tcache = jinit_cache(jc, 1, 16), init_cache(tc, 1, 16)
+    jcache = jinit_cache(jc, 1, 16)
+    tcache = init_cache(tc, 1, 16, device="cpu")
     for nv in (4, 4, 2):
         ch = rng.integers(0, jc.vocab_size, (1, 4)).astype(np.int32)
         jh, jcache, _ = _jfwd(jc, jp, jnp.asarray(ch), mode="chunk",
                                  cache=jcache, n_valid=jnp.int32(nv))
-        th, tcache = forward(tc, tp, _t(ch), mode="chunk", cache=tcache,
-                             n_valid=nv)
+        th, tcache, _ = forward(tc, tp, _t(ch), mode="chunk", cache=tcache,
+                                n_valid=nv)
         _close(jh[:, :nv], th[:, :nv])
         _caches_close(jcache, tcache)
         _close(jtf.logits_head(jc, jp, jh[:, nv - 1:nv]),
@@ -358,8 +359,8 @@ def test_paged_forward_equals_dense(arch):
     _, tp = _weights(_cfgs(arch)[0])
     rng = np.random.default_rng(2)
     toks = _t(rng.integers(0, tc.vocab_size, (2, 8)).astype(np.int32))
-    _, c = forward(tc, tp, toks, mode="prefill")
-    dense = grow_cache(init_cache(tc, 2, 16), c)
+    _, c, _ = forward(tc, tp, toks, mode="prefill")
+    dense = grow_cache(init_cache(tc, 2, 16, device="cpu"), c)
     pools = P.build_pools(tc, 8, 4, torch.float32, "cpu")
     tables = torch.tensor([[5, 1, 7, 3], [2, 6, 0, 4]], dtype=torch.int32)
     lane, rows = P.strip_attn_kv(tc, dense)
@@ -371,6 +372,6 @@ def test_paged_forward_equals_dense(arch):
                                4)
     lane["pages"] = tables
     step = torch.tensor([[3], [4]])
-    hd, _ = forward(tc, tp, step, mode="decode", cache=dense)
-    hp, _ = forward(tc, tp, step, mode="decode", cache=lane, pools=pools)
+    hd, _, _ = forward(tc, tp, step, mode="decode", cache=dense)
+    hp, _, _ = forward(tc, tp, step, mode="decode", cache=lane, pools=pools)
     assert torch.equal(hd, hp)
