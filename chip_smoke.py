@@ -14,7 +14,10 @@ Phases, each printed on its own line:
    variants: codes, scales and floats must match bitwise (the kernels are
    built with contraction off). Each kernel's time (CUDA events, median of
    20 runs) is printed beside its byte bound, the plain version's time and,
-   for sgd_update, ``torch.optim.SGD(fused=True).step()``;
+   for sgd_update, ``torch.optim.SGD(fused=True).step()``; sgd_update is
+   also held in place (``inplace=True``, as the optimizer runs it on its
+   packed copies), and that is the time reported, the out-of-place one
+   beside it;
 4. a small-input reference: three supersteps of a reduced model on the
    card (kernels), each restarted from the state the CPU (plain versions)
    reached before it, against the CPU's, from identical weights, batches,
@@ -26,8 +29,8 @@ Phases, each printed on its own line:
    --arch transformer-wmt --nodes 8 --H 2 --quantize`` at full width and
    depth in bf16, with every launch counter at 0 just before; it asserts
    finite losses and exactly 8 / 4 / 4 launches of sgd_update /
-   quantize_mod / decode_avg, and prints the superstep time and peak
-   device memory;
+   quantize_mod / decode_avg, and prints the superstep time, peak
+   device memory and the q8 decodes beyond the lattice's reach;
 6. one exact-mode superstep, in which quantize_mod and decode_avg must not
    launch;
 7. overlap exact: the overlapped exact run equals the non-blocking exact
@@ -94,7 +97,26 @@ Phases, each printed on its own line:
     losses, launches 8/4/4, 8/4/4, 8/0/0, 8/0/0, 8/8/8 and the declared
     wire bytes per node, and prints superstep medians, peak memory, wire,
     comm-copy and residual bytes;
-17. the chunk driver's replay against the per-step driver, bitwise, on
+17. the transports' reference: ``ppermute`` and ``ppermute_pool`` (pool
+    of 4) and the three ``*_legacy`` per-leaf oracles, exact and q8
+    blocking, the two flat ppermute impls non-blocking and overlapped q8,
+    and AD-PSGD q8 on the pool — on the card against the CPU, 3
+    supersteps of the reduced model each restarted from the CPU's state,
+    held to `phase_reference`'s bound (q8: one lattice step of the
+    partner's row, a per-leaf oracle's rows as its per-leaf encode scaled
+    them), planted faults failing it; then bitwise on the card: each flat
+    exact impl equals its per-leaf oracle, ``ppermute_pool`` fed pool
+    indices equals gather fed the matchings they select (q8), and the
+    pool's chunked run (CUDA graphs gathering the matching from the
+    stacked pool by the device index) equals its per-step run;
+18. the transports at full width, 3 supersteps each of transformer-wmt x
+    8 nodes: ``--quantize`` under ``--gossip-impl ppermute``, under
+    ``ppermute_pool --nonblocking --overlap`` and under the
+    ``gather_legacy`` oracle; launches 6/3/3, 6/3/3 and 6/0/0 (the
+    per-leaf oracle's codec is plain torch), superstep times beside
+    `main_path`'s median, peak memory, and the q8 decodes beyond the
+    lattice's reach (``q8_wraps``, which `main_path` prints too);
+19. the chunk driver's replay against the per-step driver, bitwise, on
     the card (CUDA graphs against eager; blocking q8, overlapped q8,
     overlapped geometric q8 whose graphs replay out of capture order,
     top-k non-blocking, a masked lognormal schedule and the five
@@ -102,12 +124,14 @@ Phases, each printed on its own line:
     width, bf16, deterministic algorithms), with equal launch counts, and
     what the captures leave in the graphs' shared pool traced to the
     cuBLAS workspaces;
-18. ``--scan-chunk 4`` at full width, 8 supersteps: the blocking q8
+20. ``--scan-chunk 4`` at full width, 8 supersteps: the blocking q8
     command (its supersteps 0-3 bitwise `main_path`'s records of the same
     call, beside that run's per-step median) and the overlapped geometric
-    one, both on 8 nodes; launches Σ_t max_i h_{t,i} / 8 / 8, and the
-    second chunk's time per superstep;
-19. serving's reference: transformer-wmt, olmo-1b and mamba2-780m cut to
+    one, both on 8 nodes; launches Σ_t max_i h_{t,i} / 8 / 8, the
+    second chunk's time per superstep, the graphs captured, their keys,
+    the bytes their shared pool reserves and each command's peak
+    allocated and reserved bytes;
+21. serving's reference: transformer-wmt, olmo-1b and mamba2-780m cut to
     2 layers of d_model 32 (fp32), card against CPU from the same weights
     and prompts — prefill, teacher-forced decode, paged decode and ragged
     chunk logits and states within 2e-5, one-shot greedy tokens equal,
@@ -115,7 +139,7 @@ Phases, each printed on its own line:
     the CPU's with no added shape signature; planted faults (the cache
     written at len + 1, a page table shifted by one page, padded chunk
     tokens with dt != 0) must fail the bound;
-20. serving at full width and depth in bf16, transformer-wmt and
+22. serving at full width and depth in bf16, transformer-wmt and
     mamba2-780m: ``repro_torch.launch.serve --batch 8 --prompt-len 512
     --gen 64`` (prefill ms, decode ms a token, finite logits), then the
     engine with 8 slots and 16 requests of 512 + 64 tokens four ways
@@ -125,21 +149,21 @@ Phases, each printed on its own line:
     nothing dropped, no added shape signature; it prints tokens/s,
     latency and TTFT p50/p99, peak memory, KV bytes dense and paged, and
     the chunked schedule's token agreement with blocking;
-21. serving checkpoints of both full-width models, q8, q4 and bf16, and
+23. serving checkpoints of both full-width models, q8, q4 and bf16, and
     of granite-moe-3b-a800m (its expert leaves packed into the flat
     buffer), q8: quantize_mod 1 on export and decode_avg 1 on load per
     lattice codec (0 / 0 for bf16), the export bitwise the plain encode,
     the load bitwise a plain decode of the same wire, wire bytes the
     declared layout, greedy tokens those of the plain decode's weights,
     and the codec times at these shapes;
-22. the follower and the live source: the port's driver writes two
+24. the follower and the live source: the port's driver writes two
     ``--compress-state`` checkpoints of transformer-wmt x 4 nodes,
     ``repro_torch.launch.serve --follow`` serves 8 requests from them, the
     two land one after the other beside a running engine that adopts both
     in order, and ``--source live`` serves across more than one
     generation (launches 8/9/8 for the training run, 0/0/0 serving, 6/0/0
     live);
-23. the zoo's reference: chatglm3-6b, gemma3-4b, gemma3-27b,
+25. the zoo's reference: chatglm3-6b, gemma3-4b, gemma3-27b,
     granite-moe-3b-a800m, qwen3-moe-30b-a3b, jamba-1.5-large-398b (8
     layers), paligemma-3b and musicgen-large at ``reduced`` (d_model 64,
     fp32, 4 nodes, sequences of 192 so that sliding-window layers take the
@@ -148,11 +172,11 @@ Phases, each printed on its own line:
     the MoE routing choices that differ between card and CPU from the
     same weights (0 required); a planted fault, the router's aux loss
     dropped from the loss, must fail the bound;
-24. granite-moe-3b-a800m at full width (40 experts top-8, vocab 49,155,
+26. granite-moe-3b-a800m at full width (40 experts top-8, vocab 49,155,
     bf16, fp32 momentum) cut to 4 layers, 4 nodes, ``--H 2 --quantize``,
     4 supersteps through the training driver: finite losses and router
     aux, launches 8 / 4 / 4, superstep times and peak memory;
-25. the zoo served at full width and depth in bf16: granite-moe-3b-a800m
+27. the zoo served at full width and depth in bf16: granite-moe-3b-a800m
     (8 requests of 512 + 64 on 8 slots, 12 across the swap) and
     gemma3-4b (8 requests of 3072 + 32 on 4 slots: the rings wrap, the
     prefill takes the band path), dense blocking, chunked and paged + chunked, granite also with
@@ -292,8 +316,20 @@ def phase_kernels():
     rp, rm = ref.sgd_update(p, g, m, lr=lr, mu=0.9)
     errs = [bitwise(kp, rp, "sgd_update p' (main-path shape)"),
             bitwise(km, rm, "sgd_update m' (main-path shape)")]
+    del kp, km
+    # in place, as the optimizer runs it on its packed copies
+    pi, mi = p.clone(), m.clone()
+    kp, km = ops.sgd_fused_update(pi, g, mi, lr=lr, mu=0.9, inplace=True)
+    check(kp.data_ptr() == pi.data_ptr() and km.data_ptr() == mi.data_ptr(),
+          "sgd_update inplace=True did not write into p and m")
+    errs += [bitwise(kp, rp, "sgd_update p' in place (main-path shape)"),
+             bitwise(km, rm, "sgd_update m' in place (main-path shape)")]
     del kp, km, rp, rm
-    ms = time_ms(lambda: ops.sgd_fused_update(p, g, m, lr=lr, mu=0.9))
+    ms = time_ms(lambda: ops.sgd_fused_update(pi, g, mi, lr=lr, mu=0.9,
+                                              inplace=True))
+    del pi, mi
+    out_of_place_ms = time_ms(lambda: ops.sgd_fused_update(p, g, m, lr=lr,
+                                                           mu=0.9))
     plain_ms = time_ms(lambda: ref.sgd_update(p, g, m, lr=lr, mu=0.9))
     n = p.numel()
     b_ms, b_by = bound(5 * 4 * n, 4 * n)
@@ -317,6 +353,7 @@ def phase_kernels():
     records["sgd_update"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=lib_ms,
                                  max_abs_err=max(errs),
+                                 out_of_place_ms=out_of_place_ms,
                                  shape=list(p.shape))
     log("kernel", name="sgd_update", **records["sgd_update"])
     del p, g, m
@@ -395,24 +432,15 @@ def phase_kernels():
     return records
 
 
-def _reduced_engine(device, quantize: bool, fault: str = "",
-                    mode: str = "blocking", h_mode: str = "fixed", cfg=None):
-    """A superstep of a reduced transformer-wmt swarm (or of `cfg`) on
-    `device` in
-    `mode` (blocking | nonblocking | overlap) with fixed or geometric
-    local-step counts (h_max 4), its q8 codec (which
-    remembers the scale of every encode) and a function that runs
-    superstep t from a state on any device. `fault` plants a known-wrong
-    exchange, to show the reference's bounds reject it: "one_step_off"
-    (every received code one lattice step up) or "average_dropped" (a node
-    takes its partner's model)."""
+def _recording_classes(fault: str = ""):
+    """(Codec, Transport): the q8 lattice codec remembering the scale and
+    codes of every encode, and a transport of any impl; `fault` plants a
+    known-wrong exchange, to show the reference's bounds reject it:
+    "one_step_off" (every received code one lattice step up, flat q8) or
+    "average_dropped" (a node takes its partner's model: exact, the codec's
+    plain decode when quantized, or a per-leaf oracle's exchange)."""
     import torch
-    from repro_torch.configs import get_config, reduced
     from repro_torch.core.exchange import GossipTransport
-    from repro_torch.core.swarm import SwarmConfig, SwarmState
-    from repro_torch.core.swarm import make_swarm_step
-    from repro_torch.models import TransformerLM
-    from repro_torch.optim import make_optimizer
     from repro_torch.quant.codecs import LatticeCodec
     from repro_torch.quant.schemes import ModularQuantConfig
     from repro_torch.tree import tree_map
@@ -438,11 +466,33 @@ def _reduced_engine(device, quantize: bool, fault: str = "",
 
     class Transport(GossipTransport):
         def mix_pair(self, tree, perm, matched, *, quantize=False, **kw):
-            if fault == "average_dropped" and not quantize:
-                return tree_map(lambda x: x[perm], tree)
+            if fault == "average_dropped" and (not quantize or self.legacy):
+                node_perm, _ = self.resolve_perm(perm)
+                return tree_map(lambda x: x[node_perm], tree)
             return super().mix_pair(tree, perm, matched, quantize=quantize,
                                     **kw)
+    return Codec, Transport
 
+
+def _reduced_engine(device, quantize: bool, fault: str = "",
+                    mode: str = "blocking", h_mode: str = "fixed", cfg=None):
+    """A superstep of a reduced transformer-wmt swarm (or of `cfg`) on
+    `device` in
+    `mode` (blocking | nonblocking | overlap) with fixed or geometric
+    local-step counts (h_max 4), its q8 codec (which
+    remembers the scale of every encode) and a function that runs
+    superstep t from a state on any device. `fault` plants a known-wrong
+    exchange, to show the reference's bounds reject it: "one_step_off"
+    (every received code one lattice step up) or "average_dropped" (a node
+    takes its partner's model)."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.swarm import SwarmConfig, SwarmState
+    from repro_torch.core.swarm import make_swarm_step
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import make_optimizer
+
+    Codec, Transport = _recording_classes(fault)
     cfg = cfg or reduced(get_config("transformer-wmt"), n_layers=1,
                          d_model=64)
     codec = Codec()
@@ -617,8 +667,20 @@ def phase_reference():
     log("reference", **out)
 
 
+def _read_wraps() -> dict:
+    """`bucket.WRAPS` as ints: the matched q8 rows decoded at or beyond
+    the lattice's reach (sender and receiver 2^(bits-1) or more of the
+    sender's steps apart) and the rows checked."""
+    from repro_torch.core import bucket as B
+    return {k: int(v) for k, v in B.WRAPS.items()}
+
+
 def phase_main_path():
+    """The blocking main path (see the module docstring), with the q8
+    wrap counter on (it adds a check of every matched row to each
+    exchange, and prints what it counted)."""
     import torch
+    from repro_torch.core import bucket as B
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch import train
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -626,10 +688,15 @@ def phase_main_path():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    hist = train.main(["--arch", "transformer-wmt", "--nodes", "8",
-                       "--H", "2", "--steps", "4", "--quantize",
-                       "--log-every", "1", "--out",
-                       os.path.join(OUT_DIR, "chip_smoke_train_q8.json")])
+    B.WRAPS = {}
+    try:
+        hist = train.main(["--arch", "transformer-wmt", "--nodes", "8",
+                           "--H", "2", "--steps", "4", "--quantize",
+                           "--log-every", "1", "--out",
+                           os.path.join(OUT_DIR, "chip_smoke_train_q8.json")])
+        wraps = _read_wraps()
+    finally:
+        B.WRAPS = None
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -644,7 +711,7 @@ def phase_main_path():
     log("main_path", records=hist, launches=counts,
         first_superstep_s=walls[0], superstep_s=steady,
         superstep_median_s=statistics.median(steady),
-        max_memory_allocated_bytes=peak)
+        max_memory_allocated_bytes=peak, q8_wraps=wraps)
     return counts, hist
 
 
@@ -1893,6 +1960,350 @@ def phase_codecs_full_width():
     return by_path
 
 
+# the transports' reference: name, algorithm, --gossip-impl, quantize, mode
+TRANSPORT_CASES = tuple(
+    (f"{impl}_{'q8' if q else 'exact'}", "swarm", impl, q, "blocking")
+    for impl in ("ppermute", "ppermute_pool", "gather_legacy",
+                 "ppermute_legacy", "ppermute_pool_legacy")
+    for q in (False, True)) + (
+    ("ppermute_nonblocking_q8", "swarm", "ppermute", True, "nonblocking"),
+    ("ppermute_overlap_q8", "swarm", "ppermute", True, "overlap"),
+    ("ppermute_pool_nonblocking_q8", "swarm", "ppermute_pool", True,
+     "nonblocking"),
+    ("ppermute_pool_overlap_q8", "swarm", "ppermute_pool", True, "overlap"),
+    ("adpsgd_ppermute_pool_q8", "adpsgd", "ppermute_pool", True,
+     "blocking"))
+
+
+def _transport_engine(device, algo, impl, quantize, mode, fault=""):
+    """A superstep of the reduced transformer-wmt swarm (4 nodes, one
+    layer of d_model 64) on `device` over the transport `impl` (its static
+    matching or pool of 4 built from seed 0 on the complete graph), with
+    the recording codec and `fault` of `_recording_classes`. -> (run(state,
+    t, inputs), codec, scfg, transport); `inputs` = (perms, batches, us)
+    with batches by local-step depth and us[t] a flat [n, n_padded] array
+    or, for a per-leaf oracle, a list of [n, nblocks, 256] arrays."""
+    import torch
+    from repro_torch.algorithms import make_algorithm
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.exchange import transport_from_config
+    from repro_torch.core.graph import complete
+    from repro_torch.core.swarm import SwarmConfig, SwarmState
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import make_optimizer
+    Codec, Transport = _recording_classes(fault)
+    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
+    n = 4
+    scfg = SwarmConfig(n_nodes=n, H=2 if algo == "swarm" else 1,
+                       quantize=quantize, nonblocking=mode != "blocking",
+                       overlap=mode == "overlap", gossip_impl=impl,
+                       pool_size=4)
+    wiring = transport_from_config(scfg, complete(n), 0)
+    codec = Codec()
+    tr = Transport(n, impl=impl, codec=codec,
+                   static_pairs=wiring.static_pairs,
+                   matching_pool=wiring.matching_pool)
+    opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
+    kw = dict(loss_fn=TransformerLM(cfg).functional_loss,
+              opt_update=opt.update, lr_fn=lambda s: 0.05, n_nodes=n,
+              transport=tr)
+    if algo == "swarm":
+        kw["scfg"] = scfg
+    else:
+        kw.update(quantize=quantize, nonblocking=mode == "nonblocking")
+    step = make_algorithm(algo, **kw)
+
+    def move(x):
+        if x is None or isinstance(x, torch.Tensor):
+            return None if x is None else x.to(device)
+        if isinstance(x, (tuple, list)):
+            return type(x)(move(v) for v in x)
+        return {k: move(v) for k, v in x.items()}
+
+    def run(state, t, inputs):
+        perms, batches, us = inputs
+        state = SwarmState(move(state.params), move(state.opt),
+                           move(state.prev), t, move(state.inflight))
+        batch = {k: torch.from_numpy(v[t]).to(device)
+                 for k, v in batches[scfg.h_loop_bound].items()}
+        u = us[t]
+        u = [torch.from_numpy(a).to(device) for a in u] \
+            if isinstance(u, list) else torch.from_numpy(u).to(device)
+        return step(state, batch, perms[t], [scfg.h_loop_bound] * n, None,
+                    u=u)
+
+    return run, codec, scfg, tr
+
+
+class _LeafScales:
+    """The per-leaf encodes' scales of the last exchange of a *_legacy
+    oracle, laid out as the flat buffer's rows (every leaf segment is
+    padded to whole 256-blocks, so a leaf's blocks are those rows; the
+    buffer's tail rows, all zero, take a step of 1)."""
+
+    def __init__(self):
+        from repro_torch.core import exchange as E
+        self.leaf, self._orig = [], E.encode_modular
+
+    def patch(self):
+        def rec(cfg, x, ref, rng=None, **kw):
+            q, sc = self._orig(cfg, x, ref, rng, **kw)
+            self.leaf.append(sc.cpu())
+            return q, sc
+        from repro_torch.core import exchange as E
+        return _planted((E, "encode_modular", rec))
+
+    def rows(self, n, rows_per_node):
+        import torch
+        s = torch.cat([x.reshape(n, -1) for x in self.leaf], dim=1)
+        self.leaf = []
+        return torch.cat([s, torch.ones((n, rows_per_node - s.shape[1]))],
+                         dim=1).reshape(-1)
+
+
+def phase_transports_reference():
+    """Every transport but gather on the card against the CPU, on the
+    reduced transformer-wmt swarm, as `phase_reference` holds the gather
+    transport: three supersteps, each card superstep restarted from the
+    CPU's state before it with the same batches, perm input (the static
+    matching, or the pool index broadcast) and uniforms, held to
+    `_within_bound` (q8: one lattice step of the partner's row, the rows a
+    per-leaf oracle's encode scaled). Planted faults must fail it:
+    average_dropped (exact and the per-leaf oracles), one_step_off (flat
+    q8). Then the bitwise pairs on the card: each flat exact impl equals
+    its *_legacy oracle over 3 supersteps; ppermute_pool fed pool indices
+    equals gather fed the matchings they select (q8, same uniforms); and
+    ppermute_pool's chunked run (CUDA graph replay, the pool index a
+    device input) equals its per-step run, blocking and overlapped q8."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import bucket as B
+    from repro_torch.core.graph import complete
+    from repro_torch.core.swarm import SwarmState, pipeline_prologue
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.data import make_node_batches
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves, tree_map
+    n, steps = 4, 3
+    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=64)
+    g = torch.Generator()
+    g.manual_seed(0)
+    params = tree_map(lambda x: x[None].repeat((n,) + (1,) * x.ndim),
+                      init_params(g, cfg, "cpu"))
+    layout = B.build_layout(params)
+    rng = np.random.default_rng(0)
+    ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, 32, seed=0), n)
+    batches = {}
+    for depth in (1, 2):
+        nbs = [make_node_batches(ds, t, 2 * depth) for t in range(steps)]
+        batches[depth] = {k: np.stack([nb[k].reshape(n, depth, 2, 32)
+                                       for nb in nbs]) for k in nbs[0]}
+    flat_us = rng.random((steps + 1, n, layout.n_padded), dtype=np.float32)
+    leaf_us = [[rng.random((n, -(-int(np.prod(x.shape[1:])) // 256), 256),
+                           dtype=np.float32) for x in tree_leaves(params)]
+               for _ in range(steps)]
+    out = {}
+    for name, algo, impl, quantize, mode in TRANSPORT_CASES:
+        legacy = impl.endswith("_legacy")
+        run, _, scfg, tr = _transport_engine("cpu", algo, impl, quantize,
+                                             mode)
+        rng_np = np.random.default_rng(1)
+        perms = np.stack([train.sample_gossip_perm(scfg, complete(n), rng_np,
+                                                   0) for _ in range(steps)])
+        inputs = (perms, batches, leaf_us if legacy else flat_us)
+        state = SwarmState(params, _opt_init(params),
+                           tree_map(torch.clone, params)
+                           if quantize and mode != "overlap" else None, 0)
+        if mode == "overlap":
+            state = pipeline_prologue(scfg, state, None,
+                                      u=torch.from_numpy(flat_us[steps]))
+        states, loss_cpu = [state], []
+        for t in range(steps):
+            state, m = run(states[t], t, inputs)
+            states.append(state)
+            loss_cpu.append(float(m["loss"]))
+
+        def node_perm(t):
+            p, _ = tr.resolve_perm(torch.as_tensor(perms[t]))
+            return p.numpy()
+
+        clean = {}
+
+        def card_step(t, fault=""):
+            run_c, codec, _, _ = _transport_engine("cuda", algo, impl,
+                                                   quantize, mode, fault)
+            leaf = _LeafScales()
+            with leaf.patch():
+                st, m = run_c(states[t], t, inputs)
+            if not quantize:
+                sc = None
+            elif mode == "overlap":
+                sc = states[t].inflight["wire"][1].reshape(-1)
+            elif legacy:
+                # a planted fault that encodes nothing reads the clean
+                # superstep's steps
+                sc = leaf.rows(n, layout.rows_per_node) if leaf.leaf \
+                    else clean[t]
+            else:
+                sc = codec.scales[-1]
+            if not fault:
+                clean[t] = sc
+            return _readings(st.params, states[t + 1].params, sc,
+                             node_perm(t)), float(m["loss"])
+        readings, loss_card = [], []
+        for t in range(steps):
+            r, loss = card_step(t)
+            readings.append(r)
+            loss_card.append(loss)
+        t_fault = 0 if mode == "blocking" else 1
+        faults = ("average_dropped",) if not quantize or legacy \
+            else ("one_step_off",)
+        planted = {f: card_step(t_fault, f)[0] for f in faults}
+        out[name] = dict(perm_input=perms.tolist(), loss_card=loss_card,
+                         loss_cpu=loss_cpu, readings=readings,
+                         planted=planted)
+        check(np.allclose(loss_card, loss_cpu, rtol=1e-4, atol=0),
+              f"transports {name}: card loss {loss_card} != CPU {loss_cpu}")
+        check(all(_within_bound(r) for r in readings),
+              f"transports {name}: card vs CPU beyond the bound: {readings}")
+        check(not any(_within_bound(r) for r in planted.values()),
+              f"transports {name}: a planted fault passes: {planted}")
+    out["bitwise"] = _transport_pairs(params, batches, flat_us, steps)
+    # the chunk driver on the pool: the graphs gather the matching from
+    # the stacked pool by the device index
+    base = ["--arch", "transformer-wmt", "--reduced", "--layers", "1",
+            "--d-model", "64", "--nodes", "4", "--steps", "6", "--batch",
+            "2", "--seq", "32", "--gossip-impl", "ppermute_pool",
+            "--pool-size", "4", "--quantize"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for case, flags in (("pool_q8", []),
+                                ("pool_overlap_q8", ["--overlap"])):
+                out["bitwise"][f"replay_{case}"] = _replay_vs_eager(
+                    case, base + flags, None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _fresh_memory()
+    log("transports_reference", **out)
+
+
+def _opt_init(params):
+    from repro_torch.optim import make_optimizer
+    return make_optimizer("sgd", lr=0.05, momentum=0.9).init(params)
+
+
+def _transport_pairs(params, batches, us, steps) -> dict:
+    """The bitwise pairs of the transports, on the card, from `params`
+    (reduced transformer-wmt, 4 nodes): -> {pair: True}; each pair must
+    hold."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bucket as B
+    from repro_torch.core.swarm import SwarmState
+    from repro_torch.tree import tree_map
+
+    def chain(impl, quantize, perms, u=us):
+        run, _, _, tr = _transport_engine("cuda", "swarm", impl, quantize,
+                                          "blocking")
+        st = SwarmState(params, _opt_init(params),
+                        tree_map(torch.clone, params) if quantize else None,
+                        0)
+        for t in range(steps):
+            st, _ = run(st, t, (perms, batches, u))
+        return B.pack(B.build_layout(st.params), st.params)
+
+    out = {}
+    pool = _transport_engine("cpu", "swarm", "ppermute_pool", False,
+                             "blocking")[3].matching_pool
+    rng = np.random.default_rng(2)
+    idx = [int(rng.integers(len(pool))) for _ in range(steps)]
+    pool_in = np.stack([np.full((4,), i, np.int32) for i in idx])
+    gather_in = np.stack([pool[i] for i in idx])
+    static = _transport_engine("cpu", "swarm", "ppermute", False,
+                               "blocking")[3].static_pairs
+    static_in = np.stack([B._perm_from_pairs(4, static)] * steps)
+    for base, perms in (("gather", gather_in), ("ppermute", static_in),
+                        ("ppermute_pool", pool_in)):
+        out[f"{base}_exact_equals_legacy"] = same_bits(
+            chain(base, False, perms), chain(base + "_legacy", False, perms))
+    out["pool_equals_gather_q8"] = same_bits(chain("ppermute_pool", True,
+                                                   pool_in),
+                                             chain("gather", True, gather_in))
+    check(all(out.values()), f"transports: a bitwise pair fails: {out}")
+    return out
+
+
+TRANSPORT_COMMANDS = {
+    "transports_ppermute_q8": ["--quantize", "--gossip-impl", "ppermute"],
+    "transports_pool_overlap_q8": ["--quantize", "--gossip-impl",
+                                   "ppermute_pool", "--nonblocking",
+                                   "--overlap"],
+    "transports_gather_legacy_q8": ["--quantize", "--gossip-impl",
+                                    "gather_legacy"],
+}
+
+
+def phase_transports_full_width(main_median_s):
+    """The transports at full width: transformer-wmt x 8 nodes (as
+    `main_path`), 3 supersteps each of `--quantize` under ppermute, under
+    ppermute_pool --nonblocking --overlap and under the gather_legacy
+    per-leaf oracle, every launch counter at 0 after the build, the q8
+    wrap counter on; -> {path: launches}. Asserts finite records and the
+    launches (flat: 6 / 3 / 3; the per-leaf oracle runs its codec in
+    plain torch: 6 / 0 / 0), and prints the superstep times beside
+    `main_path`'s median of this call, peak memory and the wraps."""
+    import torch
+    from repro_torch.core import bucket as B
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    base = ["--arch", "transformer-wmt", "--nodes", "8", "--H", "2",
+            "--steps", "3", "--log-every", "1"]
+    by_path, out = {}, {"main_path_superstep_median_s": main_median_s}
+    for name, flags in TRANSPORT_COMMANDS.items():
+        argv = base + flags
+        args = train.build_parser().parse_args(argv)
+        _fresh_memory()
+        tr = train.build(args)
+        reset_launch_counts()
+        B.WRAPS = {}
+        try:
+            t0 = time.time()
+            hist = train.run(args, tr)
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+            wraps = _read_wraps()
+        finally:
+            B.WRAPS = None
+        counts = dict(LAUNCHES)
+        check(len(hist) == 3 and all(math.isfinite(h["loss"])
+                                     and math.isfinite(h["gamma"])
+                                     for h in hist),
+              f"{name}: non-finite or missing records {hist}")
+        want = {"sgd_update": 6, "quantize_mod": 3, "decode_avg": 3} \
+            if "legacy" not in name else \
+            {"sgd_update": 6, "quantize_mod": 0, "decode_avg": 0}
+        check(counts == want, f"{name}: launch counts {counts} != {want}")
+        walls = [h["wall_s"] for h in hist]
+        steady = [b - a for a, b in zip(walls, walls[1:])]
+        out[name] = dict(argv=argv, records=hist, launches=counts,
+                         first_superstep_s=walls[0], superstep_s=steady,
+                         superstep_median_s=statistics.median(steady),
+                         max_memory_allocated_bytes=torch.cuda
+                         .max_memory_allocated(),
+                         max_memory_reserved_bytes=torch.cuda
+                         .max_memory_reserved(), q8_wraps=wraps, run_s=run_s)
+        by_path[name] = counts
+        del tr
+    _fresh_memory()
+    log("transports_full_width", **out)
+    return by_path
+
+
 # the chunk driver's bitwise cases: name, flags. The geometric one's
 # seed gives graph keys (min h, max h) (1,4) (1,3) (1,4) (1,3) (1,3) (1,4):
 # its two graphs replay out of their capture order
@@ -1937,6 +2348,75 @@ def _pool_sites(pool) -> list:
     return out
 
 
+def _replay_vs_eager(name, argv, cfg, traced: bool = False) -> dict:
+    """One chunked run (chunks of 4) against the per-step driver on the
+    card, from `argv` through `train.build(args, cfg)`: the final state
+    (params, momentum, comm copy, residual, in-flight payload), each
+    superstep's loss and Γ, and the launch counts must be equal, bitwise.
+    With `traced`, what the captures leave in the graphs' shared pool is
+    traced to its allocation site. -> the case's record."""
+    import numpy as np
+    import torch
+    from repro_torch.core.exchange import local_signature
+    from repro_torch.core.scan import _POOL_ALLOWANCE, _state_leaves
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(argv)
+    _fresh_memory()
+    tr = train.build(args, cfg)
+    n = tr.n_steps
+    reset_launch_counts()
+    per = [tr.superstep(t) for t in range(n)]
+    per_loss = [float(m["loss"]) for m in per]
+    per_gamma = [float(m["gamma"]) for m in per]
+    per_counts = dict(LAUNCHES)
+    per_state = [x.clone() for x in _state_leaves(tr.state)]
+    del tr, per
+    _fresh_memory()
+    tr = train.build(args, cfg)
+    if traced:
+        torch.cuda.memory._record_memory_history(max_entries=200000)
+    reset_launch_counts()
+    ms = [tr.chunk(t, min(4, n - t),
+                   [tr.node_batches(s) for s in range(t, min(t + 4, n))])
+          for t in range(0, n, 4)]
+    counts = dict(LAUNCHES)
+    loss = [float(x) for m in ms for x in m["loss"]]
+    gamma = [float(x) for m in ms for x in m["gamma"]]
+    got = _state_leaves(tr.state)
+    equal = len(got) == len(per_state) and all(
+        same_bits(a, b) for a, b in zip(got, per_state))
+    keys = [local_signature(tuple(int(x) for x in h), args.h_max)
+            for h in tr.hs]
+    out = dict(supersteps=n, graphs=len(tr.chunker.graphs),
+               state_bitwise=equal,
+               metrics_bitwise=loss == per_loss and gamma == per_gamma,
+               launches_chunked=counts, launches_per_step=per_counts,
+               loss=loss, pool_bytes_after_capture={
+                   str(k): v for k, v in tr.chunker.pool_bytes.items()},
+               pool_reserved_bytes=tr.chunker.pool_reserved(),
+               local_keys=[list(k) for k in keys])
+    if traced:
+        sites = _pool_sites(tr.chunker._pool.id)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        out["pool_blocks"] = sites
+        check(len(tr.chunker.graphs) > 1 and not _in_capture_order(keys),
+              f"scan {name}: its graphs replay in capture order ({keys}), "
+              "so it tests nothing")
+        check(all("setWorkspaceForHandle" in site for _, site in sites)
+              and sum(b for b, _ in sites) <= _POOL_ALLOWANCE,
+              f"scan {name}: the graphs' pool holds more than the cuBLAS "
+              f"workspaces: {sites}")
+    del tr, per_state, got
+    check(equal and loss == per_loss and gamma == per_gamma,
+          f"scan {name}: replay != per-step: {out} (per-step losses "
+          f"{per_loss})")
+    check(counts == per_counts,
+          f"scan {name}: launches {counts} != {per_counts}")
+    check(np.isfinite(loss).all(), f"scan {name}: {loss}")
+    return out
+
+
 def phase_scan_bitwise():
     """The chunk driver (CUDA graph replay) against the per-step driver
     (eager) on the card, bitwise: every case's final state (params,
@@ -1948,16 +2428,13 @@ def phase_scan_bitwise():
     is pinned in `main`), so that the two runs' own arithmetic reproduces.
     The geometric case's graphs replay out of capture order, and what its
     captures leave in the graphs' shared pool is traced to its allocation
-    site: only the cuBLAS workspaces `core/scan.py` allows."""
+    site: only the cuBLAS workspaces `core/scan.py` allows (none once an
+    earlier driver of the process made them on the shared capture
+    stream)."""
     import dataclasses
     import warnings
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.exchange import local_signature
-    from repro_torch.core.scan import _POOL_ALLOWANCE, _state_leaves
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
-    from repro_torch.launch import train
     base = ["--arch", "transformer-wmt", "--nodes", "8", "--steps", "6",
             "--batch", "2", "--seq", "64", "--h-max", "4"]
     cfg = dataclasses.replace(get_config("transformer-wmt"), n_layers=2)
@@ -1968,64 +2445,9 @@ def phase_scan_bitwise():
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             for name, flags in SCAN_CASES:
-                args = train.build_parser().parse_args(base + flags)
-                _fresh_memory()
-                tr = train.build(args, cfg)
-                n = tr.n_steps
-                reset_launch_counts()
-                per = [tr.superstep(t) for t in range(n)]
-                per_loss = [float(m["loss"]) for m in per]
-                per_gamma = [float(m["gamma"]) for m in per]
-                per_counts = dict(LAUNCHES)
-                per_state = [x.clone() for x in _state_leaves(tr.state)]
-                del tr, per
-                _fresh_memory()
-                tr = train.build(args, cfg)
-                traced = name == "geometric_overlap_q8"
-                if traced:
-                    torch.cuda.memory._record_memory_history(
-                        max_entries=200000)
-                reset_launch_counts()
-                ms = [tr.chunk(t, min(4, n - t),
-                               [tr.node_batches(s)
-                                for s in range(t, min(t + 4, n))])
-                      for t in range(0, n, 4)]
-                counts = dict(LAUNCHES)
-                loss = [float(x) for m in ms for x in m["loss"]]
-                gamma = [float(x) for m in ms for x in m["gamma"]]
-                got = _state_leaves(tr.state)
-                equal = len(got) == len(per_state) and all(
-                    same_bits(a, b) for a, b in zip(got, per_state))
-                keys = [local_signature(tuple(int(x) for x in h), 4)
-                        for h in tr.hs]
-                out[name] = dict(
-                    supersteps=n, graphs=len(tr.chunker.graphs),
-                    state_bitwise=equal,
-                    metrics_bitwise=loss == per_loss and gamma == per_gamma,
-                    launches_chunked=counts, launches_per_step=per_counts,
-                    loss=loss, pool_bytes_after_capture={
-                        str(k): v for k, v in tr.chunker.pool_bytes.items()},
-                    local_keys=[list(k) for k in keys])
-                if traced:
-                    sites = _pool_sites(tr.chunker._pool)
-                    torch.cuda.memory._record_memory_history(enabled=None)
-                    out[name]["pool_blocks"] = sites
-                    check(len(tr.chunker.graphs) > 1
-                          and not _in_capture_order(keys),
-                          f"scan {name}: its graphs replay in capture "
-                          f"order ({keys}), so it tests nothing")
-                    check(all("setWorkspaceForHandle" in site
-                              for _, site in sites)
-                          and sum(b for b, _ in sites) <= _POOL_ALLOWANCE,
-                          f"scan {name}: the graphs' pool holds more than "
-                          f"the cuBLAS workspaces: {sites}")
-                del tr, per_state, got
-                check(equal and loss == per_loss and gamma == per_gamma,
-                      f"scan {name}: replay != per-step: {out[name]} "
-                      f"(per-step losses {per_loss})")
-                check(counts == per_counts,
-                      f"scan {name}: launches {counts} != {per_counts}")
-                check(np.isfinite(loss).all(), f"scan {name}: {loss}")
+                out[name] = _replay_vs_eager(
+                    name, base + flags, cfg,
+                    traced=name == "geometric_overlap_q8")
     finally:
         torch.use_deterministic_algorithms(False)
     _fresh_memory()
@@ -2092,9 +2514,11 @@ def phase_scan_full_width(main_records):
         ends = [hist[3]["wall_s"], hist[7]["wall_s"]]
         out[name] = dict(argv=argv, records=hist, hs=hs.tolist(),
                          launches=counts, graphs=len(tr.chunker.graphs),
+                         keys=[list(k) for k in tr.chunker.graphs],
                          pool_bytes_after_capture={
                              str(k): v
                              for k, v in tr.chunker.pool_bytes.items()},
+                         pool_reserved_bytes=tr.chunker.pool_reserved(),
                          chunk_end_s=ends,
                          second_chunk_superstep_s=(ends[1] - ends[0]) / 4,
                          first_chunk_s=ends[0],
@@ -3183,6 +3607,10 @@ def main() -> int:
     sched = phase_sched_full_width()
     phase_codecs_reference()
     codecs = phase_codecs_full_width()
+    phase_transports_reference()
+    walls = [h["wall_s"] for h in main_records]
+    transports = phase_transports_full_width(
+        statistics.median(b - a for a, b in zip(walls, walls[1:])))
     phase_scan_bitwise()
     scan = phase_scan_full_width(main_records)
     phase_serve_reference()
@@ -3202,6 +3630,8 @@ def main() -> int:
                                         sched.items()},
                                      **{p: c[n] for p, c in
                                         codecs.items()},
+                                     **{p: c[n] for p, c in
+                                        transports.items()},
                                      **{p: c[n] for p, c in
                                         scan.items()},
                                      **{p: c[n] for p, c in

@@ -10,11 +10,11 @@ bitwise equal.
 """
 from __future__ import annotations
 
-import torch
 from torch.profiler import record_function
 
 from repro_torch.algorithms.common import fold_batch, metrics_of
-from repro_torch.core.exchange import EngineStep, GossipTransport
+from repro_torch.core.exchange import EngineStep, GossipTransport, \
+    node_grads_fn
 from repro_torch.core.swarm import SwarmState
 
 
@@ -22,7 +22,7 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
               track_potential: bool = True,
               transport: GossipTransport = None):
     tr = transport or GossipTransport(n_nodes)
-    node_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+    node_grads = node_grads_fn(loss_fn)
 
     def step(state: SwarmState, batch, inp, rng, *, u=None):
         del rng, u

@@ -24,7 +24,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core.exchange import (  # noqa: F401
-    make_local_steps, masked_mean_loss, select, select_into,
+    make_local_steps, masked_mean_loss, node_grads_fn, select, select_into,
 )
 from repro_torch.core.potential import gamma_potential
 
@@ -39,9 +39,9 @@ def fold_batch(batch: dict) -> dict:
 def node_grad_step(loss_fn: Callable, opt_update: Callable):
     """One SGD step on every node: (params, opt, microbatch, lr) ->
     (params', opt', per-node losses), params/opt/microbatch node-stacked.
-    Gradients come from one vmap over the node axis, the update from one
-    optimizer sweep."""
-    node_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+    Gradients come from one vmap over the node axis (`node_grads_fn`),
+    the update from one optimizer sweep."""
+    node_grads = node_grads_fn(loss_fn)
 
     def f(params, opt, mb, lr):
         with record_function("swarm.grad"):

@@ -9,8 +9,9 @@ n_nodes=..., ...)`` and returns a superstep with the uniform signature
 :data:`CAPABILITIES` is the JAX package's matrix, row for row: which
 (transport, execution mode, quantization, codec, scheduler) combination
 each algorithm supports. `validate_run_config` raises wherever the
-reference's raises, and additionally, naming the ROADMAP.md item, for
-the transports the port does not carry yet (all but gather).
+reference's raises, and nowhere else: every transport of the
+reference runs in the port on one shard (a multi-shard transport raises
+in ``core/bucket.py``, naming its ROADMAP.md item).
 """
 from __future__ import annotations
 
@@ -131,10 +132,6 @@ def make_algorithm(name: str, **kw) -> Callable:
     return ALGORITHMS[name](**kw)
 
 
-_WAITS = "is not ported yet: it waits for the {} item of ROADMAP.md"
-_NCCL = "multi-GPU (NCCL) transport"
-
-
 def validate_run_config(algo: str, *, gossip_impl: str = None,
                         quantize: bool = False, nonblocking: bool = False,
                         overlap: bool = False, rate_profile: str = "none",
@@ -144,12 +141,11 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     """Config-time validation of a run against the capability matrix.
 
     Raises ValueError with the algorithm's matrix row where the reference
-    does (``--rate-profile``, ``--avail``, ``--topology``, ``--codec`` and
-    ``--compress-state`` included), then ValueError naming the ROADMAP.md
-    item for the transports the port does not carry yet (all but gather,
-    the *_legacy oracles included). There is no environment default: None
-    means gather, the q8 lattice, no topology, no availability profile.
-    Returns the AlgoCaps row otherwise."""
+    does (``--gossip-impl``, ``--rate-profile``, ``--avail``,
+    ``--topology``, ``--codec`` and ``--compress-state`` included). There
+    is no environment default: None means gather, the q8 lattice, no
+    topology, no availability profile. Returns the AlgoCaps row
+    otherwise."""
     if algo not in CAPABILITIES:
         raise ValueError(f"unknown algorithm {algo!r}; known: "
                          f"{sorted(CAPABILITIES)}")
@@ -232,7 +228,4 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
             reject(f"--compress-state with --gossip-impl {gossip_impl}")
         if avail is not None:
             reject("--compress-state with --avail")
-    # what the reference accepts and the port does not carry yet
-    if gossip_impl != "gather":
-        raise ValueError(f"--gossip-impl {gossip_impl} {_WAITS.format(_NCCL)}")
     return caps

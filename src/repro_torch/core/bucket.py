@@ -14,12 +14,23 @@ package's, bit for bit:
 * the per-node width is padded to ``block * tile_rows``, so
   ``rows_per_node = n_padded // block`` rows map onto the kernel layout with
   no re-padding.
+
+Three transports move the payload between nodes, as in the reference:
+``gather`` (a permutation gather by the engine's matching), ``ppermute``
+(one static matching, fixed when the transport is built) and
+``ppermute_pool`` (a matching drawn each superstep from K precompiled ones,
+by an index). With every node in one process on one device — one shard —
+the ppermute transports are a local permute by the static pairs or by the
+pool entry, as the reference's one-shard branch is; a mesh of more than
+one shard (one rank a GPU) waits for the multi-GPU item of ROADMAP.md and
+raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -195,6 +206,39 @@ def row_mask(matched: torch.Tensor, rows_per_node: int) -> torch.Tensor:
         .reshape(-1)
 
 
+#: Rows decoded beyond the lattice's reach, counted while this is a dict
+#: (``WRAPS = {}``; None, the default, counts nothing and costs nothing).
+#: A lattice decode is right only while sender and receiver differ by
+#: less than 2^(bits-1) of the sender's steps in every coordinate of the
+#: row; "rows" counts the matched rows at or past that distance and
+#: "checked" the matched rows looked at (0-d device tensors, read once at
+#: the end). It only reports: nothing changes what lands.
+WRAPS: Optional[dict] = None
+
+
+def count_wraps(codec, wire_p, sender_buf, perm, matched) -> None:
+    """Add one exchange to `WRAPS`: node i decoded node perm[i]'s encode
+    of `sender_buf[perm[i]]` (the scales `wire_p[1]`, already permuted)
+    against its own row of `sender_buf`, where `matched`. One node at a
+    time, so the check holds one node's rows beside the buffer."""
+    if WRAPS is None or not isinstance(codec, LatticeCodec):
+        return
+    n = sender_buf.shape[0]
+    half = 1 << (codec.quant.bits - 1)
+    scales = wire_p[1].reshape(n, -1)
+    rows = torch.zeros((), dtype=torch.int64, device=sender_buf.device)
+    for i in range(n):
+        x = sender_buf.index_select(0, perm[i:i + 1]).reshape(-1,
+                                                              codec.block)
+        y = sender_buf[i].reshape(-1, codec.block)
+        d = torch.amax(torch.abs(x - y), dim=1)
+        rows = rows + torch.sum((d >= half * scales[i]) & matched[i])
+        del x, d
+    WRAPS["rows"] = WRAPS.get("rows", 0) + rows
+    WRAPS["checked"] = WRAPS.get("checked", 0) + \
+        torch.sum(matched.to(torch.int64)) * scales.shape[1]
+
+
 def gossip_flat_coded(codec: WireCodec, buf, prev_buf, perm, matched, rng,
                       *, residual=None, u=None,
                       tile_rows: int = DEFAULT_TILE_ROWS):
@@ -223,6 +267,7 @@ def gossip_flat_coded(codec: WireCodec, buf, prev_buf, perm, matched, rng,
         wire_p = tuple(permute_rows(w, perm, n_nodes) for w in wire)
         m_rows = row_mask(matched, rpn)
     del wire
+    count_wraps(codec, wire_p, buf, perm, matched)
     with record_function("gossip.decode"):
         out = codec.decode_avg(wire_p, buf, m_rows, tile_rows=tile_rows)
     return out, new_residual
@@ -249,3 +294,151 @@ def gossip_flat_matrix(W, buf):
     mixing). The caller keeps TF32 off on the card
     (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
     return torch.matmul(W.to(torch.float32), buf)
+
+
+def encode_flat(qcfg: ModularQuantConfig, buf, prev_buf, rng, *, u=None,
+                tile_rows: int = DEFAULT_TILE_ROWS):
+    """Encode the whole flat buffer: ONE quantize_mod sweep -> (q, s), the
+    lattice codec's wire (uniforms `u`, or drawn from `rng`)."""
+    return as_codec(qcfg).encode(buf, prev_buf, rng, u=u,
+                                 tile_rows=tile_rows)
+
+
+def gossip_flat_quantized(qcfg, buf, prev_buf, perm, matched, rng, *,
+                          u=None, tile_rows: int = DEFAULT_TILE_ROWS):
+    """Quantized flat gossip over the lattice of `qcfg`: encode once,
+    permute the (q, s) pair, decode + average + mask in one fused sweep."""
+    out, _ = gossip_flat_coded(as_codec(qcfg), buf, prev_buf, perm, matched,
+                               rng, u=u, tile_rows=tile_rows)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The ppermute transports on one shard
+# ---------------------------------------------------------------------------
+
+MULTI_SHARD = ("a node mesh of more than one shard (one rank a GPU over "
+               "torch.distributed) waits for the multi-GPU (NCCL) "
+               "transport item of ROADMAP.md (Queue A 4)")
+
+
+def check_one_shard(n_shards: int) -> None:
+    """Every node lives in this process on one device; anything else
+    raises — there is no fallback to the one-shard path."""
+    if n_shards != 1:
+        raise NotImplementedError(f"n_shards={n_shards}: {MULTI_SHARD}")
+
+
+def _perm_from_pairs(n: int, pairs):
+    perm = np.arange(n)
+    for s, d in pairs:
+        perm[d] = s
+    return perm
+
+
+def pairs_from_perm(perm_arr):
+    """Involution perm -> static (src, dst) pairs; an all-identity matching
+    gives ``[(0, 0)]``, a self-send, as the reference's does."""
+    return [(int(perm_arr[d]), int(d)) for d in range(len(perm_arr))
+            if perm_arr[d] != d] or [(0, 0)]
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(arr, device) -> torch.Tensor:
+    """Host integer array -> int64 tensor on `device`, made once and
+    cached: a CUDA graph capture cannot copy from the host, so the static
+    pairs and the stacked pool are on the card before the first capture
+    (the chunk driver runs its first superstep eagerly)."""
+    a = np.ascontiguousarray(np.asarray(arr, np.int64))
+    device = torch.device(device)
+    key = (a.shape, a.tobytes(), str(device))
+    hit = _CONSTANTS.get(key)
+    if hit is None:
+        hit = _CONSTANTS[key] = torch.as_tensor(a, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return hit
+
+
+def pool_perm(pool, pool_idx, device) -> torch.Tensor:
+    """The matching ``pool[pool_idx]`` as an int64 [n] tensor, gathered on
+    the device from the stacked pool: `pool_idx` may be a device tensor
+    (any shape, its first element read), so no host sync is made. The
+    index is clamped into the pool, as ``lax.switch`` clamps it."""
+    stacked = device_constant(np.stack([np.asarray(p) for p in pool]),
+                              device)
+    idx = torch.as_tensor(pool_idx, device=device).reshape(-1)[:1]
+    idx = torch.clamp(idx.to(torch.int64), 0, stacked.shape[0] - 1)
+    return stacked.index_select(0, idx).reshape(-1)
+
+
+def permute_payload_ppermute(payload: Sequence[torch.Tensor], pairs,
+                             n_nodes: int, *, n_shards: int = 1):
+    """ONE permute per in-flight payload tensor by the static pairs."""
+    check_one_shard(n_shards)
+    perm = device_constant(_perm_from_pairs(n_nodes, pairs),
+                           payload[0].device)
+    return tuple(permute_rows(x, perm, n_nodes) for x in payload)
+
+
+def permute_payload_pool(payload: Sequence[torch.Tensor], pool, pool_idx,
+                         n_nodes: int, *, n_shards: int = 1):
+    """ONE permute per in-flight payload tensor by the pool entry
+    `pool_idx` selects."""
+    check_one_shard(n_shards)
+    perm = pool_perm(pool, pool_idx, payload[0].device)
+    return tuple(permute_rows(x, perm, n_nodes) for x in payload)
+
+
+def _gossip_by_perm(buf, perm, codec, prev_buf, rng, u, mask, tile_rows):
+    """The one-shard exchange of a static matching `perm`: its fixed
+    points unmatched, `mask` gating the pairs that land."""
+    n = buf.shape[0]
+    matched = perm != torch.arange(n, device=buf.device)
+    if mask is not None:
+        matched = matched & mask
+    if codec is None:
+        return gossip_flat_exact(buf, perm, matched)
+    out, _ = gossip_flat_coded(codec, buf, prev_buf, perm, matched, rng,
+                               u=u, tile_rows=tile_rows)
+    return out
+
+
+def _no_residual(codec):
+    if codec is not None and codec.carries_residual:
+        raise ValueError(
+            f"{codec.name}: error-feedback codecs run on the gather "
+            "transport (see the codec axis of algorithms/registry.py "
+            "CAPABILITIES)")
+
+
+def gossip_flat_ppermute(buf, pairs, *, quant=None, prev_buf=None, rng=None,
+                         u=None, mask=None, n_shards: int = 1,
+                         tile_rows: int = DEFAULT_TILE_ROWS):
+    """The static matching's exchange over the flat buffer: fp32, or the
+    codec `quant` (a ModularQuantConfig or any codec without a residual)
+    through its encode / permute / fused decode. `pairs` is the static
+    involution [(src, dst), ...]; `mask` (bool [n_nodes]) gates which of
+    its pairs land this superstep."""
+    codec = as_codec(quant)
+    _no_residual(codec)
+    check_one_shard(n_shards)
+    perm = device_constant(_perm_from_pairs(buf.shape[0], pairs), buf.device)
+    return _gossip_by_perm(buf, perm, codec, prev_buf, rng, u, mask,
+                           tile_rows)
+
+
+def gossip_flat_ppermute_pool(buf, pool, pool_idx, *, quant=None,
+                              prev_buf=None, rng=None, u=None, mask=None,
+                              n_shards: int = 1,
+                              tile_rows: int = DEFAULT_TILE_ROWS):
+    """`gossip_flat_ppermute` by the pool entry `pool_idx` selects (a
+    device tensor or an int); `mask` gates which of its pairs land."""
+    codec = as_codec(quant)
+    _no_residual(codec)
+    check_one_shard(n_shards)
+    perm = pool_perm(pool, pool_idx, buf.device)
+    return _gossip_by_perm(buf, perm, codec, prev_buf, rng, u, mask,
+                           tile_rows)

@@ -16,9 +16,16 @@
                     the card runs on a side CUDA stream under the local-step
                     loop.
 
-Only the gather transport is ported: every node lives in one process on one
-device. The JAX package's ppermute transports and per-leaf ``*_legacy``
-oracles wait for the NCCL transport item of ROADMAP.md.
+The transport is the reference's ``gossip_impl``: ``gather`` (the engine's
+matching, gathered), ``ppermute`` (one static matching, fixed at build) or
+``ppermute_pool`` (an index per superstep into K precompiled matchings,
+which the engine's `perm` input carries broadcast to [n]), each over the
+flat buffer; ``*_legacy`` selects the reference's per-leaf oracle of the
+same transport (``gossip_exact`` / ``gossip_quantized`` and their
+ppermute forms), against which the flat paths are held. Every node lives
+in one process on one device — one shard — so the ppermute transports
+permute locally, as the reference's one-shard branch does; more shards
+wait for the multi-GPU item of ROADMAP.md and raise.
 """
 from __future__ import annotations
 
@@ -30,14 +37,14 @@ from torch.profiler import record_function
 
 from repro_torch.core import bucket as B
 from repro_torch.quant.codecs import LatticeCodec, WireCodec, make_codec
-from repro_torch.quant.schemes import ModularQuantConfig
-from repro_torch.tree import tree_flatten, tree_map
+from repro_torch.quant.schemes import (
+    ModularQuantConfig, decode_modular, encode_modular,
+)
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
-BASE_IMPLS = ("gather",)
-NOT_PORTED_IMPL = ("is not ported: only the gather transport runs in the "
-                   "port; the ppermute transports and the *_legacy per-leaf "
-                   "oracles wait for the multi-GPU (NCCL) transport item of "
-                   "ROADMAP.md")
+BASE_IMPLS = ("gather", "ppermute", "ppermute_pool")
+GOSSIP_IMPLS = BASE_IMPLS + tuple(f"{b}_legacy" for b in BASE_IMPLS)
 
 
 def _rows(mask: torch.Tensor, ndim: int):
@@ -151,6 +158,32 @@ class EngineStep:
         return self.run(state, batch, inp, rng, **kw)
 
 
+def node_grads_fn(loss_fn):
+    """(params, batch) -> (grads, losses) for node-stacked params and
+    batches: every node's loss in one ``torch.func.vmap`` over the node
+    axis (the reference vmaps the same way), then ONE reverse pass for
+    the gradient of the losses' sum — each node's parameters reach only
+    its own loss, so a node's gradient is its loss's. The pass runs with
+    create_graph off and frees each saved activation as it goes. (Inside
+    the vmap, ``torch.func.grad`` builds its backward with create_graph
+    on: the double-backward graph, and every activation with it, then
+    lives as long as the gradients' wrappers, which the autograd engine's
+    device thread lets go of when it next runs — on the card the next
+    allocations sometimes found those ~7 GB still held.)"""
+    node_losses = torch.func.vmap(loss_fn)
+
+    def grads_and_losses(params, batch):
+        leaves, treedef = tree_flatten(params)
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in leaves]
+            losses = node_losses(tree_unflatten(treedef, xs), batch)
+            gs = torch.autograd.grad(losses.sum(), xs, allow_unused=True)
+        gs = [torch.zeros_like(x) if g is None else g
+              for g, x in zip(gs, leaves)]
+        return tree_unflatten(treedef, gs), losses.detach()
+    return grads_and_losses
+
+
 def make_local_steps(loss_fn, opt_update, h_max: int):
     """Returns local_steps(params, opt, batch, inp) -> (params, opt,
     per-node mean loss over the h_i active steps).
@@ -158,12 +191,11 @@ def make_local_steps(loss_fn, opt_update, h_max: int):
     params/opt are node-stacked; batch leaves are [n_nodes, h_max, ...];
     `inp` is the superstep's :class:`StepInputs`: its host counts h_host
     decide which sweeps run, the device counts h give each sweep's active
-    mask and lr the rate, so the loop does no host to device copy. Step q computes every node's loss and gradient in one
-    ``torch.func.vmap`` over the node axis (the reference vmaps the same
-    way), then ONE optimizer sweep updates every node; nodes past their
-    h_i (``q >= h_i``, the reference's masked loop) keep their parameters
-    and momentum."""
-    node_grads = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+    mask and lr the rate, so the loop does no host to device copy. Step q computes every node's loss and gradient at once
+    (:func:`node_grads_fn`), then ONE optimizer sweep updates every node;
+    nodes past their h_i (``q >= h_i``, the reference's masked loop) keep
+    their parameters and momentum."""
+    node_grads = node_grads_fn(loss_fn)
 
     def local_steps(params, opt, batch, inp):
         h, lr = inp.h_host, inp.lr
@@ -220,52 +252,187 @@ def masked_mean_loss(losses, mask):
         torch.clamp_min(torch.sum(m), 1.0)
 
 
+# ---------------------------------------------------------------------------
+# The per-leaf oracles (one exchange per tree leaf)
+# ---------------------------------------------------------------------------
+
+
+def _avg(x, xp, matched):
+    """(x + xp) / 2 in fp32, cast back, where matched; else x."""
+    out = (x.to(torch.float32) + xp.to(torch.float32)) * 0.5
+    return torch.where(_rows(matched, x.ndim), out.to(x.dtype), x)
+
+
+def gossip_exact(params, perm, matched):
+    return tree_map(lambda x: _avg(x, x[perm], matched), params)
+
+
+def gossip_quantized(qcfg: ModularQuantConfig, params, prev, perm, matched,
+                     rng, *, u=None):
+    """The per-leaf lattice exchange: each node encodes each leaf against
+    its own comm copy `prev` (every node's leaf blocked on its own), the
+    codes and scales move by `perm`, and the receiver decodes against its
+    own leaf and averages where matched. `u` lists each leaf's uniforms
+    ([n_nodes, nblocks, block], in flatten order); drawn from `rng` leaf
+    by leaf when not given."""
+    leaves, tdef = tree_flatten(params)
+    prev_leaves = tree_leaves(prev)
+    out = []
+    for i, (x, pv) in enumerate(zip(leaves, prev_leaves)):
+        n = x.shape[0]
+        q, s = encode_modular(qcfg, x, pv, rng,
+                              u=None if u is None else u[i], lead=1)
+        qp = B.permute_rows(q, perm, n)   # <- the payload crosses nodes
+        sp = s[perm]
+        xh = decode_modular(qcfg, qp, sp, x, lead=1)
+        out.append(_avg(x, xh, matched))
+    return tree_unflatten(tdef, out)
+
+
+def gossip_ppermute(params, pairs, quant: Optional[ModularQuantConfig] = None,
+                    prev=None, rng=None, *, u=None, n_shards: int = 1):
+    """The per-leaf oracle of the static-matching transport: on one shard
+    a local permute by the static (src, dst) `pairs`, exact or through
+    the lattice of `quant`."""
+    B.check_one_shard(n_shards)
+    x0 = tree_leaves(params)[0]
+    perm = B.device_constant(B._perm_from_pairs(x0.shape[0], pairs),
+                             x0.device)
+    matched = perm != torch.arange(x0.shape[0], device=x0.device)
+    return gossip_exact(params, perm, matched) if quant is None else \
+        gossip_quantized(quant, params, prev, perm, matched, rng, u=u)
+
+
+def gossip_ppermute_pool(params, pool, pool_idx, quant=None, prev=None,
+                         rng=None, *, u=None, n_shards: int = 1):
+    """`gossip_ppermute` by the pool entry `pool_idx` selects."""
+    B.check_one_shard(n_shards)
+    x0 = tree_leaves(params)[0]
+    perm = B.pool_perm(pool, pool_idx, x0.device)
+    matched = perm != torch.arange(x0.shape[0], device=x0.device)
+    return gossip_exact(params, perm, matched) if quant is None else \
+        gossip_quantized(quant, params, prev, perm, matched, rng, u=u)
+
+
+def make_matching_pool(graph, K: int, seed: int = 0):
+    """K precompiled random matchings of G (involution perms), drawn from
+    one generator seeded `seed`, as the reference draws them."""
+    from repro_torch.core.graph import sample_matching
+    rng = np.random.default_rng(seed)
+    return [sample_matching(graph, rng) for _ in range(K)]
+
+
+def static_ppermute_matching(graph, seed: int) -> np.ndarray:
+    """THE static involution of the plain ppermute transport, shared by
+    `transport_from_config` (its wire pairs) and the driver's
+    `sample_gossip_perm` (the engine's matched mask), which must agree."""
+    from repro_torch.core.graph import sample_matching
+    return sample_matching(graph, np.random.default_rng(seed))
+
+
 class GossipTransport:
-    """Every exchange over the flat buffer, gather transport (all nodes in
-    one process on one device). `impl` names the transport as the JAX
-    package's ``gossip_impl`` does; only ``"gather"`` is ported and any
-    other raises. The codec owns the quantized wire format; `quant` seeds
-    the lattice family when no codec is given."""
+    """Every exchange of one ``gossip_impl`` (see the module docstring):
+    the flat buffer for ``gather`` / ``ppermute`` / ``ppermute_pool``, the
+    per-leaf oracle for their ``*_legacy`` forms. ``ppermute`` needs its
+    `static_pairs` and ``ppermute_pool`` its `matching_pool` (as
+    `transport_from_config` builds them); `n_shards` > 1 raises. The codec
+    owns the quantized wire format; `quant` seeds the lattice family when
+    no codec is given. The refusals are the reference's: a codec other
+    than the lattice on a per-leaf oracle, a residual codec off
+    ``gather``."""
 
     def __init__(self, n_nodes: int, *, impl: str = "gather",
                  quant: Optional[ModularQuantConfig] = None,
-                 codec: Optional[WireCodec] = None):
-        if impl not in BASE_IMPLS:
-            raise ValueError(f"gossip impl {impl!r} {NOT_PORTED_IMPL}")
+                 codec: Optional[WireCodec] = None, static_pairs=None,
+                 matching_pool=None, n_shards: int = 1):
+        if impl not in GOSSIP_IMPLS:
+            raise ValueError(f"unknown gossip impl {impl!r}; known: "
+                             f"{list(GOSSIP_IMPLS)}")
+        B.check_one_shard(n_shards)
         self.impl = impl
-        self.base_impl = impl
+        self.legacy = impl.endswith("_legacy")
+        self.base_impl = impl[:-len("_legacy")] if self.legacy else impl
         self.n_nodes = n_nodes
         self.codec = codec if codec is not None \
             else LatticeCodec(quant or ModularQuantConfig())
+        # the per-leaf oracles speak encode/decode_modular: lattice only
+        self.quant = self.codec.quant \
+            if isinstance(self.codec, LatticeCodec) \
+            else (quant or ModularQuantConfig(block=self.codec.block))
+        if self.legacy and not isinstance(self.codec, LatticeCodec):
+            raise ValueError(
+                f"codec {self.codec.name!r} has no per-leaf form: the "
+                "*_legacy oracles exchange encode_modular payloads "
+                "(lattice q2..q16 only; see the codec axis of "
+                "algorithms/registry.py CAPABILITIES)")
+        if self.codec.carries_residual and self.base_impl != "gather":
+            raise ValueError(
+                f"codec {self.codec.name!r} carries an error-feedback "
+                "residual, which only the gather transport threads "
+                f"(got --gossip-impl {impl}; see the codec axis of "
+                "algorithms/registry.py CAPABILITIES)")
+        if self.base_impl == "ppermute" and static_pairs is None:
+            raise ValueError("the ppermute transport needs its static_pairs")
+        if self.base_impl == "ppermute_pool" and (matching_pool is None
+                                                  or len(matching_pool) == 0):
+            raise ValueError("the ppermute_pool transport needs its "
+                             "matching_pool")
+        self.static_pairs = static_pairs
+        self.matching_pool = matching_pool
         self._side_streams = {}     # CUDA device -> permute_inflight stream
 
+    def routes_per_leaf(self, quantize: bool) -> bool:
+        """True when the exchange runs the per-leaf oracle: the *_legacy
+        impls only (every codec runs flat)."""
+        del quantize
+        return self.legacy
+
     def check_overlap(self, quantize: bool):
-        """The pipelined superstep encodes before it learns the next
-        matching, so a codec whose residual updates against the matched
-        mask at encode time cannot ride it."""
+        """The pipelined superstep runs on the flat transport only, and
+        encodes before it learns the next matching, so a codec whose
+        residual updates against the matched mask at encode time cannot
+        ride it."""
+        if self.legacy:
+            raise ValueError("the pipelined overlap mode runs on the flat "
+                             "transport only (no *_legacy per-leaf oracles)")
         if quantize and self.codec.carries_residual:
             raise ValueError(
                 f"codec {self.codec.name}: the error-feedback residual "
                 "updates at encode time against the matched mask, which the "
                 "pipelined superstep only learns one interaction later")
 
-    def resolve_perm(self, perm) -> Tuple[torch.Tensor, None]:
+    def resolve_perm(self, perm) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The node -> partner permutation of the engine input `perm`, and
-        the pool index (None: the gather transport takes the perm itself)."""
+        the pool index: ``ppermute_pool``'s `perm` carries the index
+        broadcast to [n], and the matching is gathered on the device from
+        the stacked pool (no host sync, so a CUDA graph can replay it);
+        the other transports take the perm itself (None)."""
+        if self.base_impl == "ppermute_pool":
+            pool_idx = perm.reshape(-1)[:1]
+            return B.pool_perm(self.matching_pool, pool_idx,
+                               perm.device), pool_idx
         return perm, None
 
+    def _wire_permute(self, payload, perm):
+        if self.base_impl == "ppermute":
+            return B.permute_payload_ppermute(payload, self.static_pairs,
+                                              self.n_nodes)
+        if self.base_impl == "ppermute_pool":
+            return B.permute_payload_pool(payload, self.matching_pool,
+                                          perm.reshape(-1)[:1], self.n_nodes)
+        return tuple(B.permute_rows(x, perm, self.n_nodes) for x in payload)
+
     def permute_inflight(self, payload: Sequence[torch.Tensor], perm):
-        """The wire half of the overlapped pipeline: ONE ``permute_rows``
-        per already-encoded payload tensor -> (received tuple, ready). On
-        the card the gathers run on a side stream, so they overlap the
+        """The wire half of the overlapped pipeline: ONE permute per
+        already-encoded payload tensor (by the engine's matching, the
+        static pairs or the pool entry) -> (received tuple, ready). On
+        the card the permutes run on a side stream, so they overlap the
         local steps the caller launches next on the current stream; the
         caller makes the current stream wait on `ready` (:func:`land`)
         before it reads the received tensors. On the CPU, ready is None."""
-        node_perm, _ = self.resolve_perm(perm)
-        if node_perm.device.type != "cuda":
-            return tuple(B.permute_rows(x, node_perm, self.n_nodes)
-                         for x in payload), None
-        dev = node_perm.device
+        if perm.device.type != "cuda":
+            return self._wire_permute(payload, perm), None
+        dev = perm.device
         current = torch.cuda.current_stream(dev)
         side = self._side_streams.get(dev)
         if side is None:
@@ -273,15 +440,14 @@ class GossipTransport:
         # the wire (and the perm) were produced on the current stream
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            recv = tuple(B.permute_rows(x, node_perm, self.n_nodes)
-                         for x in payload)
+            recv = self._wire_permute(payload, perm)
             ready = torch.cuda.Event()
             ready.record(side)
         # the allocator may hand the inputs' memory on only after the side
         # stream's reads, and the outputs' only after the current stream's
         for x in payload:
             x.record_stream(side)
-        node_perm.record_stream(side)
+        perm.record_stream(side)
         for y in recv:
             y.record_stream(current)
         return recv, ready
@@ -301,9 +467,18 @@ class GossipTransport:
         given), and the receiver decodes against its own model; unmatched
         rows keep their model.
 
+        The ppermute transports exchange by their static pairs or by the
+        pool entry `perm` carries, `mask` gating which of its pairs land;
+        the *_legacy oracles run the same exchange leaf by leaf (their
+        uniforms `u` a list, one [n, nblocks, block] tensor a leaf), and
+        the ppermute oracles refuse a `mask`, as the reference's do.
+
         With an error-feedback codec (``codec.carries_residual``) a
         quantized call takes and returns the buffer-shaped residual: ->
         (mixed tree, new residual); every other call returns the tree."""
+        if self.legacy:
+            return self._mix_per_leaf(tree, perm, matched, quantize, prev,
+                                      prev_buf, rng, u, mask)
         ef = quantize and self.codec.carries_residual
         layout = B.build_layout(tree, block=self.codec.block)
         with record_function("gossip.pack"):
@@ -313,7 +488,16 @@ class GossipTransport:
                 pbuf = prev_buf if prev_buf is not None else \
                     B.pack(layout, prev)
         new_residual = None
-        if quantize:
+        codec = self.codec if quantize else None
+        if self.base_impl == "ppermute":
+            out = B.gossip_flat_ppermute(buf, self.static_pairs, quant=codec,
+                                         prev_buf=pbuf, rng=rng, u=u,
+                                         mask=mask)
+        elif self.base_impl == "ppermute_pool":
+            out = B.gossip_flat_ppermute_pool(
+                buf, self.matching_pool, perm.reshape(-1)[:1], quant=codec,
+                prev_buf=pbuf, rng=rng, u=u, mask=mask)
+        elif quantize:
             out, new_residual = B.gossip_flat_coded(
                 self.codec, buf, pbuf, perm, matched, rng,
                 residual=residual, u=u)
@@ -325,11 +509,37 @@ class GossipTransport:
             mixed = B.unpack(layout, out)
         return (mixed, new_residual) if ef else mixed
 
+    def _mix_per_leaf(self, tree, perm, matched, quantize, prev, prev_buf,
+                      rng, u, mask):
+        if mask is not None and self.base_impl != "gather":
+            raise NotImplementedError(
+                "participation masks run on the flat transports and the "
+                "gather_legacy oracle only; the per-leaf ppermute oracles "
+                "bake a full static matching")
+        if prev_buf is not None:
+            raise ValueError("prev_buf (compress_state) needs the flat "
+                             "packed transport")
+        lat = self.quant if quantize else None
+        with record_function("gossip.legacy"):
+            if self.base_impl == "ppermute":
+                return gossip_ppermute(tree, self.static_pairs, lat, prev,
+                                       rng, u=u)
+            if self.base_impl == "ppermute_pool":
+                return gossip_ppermute_pool(tree, self.matching_pool,
+                                            perm.reshape(-1)[:1], lat, prev,
+                                            rng, u=u)
+            if quantize:
+                return gossip_quantized(lat, tree, prev, perm, matched, rng,
+                                        u=u)
+            return gossip_exact(tree, perm, matched)
+
     def global_mean(self, tree, mask=None):
         """(Masked) mean over the node axis, broadcast back to every node —
         LocalSGD's resync and AllReduce's gradient mean. With `mask` the
         mean runs over the participants only and is still broadcast
-        everywhere."""
+        everywhere. A *_legacy oracle takes it leaf by leaf."""
+        if self.legacy:
+            return tree_map(lambda x: _leaf_mean(x, mask), tree)
         layout = B.build_layout(tree, block=self.codec.block)
         with record_function("gossip.pack"):
             buf = B.pack(layout, tree)
@@ -341,7 +551,12 @@ class GossipTransport:
 
     def matrix_mix(self, tree, W):
         """Dense mixing X <- W X (D-PSGD): one [n, n] x [n, n_padded] fp32
-        product over the packed buffer."""
+        product over the packed buffer (one per leaf for a *_legacy
+        oracle)."""
+        if self.legacy:
+            return tree_map(lambda x: torch.einsum(
+                "nm,m...->n...", W.to(torch.float32),
+                x.to(torch.float32)).to(x.dtype), tree)
         layout = B.build_layout(tree, block=self.codec.block)
         with record_function("gossip.pack"):
             buf = B.pack(layout, tree)
@@ -368,11 +583,47 @@ class GossipTransport:
                            device=tree_flatten(tree)[0][0].device)
 
 
-def transport_from_config(scfg, impl: str = "gather") -> GossipTransport:
-    """The driver's one transport for every algorithm: `impl` (anything
-    but ``"gather"`` raises) on the codec of `scfg.codec`, the lattice
-    family seeded by `scfg.quant`."""
+def _leaf_mean(x, mask):
+    """One leaf's (masked) fp32 mean over the node axis, broadcast back:
+    the terms summed node by node in node order, as the flat buffer's
+    reduction over its rows sums them on the CPU (so the oracle equals the
+    flat transport bitwise there, as the reference's does)."""
+    xf = x.to(torch.float32)
+    if mask is not None:
+        w = mask.to(torch.float32)
+        xf = _rows(w, x.ndim) * xf
+    acc = xf[0]
+    for i in range(1, xf.shape[0]):
+        acc = acc + xf[i]
+    mu = acc / xf.shape[0] if mask is None else \
+        acc / torch.clamp_min(torch.sum(w), 1.0)
+    return mu.to(x.dtype).expand(x.shape).contiguous()
+
+
+def transport_from_config(scfg, graph=None, seed: int = 0) -> GossipTransport:
+    """The driver's one transport for every algorithm: `scfg.gossip_impl`
+    on the codec of `scfg.codec` (the lattice family seeded by
+    `scfg.quant`). ``ppermute`` bakes in the static matching of `graph`
+    drawn from `seed` (``static_ppermute_matching``, which the driver
+    feeds the engine too); ``ppermute_pool`` the `scfg.pool_size`
+    matchings of `make_matching_pool(graph, K, seed)`, or under a
+    two-tier `scfg.topology` its intra matchings followed by the
+    inter-group perms (``HierTopology.matching_pool``)."""
+    impl = scfg.gossip_impl
+    base = impl[:-len("_legacy")] if impl.endswith("_legacy") else impl
     quant = getattr(scfg, "quant", None)
+    kw = {}
+    if base == "ppermute":
+        kw["static_pairs"] = B.pairs_from_perm(
+            static_ppermute_matching(graph, seed))
+    elif base == "ppermute_pool":
+        from repro_torch.core.hier import parse_topology
+        topo = parse_topology(scfg.topology, scfg.n_nodes)
+        K = scfg.pool_size
+        if topo is not None:
+            kw["matching_pool"], _ = topo.matching_pool(K, seed)
+        else:
+            kw["matching_pool"] = make_matching_pool(graph, K=K, seed=seed)
     return GossipTransport(scfg.n_nodes, impl=impl, quant=quant,
                            codec=make_codec(getattr(scfg, "codec", None),
-                                            quant))
+                                            quant), **kw)

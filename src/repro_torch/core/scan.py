@@ -34,9 +34,19 @@ the card, when both run under deterministic algorithms with one pinned
 cuBLAS workspace), and
 chunk boundaries are exact resume and checkpoint points (the state there
 is the per-step driver's state at the same superstep).
+
+Every chunk driver of a process captures on one capture stream per device,
+so the cuBLAS workspaces a capture stream gets (one a thread that runs
+GEMMs, cached by PyTorch for the life of the process) are made once, not
+once a driver. Between replays the graphs' shared pool holds the free
+blocks of their temporaries (tens of GiB at full width); work that runs at
+a chunk boundary and frees everything it allocates before the next replay
+— the mean-model evaluation of ``--eval-mean`` — allocates from there
+(`borrow_pool`) instead of from the default pool beside them.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 from typing import Optional
 
@@ -83,10 +93,23 @@ def _release() -> None:
     torch.cuda.empty_cache()
 
 
-def _pool_bytes(pool) -> int:
-    """Bytes allocated (live) in the CUDA graph pool `pool`."""
-    return sum(seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+def _pool_bytes(pool, key: str = "allocated_size") -> int:
+    """Bytes allocated (live) in the CUDA graph pool `pool` (an id), or
+    with key="total_size" the bytes its segments reserve."""
+    return sum(seg[key] for seg in torch.cuda.memory_snapshot()
                if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device) -> torch.cuda.Stream:
+    """The one capture stream of `device` for every chunk driver."""
+    key = torch.device(device).index
+    side = _CAPTURE_STREAMS.get(key)
+    if side is None:
+        side = _CAPTURE_STREAMS[key] = torch.cuda.Stream(device=device)
+    return side
 
 
 def _write_back(static: SwarmState, new: SwarmState) -> None:
@@ -126,8 +149,8 @@ class SuperstepChunk:
         self._inp: Optional[StepInputs] = None
         self._batch: Optional[dict] = None
         self._metrics: Optional[dict] = None
-        self._pool = None
-        self._stream = None
+        self._pool = None          # the graphs' shared torch.cuda.MemPool
+        self._warm = False
 
     # -- static buffers ----------------------------------------------------
 
@@ -184,10 +207,10 @@ class SuperstepChunk:
             graph.replay()
             K.add_launches(launches)
             return
-        first = self._stream is None
+        first = not self._warm
         if first:
-            self._stream = torch.cuda.Stream()
-            self._pool = torch.cuda.graph_pool_handle()
+            self._warm = True
+            self._pool = torch.cuda.MemPool()
             # warm-up, once per driver: this superstep, eagerly, on the
             # current stream, where the state's memory was allocated and
             # cached (lazy initialisation must not happen under capture:
@@ -200,7 +223,8 @@ class SuperstepChunk:
         # the capture allocates from the shared pool what the warm-up and
         # earlier eager work left cached in the default pool
         _release()
-        side, current = self._stream, torch.cuda.current_stream()
+        current = torch.cuda.current_stream()
+        side = _capture_stream(current.device)
         side.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
         if gen is not None:
@@ -209,9 +233,23 @@ class SuperstepChunk:
         # the autograd engine runs the backward on its own thread, on the
         # capturing stream: "thread_local" refuses unsafe calls of this
         # thread only
-        with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                              capture_error_mode="thread_local"):
-            self._body(gen)
+        failed = None
+        try:
+            with torch.cuda.graph(graph, pool=self._pool.id, stream=side,
+                                  capture_error_mode="thread_local"):
+                try:
+                    self._body(gen)
+                except BaseException as e:
+                    failed = e
+                    raise
+        except BaseException as end:
+            if failed is None or end is failed:
+                raise
+            # the body raised between the permute's fork onto its side
+            # stream and the join (an out-of-memory error in the local
+            # steps, say): ending the capture then fails with "unjoined
+            # work", which must not hide the cause
+            raise failed from end
         launches = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
         K.LAUNCHES.update(before)       # the capture ran nothing
         self.graphs[key] = (graph, launches)
@@ -229,7 +267,7 @@ class SuperstepChunk:
         there, and the first only its workspaces (scratch, rewritten
         before every read), at most `_POOL_ALLOWANCE`."""
         gc.collect()
-        live = _pool_bytes(self._pool)
+        live = _pool_bytes(self._pool.id)
         before = max(self.pool_bytes.values(), default=0)
         self.pool_bytes[key] = live
         allowed = _POOL_ALLOWANCE if len(self.pool_bytes) == 1 else before
@@ -238,6 +276,21 @@ class SuperstepChunk:
                 f"the capture of graph key {key} left {live} bytes "
                 f"allocated in the graphs' shared pool (allowed {allowed}): "
                 f"a replay out of capture order could overwrite them")
+
+    def pool_reserved(self) -> int:
+        """Bytes the graphs' shared pool reserves (0 before a capture)."""
+        return 0 if self._pool is None else \
+            _pool_bytes(self._pool.id, "total_size")
+
+    def borrow_pool(self):
+        """A context in which this thread allocates from the graphs' shared
+        pool: for work between replays (the mean-model evaluation at a
+        chunk boundary) whose tensors are all freed before the next
+        replay, which would overwrite them. A no-op before the first
+        capture and on the CPU."""
+        if self._pool is None:
+            return contextlib.nullcontext()
+        return torch.cuda.use_mem_pool(self._pool)
 
     # -- the chunk ---------------------------------------------------------
 

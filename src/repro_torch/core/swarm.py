@@ -55,8 +55,8 @@ from torch.profiler import record_function
 
 from repro_torch.core import bucket as B
 from repro_torch.core.exchange import (
-    EngineStep, GossipTransport, _rows, as_mask, land, make_local_steps,
-    masked_mean_loss, select, stale_combine,
+    GOSSIP_IMPLS, EngineStep, GossipTransport, _avg, as_mask, land,
+    make_local_steps, masked_mean_loss, select, stale_combine,
 )
 from repro_torch.core.potential import gamma_potential
 from repro_torch.quant.codecs import make_codec
@@ -86,8 +86,22 @@ class SwarmConfig:
     # and decoded lazily in the superstep (quantized blocking path, lattice
     # codecs; validated in algorithms/registry.py)
     compress_state: bool = False
+    # the transport (core/exchange.py): gather | ppermute (one static
+    # matching) | ppermute_pool (an index a superstep into `pool_size`
+    # precompiled matchings), each on the flat buffer; "_legacy" appended
+    # selects the per-leaf oracle. The default is gather, as the
+    # reference's; unlike the reference the port reads no environment
+    # default (REPRO_DEFAULT_GOSSIP_IMPL is not consulted).
+    gossip_impl: str = "gather"
+    pool_size: int = 8
+    # "hier:G[:inter_frac]" two-tier topology (core/hier.py): shapes how
+    # the driver samples the matchings and the pool's inter-group suffix
+    topology: Optional[str] = None
 
     def __post_init__(self):
+        if self.gossip_impl not in GOSSIP_IMPLS:
+            raise ValueError(f"gossip_impl={self.gossip_impl!r}: one of "
+                             f"{GOSSIP_IMPLS}")
         if self.h_mode not in H_MODES:
             raise ValueError(f"h_mode={self.h_mode!r}: one of {H_MODES}")
         if self.overlap and not self.nonblocking:
@@ -220,36 +234,32 @@ def select_rows(m_rows, new, old):
                        old)
 
 
-def _avg_matched(x, node_perm, matched):
-    """(x + x[perm]) / 2 in fp32 where matched, else x (the reference's
-    per-leaf `_avg`)."""
-    out = ((x.to(torch.float32) + x[node_perm].to(torch.float32)) * 0.5
-           ).to(x.dtype)
-    return torch.where(_rows(matched, x.ndim), out, x)
-
-
 def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                     lr_fn: Callable,
                     transport: Optional[GossipTransport] = None):
     """Returns the superstep, an :class:`EngineStep`: step(state, batch,
     perm, h_counts, rng, mask=None, *, u=None, u_state=None) -> (state,
     metrics). batch leaves are [n_nodes, h_loop_bound, local_batch, ...]
-    tensors on the device; perm is an involution [n_nodes]; h_counts the
+    tensors on the device; perm is an involution [n_nodes] (under
+    ppermute_pool the pool index broadcast to [n_nodes], resolved through
+    ``GossipTransport.resolve_perm``); h_counts the
     per-node local-step counts; rng the torch.Generator of the encode's
     uniforms, or `u` the uniforms themselves ([n_nodes, n_padded]; under
     compress_state `u_state` those of the comm copy's re-encode); `mask`
     the optional participation gate (bool [n_nodes]). With cfg.overlap the
     step is the pipelined steady state and needs a primed state."""
-    tr = transport or GossipTransport(cfg.n_nodes, quant=cfg.quant,
+    tr = transport or GossipTransport(cfg.n_nodes, impl=cfg.gossip_impl,
+                                      quant=cfg.quant,
                                       codec=cfg.make_codec())
     ef = cfg.quantize and tr.codec.carries_residual
     cs = cfg.compress_state
     if cs and (tr.codec.carries_residual or not cfg.quantize
-               or cfg.nonblocking):
+               or cfg.nonblocking or tr.legacy):
         raise ValueError("compress_state keeps the quantized blocking "
-                         f"path's comm copy, lattice codecs only (codec "
-                         f"{tr.codec.name}, quantize={cfg.quantize}, "
-                         f"nonblocking={cfg.nonblocking})")
+                         f"path's comm copy, lattice codecs only, on the "
+                         f"flat transport (codec {tr.codec.name}, quantize="
+                         f"{cfg.quantize}, nonblocking={cfg.nonblocking}, "
+                         f"gossip_impl={tr.impl})")
     if cfg.overlap:
         tr.check_overlap(cfg.quantize)
     local_steps = make_local_steps(loss_fn, opt_update, cfg.h_loop_bound)
@@ -265,7 +275,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
     def average_momentum(opt, node_perm, matched):
         if not cfg.average_momentum or not tree_leaves(opt):
             return opt
-        return tree_map(lambda x: _avg_matched(x, node_perm, matched), opt)
+        return tree_map(lambda x: _avg(x, x[node_perm], matched), opt)
 
     def finish(state, params, opt, prev, inflight, residual, losses,
                matched, mask, lr):
@@ -375,6 +385,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             land(ready)
             if cfg.quantize:
                 m_rows = B.row_mask(matched, layout.rows_per_node)
+                B.count_wraps(codec, recv, sbuf, node_perm, matched)
                 with record_function("gossip.decode"):
                     base_buf = codec.decode_avg(recv, sbuf, m_rows)
             else:

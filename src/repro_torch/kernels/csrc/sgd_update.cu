@@ -31,11 +31,13 @@ __device__ __forceinline__ void sgd_one(float p, float g, float m, float lr,
   m_out = m_new;
 }
 
-__global__ void sgd_update_kernel(const float4 *__restrict__ p,
+// p_out may be p and m_out may be m (the in-place update of the packed
+// optimizer buffers): every element is read, then written, by one thread,
+// so those four pointers carry no __restrict__.
+__global__ void sgd_update_kernel(const float4 *p,
                                   const float4 *__restrict__ g,
-                                  const float4 *__restrict__ m,
-                                  float4 *__restrict__ p_out,
-                                  float4 *__restrict__ m_out,
+                                  const float4 *m, float4 *p_out,
+                                  float4 *m_out,
                                   const float *__restrict__ lr_ptr,
                                   long long n4, float mu, float wd,
                                   int nesterov) {
@@ -57,7 +59,7 @@ __global__ void sgd_update_kernel(const float4 *__restrict__ p,
 }  // namespace
 
 // n: element count, a multiple of 4; every pointer 16-byte aligned (checked
-// by the Python wrapper). Returns cudaGetLastError() after the launch.
+// by the Python wrapper); p_out == p and m_out == m update in place. Returns cudaGetLastError() after the launch.
 extern "C" int sgd_update_f32(const void *p, const void *g, const void *m,
                               void *p_out, void *m_out, const void *lr,
                               long long n, float mu, float wd, int nesterov,

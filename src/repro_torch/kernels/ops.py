@@ -151,16 +151,30 @@ def decode_avg(q, s, y, *, block: int = 256, bits: int = 8,
 
 def sgd_fused_update(p, g, m, *, lr, mu: float = 0.9, wd: float = 0.0,
                      nesterov: bool = False, block: int = 512,
-                     tile_rows: int = 8):
+                     tile_rows: int = 8, inplace: bool = False):
     """Fused momentum/weight-decay SGD update -> (p', m'), one sweep.
     `lr` is a float or a 0-d fp32 tensor; on the card it must be a 0-d
-    fp32 tensor on the same device, read by the kernel through a pointer."""
+    fp32 tensor on the same device, read by the kernel through a pointer.
+    With `inplace`, p' is written into `p` and m' into `m` (fp32,
+    contiguous, a whole number of [tile_rows, block] tiles, so no padded
+    copy stands between them and the kernel), which are returned: the
+    packed optimizer buffers are temporaries, and updating them in place
+    spares two buffer-sized outputs at the optimizer's memory peak."""
     pb, pad = _to_blocks(p, block, tile_rows)
     gb, _ = _to_blocks(g, block, tile_rows)
     mb, _ = _to_blocks(m, block, tile_rows)
+    if inplace:
+        if pad:
+            raise ValueError(f"inplace: {p.numel()} elements are not a "
+                             f"whole number of {tile_rows}x{block} tiles")
+        for t, nm in ((p, "p"), (m, "m")):
+            if t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"inplace: {nm} must be contiguous fp32")
     if not _on_cuda(pb, gb, mb):
         pn, mn = ref_ops.sgd_update(pb, gb, mb, lr=lr, mu=mu, wd=wd,
                                     nesterov=nesterov)
+        if inplace:
+            pn, mn = pb.copy_(pn), mb.copy_(mn)
     else:
         if not (torch.is_tensor(lr) and lr.numel() == 1
                 and lr.dtype == torch.float32 and lr.device == pb.device):
@@ -168,7 +182,10 @@ def sgd_fused_update(p, g, m, *, lr, mu: float = 0.9, wd: float = 0.0,
                             "tensor on the buffers' device")
         for t, nm in ((pb, "p"), (gb, "g"), (mb, "m")):
             _check(t, nm, (torch.float32,), pb.shape)
-        pn, mn = torch.empty_like(pb), torch.empty_like(mb)
+        if inplace:
+            pn, mn = pb, mb
+        else:
+            pn, mn = torch.empty_like(pb), torch.empty_like(mb)
         _launch("sgd_update", pb.data_ptr(), gb.data_ptr(), mb.data_ptr(),
                 pn.data_ptr(), mn.data_ptr(), lr.data_ptr(), pb.numel(),
                 float(mu), float(wd), int(nesterov))

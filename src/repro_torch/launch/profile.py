@@ -10,9 +10,11 @@
       --avail day_night:period=4,duty=0.75,join=0.25:0.5:1.5 --profile-join
 
 Builds the training driver's run (same flags as ``repro_torch.launch.train``,
-``--algo``, ``--graph`` and the scheduler's ``--rate-profile``,
-``--straggler``, ``--avail`` and ``--topology`` included, so a baseline's
-superstep or a scheduled bin breaks down the same way),
+``--algo``, ``--graph``, ``--gossip-impl`` / ``--pool-size`` and the
+scheduler's ``--rate-profile``, ``--straggler``, ``--avail`` and
+``--topology`` included, so a baseline's superstep, another transport or a
+scheduled bin breaks down the same way; a ``*_legacy`` oracle's per-leaf
+exchange is the span ``gossip.legacy``),
 runs ``--warmup`` supersteps (bins), then one under ``torch.profiler`` —
 with ``--profile-join`` the first join bin at or after ``--warmup``, whose
 bootstrap is the span ``swarm.join`` —

@@ -1,5 +1,5 @@
 """Training driver for the port: SwarmSGD or any of the paper's baselines
-(gather transport) on the synthetic LM stream, on the card by default.
+on the synthetic LM stream, on the card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch transformer-wmt \
       --nodes 8 --H 2 --h-mode geometric --h-max 8 --quantize \
@@ -9,6 +9,8 @@
       --algo dpsgd --graph ring
   PYTHONPATH=src python -m repro_torch.launch.train --nodes 8 --quantize \
       --rate-profile lognormal --rate-sigma 0.8 --straggler 0.25:8
+  PYTHONPATH=src python -m repro_torch.launch.train --nodes 8 --quantize \
+      --gossip-impl ppermute_pool --pool-size 8 --nonblocking --overlap
 
 ``--algo`` is swarm (the default), allreduce, localsgd, dpsgd, adpsgd or
 sgp; every combination is checked against the capability matrix
@@ -20,6 +22,11 @@ CUDA graphs on the card (``core/scan.py``): bitwise the per-step driver on
 the CPU, and on the card when both runs use
 ``torch.use_deterministic_algorithms`` with one pinned
 ``CUBLAS_WORKSPACE_CONFIG`` (``chip_smoke.py`` sets both).
+``--gossip-impl`` picks the transport, as the reference's: ``gather`` (the
+default), ``ppermute`` (one static matching drawn from ``--seed``),
+``ppermute_pool`` (a matching a superstep out of ``--pool-size``
+precompiled ones) or the ``*_legacy`` per-leaf oracle of each; all nodes
+live on the one card, so the ppermute transports permute locally.
 
 ``--rate-profile`` drives training from the discrete-event scheduler
 (``repro_torch.sched``): per-node Poisson clocks (``uniform_async`` or
@@ -42,6 +49,7 @@ without it a machine with no GPU exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -58,7 +66,9 @@ from repro_torch.algorithms import (
 from repro_torch.algorithms.sgp import sgp_debias, sgp_init_state
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config, reduced
-from repro_torch.core.exchange import transport_from_config
+from repro_torch.core.exchange import (
+    GOSSIP_IMPLS, static_ppermute_matching, transport_from_config,
+)
 from repro_torch.core.graph import GRAPH_KINDS, make_graph, sample_matching
 from repro_torch.core.hier import parse_topology
 from repro_torch.core.scan import make_superstep_scan
@@ -109,6 +119,12 @@ def build_schedule(args, graph, scfg: SwarmConfig, caps=None):
     topo = parse_topology(getattr(args, "topology", None), scfg.n_nodes)
     tseed = args.trace_seed if args.trace_seed is not None else args.seed
     H_eff = args.H if caps is None or caps.local_H else 1
+    if scfg.gossip_impl not in ("gather", "gather_legacy"):
+        raise ValueError(
+            "--rate-profile drives the engine through arbitrary per-bin "
+            "matchings, which only the gather transports accept from the "
+            "driver; the ppermute/pool transports run heterogeneous traces "
+            "via sched.bridge (pool_edges/static pairs restriction)")
     avail = None
     if getattr(args, "avail", None):
         if args.rate_profile in ("none", "uniform"):
@@ -218,28 +234,48 @@ def restore_sched_clocks(meta: dict, graph):
     return clocks, last_t, None
 
 
-def sample_gossip_perm(scfg: SwarmConfig, graph, rng_np,
+def sample_gossip_perm(scfg: SwarmConfig, graph, rng_np, seed: int = 0,
                        topo=None) -> np.ndarray:
-    """Per-superstep matching of the gather transport; a `topo`
-    (``core/hier.py`` HierTopology) draws through the tier coin
-    (`sample_event`), which is bitwise the flat draw for one group."""
+    """Per-superstep `perm` input, as the JAX driver draws it: a fresh
+    matching for the gather transports, the pool index broadcast to
+    [n_nodes] for ppermute_pool, or for the plain ppermute transports the
+    one static matching of `seed` (the transport's, ``transport_from_config``
+    with the same seed), drawing nothing. A `topo` (``core/hier.py``
+    HierTopology) draws through the tier coin (`sample_event` /
+    `sample_pool_index`), bitwise the flat draw for one group; the static
+    ppermute matching cannot carry two tiers and raises."""
+    impl = scfg.gossip_impl
     if topo is not None:
+        if impl.startswith("ppermute_pool"):
+            idx, _tier = topo.sample_pool_index(rng_np, scfg.pool_size)
+            return np.full((scfg.n_nodes,), idx, np.int32)
+        if impl.startswith("ppermute"):
+            raise ValueError(
+                "hier topology cannot ride the single static ppermute "
+                "matching (one compiled matching carries one tier) — use "
+                "gather or ppermute_pool")
         perm, _tier = topo.sample_event(rng_np)
         return perm
+    if impl.startswith("ppermute_pool"):
+        idx = int(rng_np.integers(scfg.pool_size))
+        return np.full((scfg.n_nodes,), idx, np.int32)
+    if impl.startswith("ppermute"):
+        return static_ppermute_matching(graph, seed)
     return sample_matching(graph, rng_np)
 
 
 def presample_inputs(scfg: SwarmConfig, graph, rng_np, n_steps: int,
-                     uses_matching: bool = True, topo=None):
+                     uses_matching: bool = True, topo=None, seed: int = 0):
     """The whole run's (perm, h) streams as [n_steps, n_nodes] int32,
     drawn from `rng_np` in the JAX driver's order (perm, then h, step by
-    step), so a seed gives the JAX driver's matchings and counts. An
-    algorithm that ignores the matching still draws one each step, as the
-    reference does, so its h stream is the reference's too."""
+    step), so a seed gives the JAX driver's matchings and counts (`seed`
+    names the ppermute transport's static matching). An algorithm that
+    ignores the matching still draws one each step, as the reference
+    does, so its h stream is the reference's too."""
     perms = np.empty((n_steps, scfg.n_nodes), np.int32)
     hs = np.empty((n_steps, scfg.n_nodes), np.int32)
     for t in range(n_steps):
-        perms[t] = (sample_gossip_perm(scfg, graph, rng_np, topo)
+        perms[t] = (sample_gossip_perm(scfg, graph, rng_np, seed, topo)
                     if uses_matching else sample_matching(graph, rng_np))
         hs[t] = sample_h_counts(scfg, rng_np)
     return perms, hs
@@ -321,6 +357,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pipelined non-blocking superstep: the in-flight "
                          "payload's permute runs under the local steps "
                          "(implies --nonblocking)")
+    ap.add_argument("--gossip-impl", default=None, choices=GOSSIP_IMPLS,
+                    help="gossip transport: gather (default; the sampled "
+                         "matching), ppermute (one static matching), "
+                         "ppermute_pool (a matching a superstep out of "
+                         "--pool-size precompiled ones), each on the flat "
+                         "buffer, or its *_legacy per-leaf oracle")
+    ap.add_argument("--pool-size", type=int, default=8,
+                    help="K precompiled matchings of ppermute_pool")
     ap.add_argument("--rate-profile", default="none",
                     choices=RATE_PROFILES,
                     help="drive training from a discrete-event scheduler "
@@ -468,13 +512,21 @@ class Trainer:
         """The mean-model losses on node 0's batch of the step, as the JAX
         driver evaluates them."""
         seq = self.args.seq
-        eb = {k: torch.from_numpy(nb[k][0].reshape(-1, seq)).to(self.device)
-              for k in ("tokens", "targets")}
-        params = self.state.params
-        if self.args.algo == "sgp":
-            # the push-sum payload evaluates at the de-biased X / w
-            params = sgp_debias(params)
-        return {k: float(v) for k, v in self.evaluate(params, eb).items()}
+        # at a chunk boundary the graphs' pool holds their temporaries'
+        # free blocks: the evaluation allocates there, and frees it all
+        # before the next replay
+        borrow = self.chunker.borrow_pool() if self.chunker is not None \
+            else contextlib.nullcontext()
+        with borrow:
+            eb = {k: torch.from_numpy(nb[k][0].reshape(-1, seq))
+                  .to(self.device) for k in ("tokens", "targets")}
+            params = self.state.params
+            if self.args.algo == "sgp":
+                # the push-sum payload evaluates at the de-biased X / w
+                params = sgp_debias(params)
+            out = {k: float(v) for k, v in self.evaluate(params, eb).items()}
+            del eb, params
+        return out
 
     def write_ckpt(self, path: str, step_no: int) -> None:
         """One checkpoint-writing path for final and periodic saves, with
@@ -507,7 +559,8 @@ def build(args, cfg=None) -> Trainer:
     one transport is built, and the step comes from `make_algorithm`.
     Under --rate-profile the run's (perm, h, mask) rows are the binned
     schedule's, and the trace's ``{"sched": ...}`` line is printed."""
-    caps = validate_run_config(args.algo, quantize=args.quantize,
+    caps = validate_run_config(args.algo, gossip_impl=args.gossip_impl,
+                               quantize=args.quantize,
                                nonblocking=args.nonblocking,
                                overlap=args.overlap,
                                rate_profile=args.rate_profile,
@@ -539,11 +592,13 @@ def build(args, cfg=None) -> Trainer:
                        nonblocking=args.nonblocking or args.overlap,
                        overlap=args.overlap, quantize=args.quantize,
                        codec=args.codec,
-                       compress_state=args.compress_state)
+                       compress_state=args.compress_state,
+                       gossip_impl=args.gossip_impl or "gather",
+                       pool_size=args.pool_size, topology=args.topology)
     model = TransformerLM(cfg)
     kw = dict(loss_fn=model.functional_loss, opt_update=opt.update,
               lr_fn=lambda s: args.lr, n_nodes=args.nodes,
-              transport=transport_from_config(scfg))
+              transport=transport_from_config(scfg, graph, args.seed))
     if args.algo == "swarm":
         kw["scfg"] = scfg
     else:
@@ -584,7 +639,8 @@ def build(args, cfg=None) -> Trainer:
         perms, hs = presample_inputs(
             scfg, graph, np.random.default_rng(args.seed), args.steps,
             caps.uses_matching, topo=parse_topology(args.topology,
-                                                    args.nodes))
+                                                    args.nodes),
+            seed=args.seed)
     evaluate = make_mean_model_eval(model.functional_loss) \
         if args.eval_mean else None
     return Trainer(args, device, cfg, caps, scfg, step, state, ds, perms, hs,

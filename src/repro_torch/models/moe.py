@@ -20,6 +20,14 @@ under ``torch.func.vmap`` over the node axis and under ``grad``:
 
 The expert products ``ecd,edf->ecf`` are batched matmuls; the reference
 computes them outside any Pallas kernel too.
+
+With ``per_lane`` (the serving engine's decode and chunk steps) each lane
+of the [B, S, D] call routes and dispatches on its own, as the reference's
+engine does by vmapping a batch-1 forward over its slots: a lane's
+capacity is that of its own S tokens, its positions a cumsum over its own
+tokens, and its rows land in its own [E, C, D] buffer, so one lane's
+tokens never take a slot in another's; the experts still run as one
+batched product over every lane's buffer.
 """
 from __future__ import annotations
 
@@ -72,49 +80,58 @@ def route(cfg, router_w, x_flat):
 def dispatch_positions(cfg, idx, T: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Slot of each (token, choice) in its expert's capacity buffer: the
     k choices in priority order, a cumsum of the one-hot assignment over
-    tokens. -> pos [T,k] (clipped to C - 1) and keep [T,k]."""
+    tokens. idx is [T,k], or [L,T,k] for L lanes dispatched each on its
+    own (a cumsum over each lane's T tokens). -> pos (clipped to C - 1)
+    and keep, idx's shape."""
     m = cfg.moe
     C = capacity(cfg, T)
     experts = torch.arange(m.n_experts, device=idx.device)
-    counts = torch.zeros((m.n_experts,), dtype=torch.int64,
+    counts = torch.zeros(idx.shape[:-2] + (m.n_experts,), dtype=torch.int64,
                          device=idx.device)
     pos_list, keep_list = [], []
     for j in range(m.top_k):
-        e = idx[:, j]
-        oh = (e[:, None] == experts).to(torch.int64)          # [T,E]
-        pos_in_e = torch.cumsum(oh, dim=0) - oh               # 0-based
+        e = idx[..., j]
+        oh = (e[..., None] == experts).to(torch.int64)        # [..,T,E]
+        pos_in_e = torch.cumsum(oh, dim=-2) - oh              # 0-based
         pos_j = torch.sum(pos_in_e * oh, dim=-1) + \
-            torch.gather(counts, 0, e)
+            torch.gather(counts, -1, e)
         keep_list.append(pos_j < C)
         pos_list.append(torch.clamp(pos_j, max=C - 1))
-        counts = counts + torch.sum(oh, dim=0)
-    return torch.stack(pos_list, 1), torch.stack(keep_list, 1)
+        counts = counts + torch.sum(oh, dim=-2)
+    return torch.stack(pos_list, -1), torch.stack(keep_list, -1)
 
 
-def apply_moe(cfg, p, x):
+def apply_moe(cfg, p, x, *, per_lane: bool = False):
     """x:[B,S,D] -> ([B,S,D], aux loss). Capacity is that of the call's
-    B*S tokens, as the reference's."""
+    B*S tokens, as the reference's; with `per_lane` that of each lane's S
+    tokens, each lane dispatched into its own buffer (the module
+    docstring). The aux loss is the call's either way (the engine, the
+    one caller with `per_lane`, discards it)."""
     m = cfg.moe
     B, S, D = x.shape
     T, E, k = B * S, m.n_experts, m.top_k
+    L, S_l = (B, S) if per_lane else (1, T)   # lanes, tokens a lane
     xf = x.reshape(T, D)
     gates, idx, aux = route(cfg, p["router"], xf)
-    pos, keep = dispatch_positions(cfg, idx, T)
-    C = capacity(cfg, T)
-    slot = (idx * C + pos).reshape(-1)                        # [T*k]
+    pos, keep = dispatch_positions(cfg, idx.reshape(L, S_l, k), S_l)
+    C = capacity(cfg, S_l)
+    lane = torch.arange(L, device=x.device).reshape(L, 1, 1)
+    slot = (((lane * E + idx.reshape(L, S_l, k)) * C) + pos).reshape(-1)
     keep_f = keep.reshape(-1)
     rows = xf.repeat_interleave(k, dim=0)                     # token order
     data = torch.where(keep_f[:, None], rows, torch.zeros_like(rows))
-    buf = torch.zeros((E * C, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((L * E * C, D), dtype=x.dtype, device=x.device)
     buf = buf.scatter_add(0, slot[:, None].expand(-1, D), data)
-    buf = buf.reshape(E, C, D)
+    # every lane's rows of one expert side by side: [E, L*C, D]
+    buf = buf.reshape(L, E, C, D).transpose(0, 1).reshape(E, L * C, D)
 
     h = torch.bmm(buf, p["w_up"])
     if cfg.gated_mlp:
         h = activation(cfg, torch.bmm(buf, p["w_gate"])) * h
     else:
         h = activation(cfg, h)
-    out_buf = torch.bmm(h, p["w_down"]).reshape(E * C, D)
+    out_buf = torch.bmm(h, p["w_down"]).reshape(E, L, C, D) \
+        .transpose(0, 1).reshape(L * E * C, D)
 
     gathered = torch.gather(out_buf, 0, slot[:, None].expand(-1, D))
     w = (gates.reshape(-1) * keep_f).to(torch.float32)

@@ -283,7 +283,7 @@ def _attn_layer(cfg, p, x, positions, *, mixer: str, mode: str = "train",
 
 def _apply_layer(cfg, p, x, positions, *, mixer: str, ffn: str,
                  mode: str = "train", cache=None, clen=None, pool=None,
-                 pages=None, n_valid=None):
+                 pages=None, n_valid=None, moe_per_lane: bool = False):
     """-> (x, the layer's new cache or None, router aux loss or None)."""
     h = apply_norm(cfg, p["norm1"], x)
     if mixer == "mamba":
@@ -300,7 +300,8 @@ def _apply_layer(cfg, p, x, positions, *, mixer: str, ffn: str,
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
     elif ffn == "moe":
         mo, aux = moe_lib.apply_moe(cfg, p["moe"],
-                                    apply_norm(cfg, p["norm2"], x))
+                                    apply_norm(cfg, p["norm2"], x),
+                                    per_lane=moe_per_lane)
         x = x + mo
     return x, new_cache, aux
 
@@ -340,7 +341,8 @@ def _unbind_blocks(tree):
 
 
 def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
-            n_valid=None, pools=None, prefix_embeds=None):
+            n_valid=None, pools=None, prefix_embeds=None,
+            moe_per_lane: bool = False):
     """-> (hidden [B,S',D], new_cache, aux): aux is the router's
     load-balance loss summed over the MoE layers (fp32 0 without them).
 
@@ -360,7 +362,12 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
     layers; the per-lane page tables ride in ``cache["pages"]`` [B, n_pp].
     With pools, those layers return {"new_k","new_v"} rows in new_cache
     instead of a written cache — the caller owns the pool scatter
-    (serve/paged.py)."""
+    (serve/paged.py).
+
+    ``moe_per_lane``: each of the B lanes routes and dispatches its MoE
+    tokens on its own, with the capacity of its S tokens (the serving
+    engine's steps, as the reference's engine vmaps a batch-1 forward
+    over its slots); otherwise the call's B*S tokens share the capacity."""
     dtype = getattr(torch, cfg.dtype)
     x = params["embed"][tokens.to(torch.int64)].to(dtype)
     # a device fill, not a host copy: a CUDA graph capture runs this
@@ -377,7 +384,8 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
             torch.arange(S, device=x.device)
     else:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    kw = dict(mode=mode, clen=clen, pages=pages, n_valid=n_valid)
+    kw = dict(mode=mode, clen=clen, pages=pages, n_valid=n_valid,
+              moe_per_lane=moe_per_lane)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {}
     if cfg.n_full_blocks:

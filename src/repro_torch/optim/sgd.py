@@ -40,7 +40,8 @@ def sgd_init(cfg: SGDConfig, params):
 
 def _sgd_update_fused(cfg: SGDConfig, params, grads, state, lr):
     """One kernel sweep over the packed tree: params / grads / momentum
-    each flatten to one fp32 vector, update once, unpack with the original
+    each flatten to one fp32 vector, update once — in place into the two
+    packed copies, which nothing else holds — unpack with the original
     leaf dtypes."""
     from repro_torch.core import bucket as B
     from repro_torch.kernels import sgd_fused_update
@@ -51,7 +52,9 @@ def _sgd_update_fused(cfg: SGDConfig, params, grads, state, lr):
         gbuf = B.pack_flat(p_layout, grads)
         mbuf = B.pack_flat(m_layout, state["m"])
     pn, mn = sgd_fused_update(pbuf, gbuf, mbuf, lr=lr, mu=cfg.momentum,
-                              wd=cfg.weight_decay, nesterov=cfg.nesterov)
+                              wd=cfg.weight_decay, nesterov=cfg.nesterov,
+                              block=p_layout.block,
+                              tile_rows=p_layout.tile_rows, inplace=True)
     del pbuf, gbuf, mbuf
     with record_function("sgd.unpack"):
         new_p = B.unpack_flat(p_layout, pn)

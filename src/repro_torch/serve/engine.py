@@ -19,12 +19,12 @@ KV memory comes in two layouts:
   stream is BITWISE the dense engine's. Sliding-window rings and Mamba
   states stay in the per-lane tree, side by side in a hybrid bank.
 
-A mixture-of-experts layer routes the whole dispatch at once: its
-capacity is that of the call's tokens (slots at decode, slots x chunk in
-a chunk step), idle lanes included, where the reference's vmap gives each
-lane its own. The two agree wherever no expert overflows (every reduced
-config: capacity factor 4.0 is dropless). Architectures with a modality
-frontend are refused: they serve through the one-shot path.
+A mixture-of-experts layer routes and dispatches each lane on its own
+(``forward(moe_per_lane=True)``), as the reference's vmap does: a lane's
+capacity is that of its own tokens (1 at decode, the chunk in a chunk
+step), and an idle lane's tokens take no slot in another lane's expert
+buffer; the slots still run as one batched call. Architectures with a
+modality frontend are refused: they serve through the one-shot path.
 
 Prefill comes in two schedules:
 
@@ -305,7 +305,8 @@ class ServeEngine:
         self._decode_sigs.add(_signature(params, caches, pools, tokens,
                                          commit))
         hidden, c2, _ = forward(self.cfg, params, tokens, mode="decode",
-                             cache=caches, pools=pools)
+                                cache=caches, pools=pools,
+                                moe_per_lane=True)
         toks = self._sample(logits_head(self.cfg, params, hidden)[:, -1])
         c2, rows = P.split_new_rows(c2)
         self._caches = self._select(commit, c2, caches)
@@ -324,7 +325,8 @@ class ServeEngine:
         self._chunk_sigs.add(_signature(params, caches, pools, tokens,
                                         chunks, n_valid, commit, finish))
         hidden, c2, _ = forward(self.cfg, params, chunks, mode="chunk",
-                             cache=caches, n_valid=n_valid, pools=pools)
+                                cache=caches, n_valid=n_valid, pools=pools,
+                                moe_per_lane=True)
         last = torch.clamp(n_valid.to(torch.int64) - 1, min=0)
         hidden = hidden[torch.arange(hidden.shape[0], device=self.device),
                         last][:, None]                        # [slots,1,D]

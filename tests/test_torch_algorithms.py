@@ -535,11 +535,19 @@ def test_transport_payload_bytes_and_impls():
         assert tr.payload_num_bytes(tree, q) == jtr.payload_num_bytes(jtree,
                                                                       q)
     assert tr.impl == tr.base_impl == "gather"
-    for impl in ("ppermute", "ppermute_pool", "gather_legacy"):
-        with pytest.raises(ValueError, match="NCCL"):
-            GossipTransport(N, impl=impl)
-        with pytest.raises(ValueError, match="NCCL"):
-            transport_from_config(SwarmConfig(n_nodes=N), impl=impl)
+    # every impl of the reference builds from the config on one shard
+    # (payload bytes as the gather's); more shards wait for NCCL
+    g = make_graph("complete", N)
+    for impl in ("ppermute", "ppermute_pool", "gather_legacy",
+                 "ppermute_legacy", "ppermute_pool_legacy"):
+        t = transport_from_config(SwarmConfig(n_nodes=N, gossip_impl=impl),
+                                  g, 0)
+        assert (t.impl, t.legacy) == (impl, impl.endswith("_legacy"))
+        for q in (False, True):
+            assert t.payload_num_bytes(tree, q) == tr.payload_num_bytes(tree,
+                                                                        q)
+        with pytest.raises(NotImplementedError, match="NCCL"):
+            GossipTransport(N, impl=impl, n_shards=2)
     q4 = ModularQuantConfig(bits=4)
     assert transport_from_config(SwarmConfig(n_nodes=N, quant=q4)) \
         .codec.name == "q4"
@@ -639,9 +647,9 @@ MODES = {"blocking": {}, "nonblocking": {"nonblocking": True},
 def test_validate_accepts_the_reference_set_minus_unported(algo,
                                                           monkeypatch):
     """Over algo x impl x mode x quantize x codec the port accepts exactly
-    what JAX accepts, minus the transports other than gather, which the
-    port refuses by name (every codec, bf16 and top-k included, is
-    ported)."""
+    what JAX accepts: every transport and every codec is ported (a
+    multi-shard mesh, which the reference's driver never builds, is
+    refused by the transport itself)."""
     for var in ("REPRO_DEFAULT_GOSSIP_IMPL", "REPRO_CODEC", "REPRO_TOPOLOGY",
                 "REPRO_AVAIL_PROFILE"):
         monkeypatch.delenv(var, raising=False)
@@ -653,10 +661,9 @@ def test_validate_accepts_the_reference_set_minus_unported(algo,
                     kw = dict(gossip_impl=impl, quantize=quantize,
                               codec=codec, **mkw)
                     j = _accepts(jvalidate, algo, **kw)
-                    unported = impl != "gather"
-                    assert _accepts(validate_run_config, algo, **kw) == \
-                        (j and not unported), (algo, kw, j)
-                    n_accept += j and not unported
+                    assert _accepts(validate_run_config, algo, **kw) == j, \
+                        (algo, kw, j)
+                    n_accept += j
     assert n_accept > 0
 
 
@@ -667,15 +674,21 @@ def test_validate_accepts_the_reference_set_minus_unported(algo,
           gossip_impl="ppermute_pool"), "NCCL")],
     ids=["kw0-NCCL", "kw3-NCCL", "kw5-NCCL"])
 def test_validate_names_the_roadmap_item(kw, item, monkeypatch):
-    """What JAX accepts for swarm and the port does not carry yet is
-    refused with the ROADMAP item it waits for — also under the
-    scheduler's flags, which the port carries."""
+    """The pool transport, which the port refused until it was ported, is
+    accepted where JAX accepts it (also under the scheduler's flags) with
+    the same capability row; what the port still does not carry — the
+    node axis over more than one shard — is refused by the transport
+    with the ROADMAP item it waits for."""
     for var in ("REPRO_DEFAULT_GOSSIP_IMPL", "REPRO_CODEC", "REPRO_TOPOLOGY",
                 "REPRO_AVAIL_PROFILE"):
         monkeypatch.delenv(var, raising=False)
-    jvalidate("swarm", n_nodes=8, **kw)
-    with pytest.raises(ValueError, match="ROADMAP") as e:
-        validate_run_config("swarm", n_nodes=8, **kw)
+    want = jvalidate("swarm", n_nodes=8, **kw)
+    got = validate_run_config("swarm", n_nodes=8, **kw)
+    assert (got.transports, got.modes) == (want.transports, want.modes)
+    pool = [np.arange(8)]
+    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+        GossipTransport(8, impl=kw["gossip_impl"], matching_pool=pool,
+                        n_shards=2)
     assert item in str(e.value)
 
 
@@ -847,18 +860,20 @@ def test_driver_checkpoint_metadata_names_the_algo(tmp_path):
 
 
 def test_driver_refuses_unported_flags():
-    """The transports' flags and unknown choices still do not parse;
-    --compress-state, --codec and --scan-chunk are ported and do."""
-    for argv in (["--gossip-impl", "ppermute"], ["--rate-profile", "explicit"],
-                 ["--pool-size", "4"], ["--graph", "petersen"],
-                 ["--algo", "sgd"]):
+    """Unknown choices do not parse; --compress-state, --codec,
+    --scan-chunk, --gossip-impl and --pool-size are ported and do."""
+    for argv in (["--gossip-impl", "allgather"],
+                 ["--rate-profile", "explicit"],
+                 ["--graph", "petersen"], ["--algo", "sgd"]):
         with pytest.raises(SystemExit) as e:
             ttrain.build_parser().parse_args(argv)
         assert e.value.code == 2
     args = ttrain.build_parser().parse_args(
-        ["--compress-state", "--codec", "bf16", "--scan-chunk", "2"])
-    assert (args.compress_state, args.codec, args.scan_chunk) == \
-        (True, "bf16", 2)
+        ["--compress-state", "--codec", "bf16", "--scan-chunk", "2",
+         "--gossip-impl", "ppermute_pool", "--pool-size", "4"])
+    assert (args.compress_state, args.codec, args.scan_chunk,
+            args.gossip_impl, args.pool_size) == \
+        (True, "bf16", 2, "ppermute_pool", 4)
     for argv in (["--algo", "localsgd", "--quantize"],
                  ["--algo", "sgp", "--nonblocking"],
                  ["--algo", "adpsgd", "--overlap"]):

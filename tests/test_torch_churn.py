@@ -40,6 +40,7 @@ from repro.core import retire_nodes as jretire_nodes
 from repro.core import swarm_init as jswarm_init
 from repro.core.graph import make_graph as jmake_graph
 from repro.core.simulator import run_events_oracle, run_superstep_oracle
+from repro_torch.core import simulator as TSIM
 from repro.launch import train as jtrain
 from repro.models import init_params as jinit_params
 from repro.optim import make_optimizer as jmake_optimizer
@@ -482,6 +483,14 @@ def test_churn_exchange_layer_bitwise_at_lr0(nonblocking):
     seq = run_events_oracle(_x0(), _grad_fn(X, Y), tr.pairs, tr.h,
                             sched.event_bin, 0.0, nonblocking=nonblocking,
                             kinds=tr.kinds)
+    # the port's own copy of the oracles is the reference's, bitwise
+    np.testing.assert_array_equal(TSIM.run_superstep_oracle(
+        _x0(), _grad_fn(X, Y), sched.perms, H_MEAN, 0.0,
+        nonblocking=nonblocking, h_schedule=sched.h, masks=sched.mask,
+        kinds=sched.kinds), binned)
+    np.testing.assert_array_equal(TSIM.run_events_oracle(
+        _x0(), _grad_fn(X, Y), tr.pairs, tr.h, sched.event_bin, 0.0,
+        nonblocking=nonblocking, kinds=tr.kinds), seq)
     np.testing.assert_array_equal(traj, binned)
     np.testing.assert_array_equal(traj[-1], seq[-1])
 

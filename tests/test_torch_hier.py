@@ -30,6 +30,7 @@ import repro_torch.sched as T
 from repro.core.graph import complete as jcomplete
 from repro.core.hier import parse_topology as jparse
 from repro.core.simulator import run_superstep_oracle
+from repro_torch.core import simulator as TSIM
 from repro.core.swarm import SwarmConfig as JSwarmConfig
 from repro.launch import train as jtrain
 from repro_torch import hardware as HW
@@ -260,6 +261,10 @@ def test_engine_on_a_two_tier_trace_matches_the_oracle(mode):
     ref = run_superstep_oracle(x0, grad, sched.perms, H_MEAN, LR,
                                nonblocking=nonblocking, h_schedule=sched.h,
                                masks=sched.mask)
+    # the port's own copy of the oracle is the reference's, bitwise
+    np.testing.assert_array_equal(TSIM.run_superstep_oracle(
+        x0, grad, sched.perms, H_MEAN, LR, nonblocking=nonblocking,
+        h_schedule=sched.h, masks=sched.mask), ref)
     np.testing.assert_allclose(np.stack(traj), ref, rtol=0, atol=2e-5)
 
 

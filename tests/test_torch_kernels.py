@@ -190,6 +190,29 @@ def test_sgd_wrapper_matches_jax_interpret(size):
     np.testing.assert_array_equal(tm.numpy(), np.asarray(rm))
 
 
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_sgd_inplace_equals_out_of_place(nesterov):
+    """inplace=True writes p' into p and m' into m, returns those tensors,
+    and is bitwise the out-of-place update; a size that needs a padded
+    copy is refused."""
+    rng = np.random.default_rng(7)
+    p, g, m = (_t(rng.standard_normal(4096 * 3).astype(np.float32))
+               for _ in range(3))
+    lr = torch.tensor(0.1)
+    want_p, want_m = tops.sgd_fused_update(p, g, m, lr=lr, mu=0.9, wd=1e-4,
+                                           nesterov=nesterov)
+    p2, m2 = p.clone(), m.clone()
+    got_p, got_m = tops.sgd_fused_update(p2, g, m2, lr=lr, mu=0.9, wd=1e-4,
+                                         nesterov=nesterov, inplace=True)
+    assert got_p.data_ptr() == p2.data_ptr()
+    assert got_m.data_ptr() == m2.data_ptr()
+    np.testing.assert_array_equal(p2.numpy(), want_p.numpy())
+    np.testing.assert_array_equal(m2.numpy(), want_m.numpy())
+    with pytest.raises(ValueError, match="whole number"):
+        tops.sgd_fused_update(p[:1000], g[:1000], m[:1000], lr=lr,
+                              inplace=True)
+
+
 def test_cpu_tensors_launch_nothing():
     tops.reset_launch_counts()
     x = torch.randn(1000)

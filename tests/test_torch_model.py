@@ -197,3 +197,33 @@ def test_module_parameter_names_are_tree_paths():
     names = [n for n, _ in model.named_parameters()]
     assert sorted(names) == sorted(tree_paths(param_template(tc)))
     assert all(p.device.type == "meta" for p in model.parameters())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_node_grads_fn_matches_jax_vmapped_grads(arch):
+    """The engines' gradient path — one vmapped forward over stacked
+    nodes, one reverse pass of the losses' sum — against JAX's vmapped
+    value_and_grad, per node, from three nodes' own weights and batches
+    (the module docstring's bound)."""
+    from repro_torch.core.exchange import node_grads_fn
+    jc, tc = _cfgs(arch, 2, 64)
+    n = 3
+    trees = [jax.device_get(jinit_params(jax.random.PRNGKey(s), jc))
+             for s in range(n)]
+    np_params = jax.tree.map(lambda *xs: np.stack(xs), *trees)
+    ds = JDataset(JDataConfig(vocab_size=jc.vocab_size, seq_len=32, seed=1), n)
+    nb = jmake_batches(ds, 0, 4)
+    batch = dict(nb)                      # [nodes, batch, seq] leaves
+    jl, jg = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p, b: jloss_fn(jc, p, b))))(
+        jax.tree.map(jnp.asarray, np_params),
+        jax.tree.map(jnp.asarray, batch))
+    tparams = params_from_numpy(np_params, "cpu")
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    tg, tl = node_grads_fn(lambda p, b: loss_fn(tc, p, b))(tparams, tbatch)
+    assert tl.shape == (n,) and not tl.requires_grad
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
+    for a, b in zip(tree_flatten(tg)[0], jax.tree.leaves(jg)):
+        assert not a.requires_grad
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                   rtol=0)

@@ -48,6 +48,7 @@ from repro.core.graph import irregular_graph as jirregular
 from repro.core.graph import make_graph as jmake_graph
 from repro.core.graph import sample_weighted_matching as jweighted
 from repro.core.simulator import run_events_oracle, run_superstep_oracle
+from repro_torch.core import simulator as TSIM
 from repro.data import DataConfig, SyntheticLMDataset, make_node_batches
 from repro.launch import train as jtrain
 from repro.models import init_params as jinit_params
@@ -457,6 +458,13 @@ def test_engine_matches_the_oracles_on_a_trace(mode):
     np.testing.assert_allclose(traj, ref, rtol=0, atol=2e-5)
     seq = run_events_oracle(x0, _grad_fn(X, Y), tr.pairs, tr.h,
                             sched.event_bin, LR, nonblocking=nonblocking)
+    # the port's own copy of the oracles is the reference's, bitwise
+    np.testing.assert_array_equal(TSIM.run_superstep_oracle(
+        x0, _grad_fn(X, Y), sched.perms, H_MEAN, LR, nonblocking=nonblocking,
+        h_schedule=sched.h, masks=sched.mask), ref)
+    np.testing.assert_array_equal(TSIM.run_events_oracle(
+        x0, _grad_fn(X, Y), tr.pairs, tr.h, sched.event_bin, LR,
+        nonblocking=nonblocking), seq)
     for s in range(sched.n_supersteps):
         last_e = int(np.nonzero(sched.event_bin == s)[0][-1])
         np.testing.assert_allclose(traj[s], seq[last_e], rtol=0, atol=2e-5)
