@@ -2,6 +2,8 @@
 """On-card smoke of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one H100; exits non-zero on any failure
+    python3 chip_smoke.py --only multi_shard   # the node mesh's phases
+                                               # alone (2 or more GPUs)
 
 Phases, each printed on its own line:
 
@@ -183,7 +185,30 @@ Phases, each printed on its own line:
     a hot swap: paged == dense and swap == no swap bitwise, no added shape
     signature, finite one-shot logits, tokens/s, TTFT, KV bytes and the
     chunked schedule's agreement with blocking; paligemma-3b served
-    one-shot with its 256-row prefix, and refused by the engine.
+    one-shot with its 256-row prefix, and refused by the engine;
+28. the node mesh's reference (``multi_shard_reference``; 2 or more
+    GPUs, 4 ranks on 4): one node a GPU, NCCL between them, the reduced
+    cases of ``tests/test_torch_multishard.py`` — the flat exchange at
+    every codec, masked and not, static and pool, the payload permutes,
+    the per-leaf oracles, 3 supersteps of the reduced transformer-wmt
+    engine blocking exact / q8, non-blocking and overlapped q8, each
+    restarted from the CPU's state — against the CPU's one-shard port,
+    within `phase_reference`'s bound, with planted faults (a mask
+    ignored, a partner off by one, a missed wait on the received
+    tensors) failing it;
+29. the node mesh at full width (``multi_shard_full_width``):
+    transformer-wmt at full width and depth, one node a GPU, 4
+    supersteps each of blocking q8 ``ppermute``, ``ppermute_pool
+    --nonblocking --overlap`` q8 and the ``ppermute_legacy`` oracle
+    exact; every exchange bitwise rank 0's rerun of it on one card
+    through the one-shard path, flat exact bitwise its per-leaf oracle,
+    launches 8/4/4, 8/4/4, 8/0/0 on every rank; it prints superstep
+    times, the exchange's NCCL time, wire bytes, the GPUs' link, the
+    overlapped command's ``permute_overlap``, peak memory, Γ and Γ's
+    all-reduce time. With one GPU both print ``{"phase": "multi_shard",
+    "ran": false, "gpus": 1, "needs": 2}`` and run nothing: a declared
+    precondition (NCCL refuses two ranks on one GPU). The parent builds
+    the kernels before it spawns the ranks, which load them.
 
 The card's line is printed again before the kernels' JSON record, which
 is the line before the last; the last line is
@@ -3560,7 +3585,831 @@ def phase_zoo_serve_full_width():
     return by_path
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# The node mesh: one node a GPU, NCCL between them (phases 28 and 29)
+# ---------------------------------------------------------------------------
+
+MS_DIR = os.path.join(ROOT, "build", "chip_smoke_multi_shard")
+MS_STEPS = 4
+MS_ENGINES = (("exact", "blocking"), ("q8", "blocking"),
+              ("q8", "nonblocking"), ("q8", "overlap"))
+# the full-width commands: name -> (gossip impl, quantize, mode)
+MS_COMMANDS = {
+    "multi_shard_ppermute_q8": ("ppermute", True, "blocking"),
+    "multi_shard_pool_overlap_q8": ("ppermute_pool", True, "overlap"),
+    "multi_shard_ppermute_legacy_exact": ("ppermute_legacy", False,
+                                          "blocking"),
+}
+
+
+def _ms_world(n_gpus: int) -> int:
+    """Ranks of the mesh: 4 with 4 or more GPUs, else 2 (one node a GPU;
+    an even count, so the static matching pairs every node)."""
+    return 4 if n_gpus >= 4 else 2
+
+
+def _ms_perm(world: int):
+    """The reference cases' static matching: i <-> i + world / 2."""
+    import numpy as np
+    return (np.arange(world) + world // 2) % world
+
+
+def _ms_pool(world: int):
+    """A pool of three: the identity, adjacent pairs, and one pair (0,
+    world / 2) with every other node unmatched."""
+    import numpy as np
+    part = np.arange(world)
+    part[0], part[world // 2] = world // 2, 0
+    return [np.arange(world), np.arange(world) ^ 1, part]
+
+
+def _ms_quants() -> dict:
+    """The reference cases' wires by name (None: exact fp32)."""
+    from repro_torch.quant.codecs import make_codec
+    from repro_torch.quant.schemes import ModularQuantConfig
+    return {"exact": None, "q4": ModularQuantConfig(bits=4),
+            "q8": ModularQuantConfig(), "q16": ModularQuantConfig(bits=16),
+            "bf16": make_codec("bf16")}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _ms_spawn(fn, world: int, *args) -> None:
+    """Run fn(rank, world, port, *args) in `world` spawned processes, one
+    a GPU, rendezvous on a free localhost port; a rank's exception fails
+    the phase and the other ranks are stopped."""
+    import torch.multiprocessing as mp
+    mp.spawn(fn, args=(world, _free_port()) + args, nprocs=world,
+             join=True)
+
+
+def _ms_mesh(rank: int, world: int, port: int, device: str):
+    """A rank's setup: the mesh (NCCL on cuda), the card's fp32 matmuls
+    without TF32, as in `main`."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.mesh import init_node_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return init_node_mesh(device, rank=rank, world_size=world,
+                          init_method=f"tcp://localhost:{port}")
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class _Events:
+    """Elapsed ms between marks on the current stream: CUDA events on
+    the card (read after a sync), the host clock elsewhere."""
+
+    def __init__(self, dev):
+        self.dev, self.marks = dev, []
+
+    def mark(self):
+        import torch
+        if self.dev.type == "cuda":
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.marks.append(e)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def spans_ms(self) -> list:
+        """Pairs of marks (0-1, 2-3, ...) as ms; clears them."""
+        _sync(self.dev)
+        m, self.marks = self.marks, []
+        if self.dev.type == "cuda":
+            return [a.elapsed_time(b) for a, b in zip(m[::2], m[1::2])]
+        return [(b - a) * 1e3 for a, b in zip(m[::2], m[1::2])]
+
+
+def _ms_reference_inputs(world: int, cfg) -> dict:
+    """The CPU's side of `multi_shard_reference`: one shard, every node in
+    this process, plain kernel versions — the flat exchanges, the payload
+    permutes and the per-leaf oracles of the reduced cases, and 3
+    supersteps of each engine case (reduced transformer-wmt, the
+    ppermute transport), with the states before each superstep, the
+    uniforms, the batches and the encode's scales."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bucket as B
+    from repro_torch.core import exchange as E
+    from repro_torch.core.swarm import SwarmConfig, make_swarm_step
+    from repro_torch.core.swarm import swarm_init
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.quant.codecs import LatticeCodec
+    from repro_torch.quant.schemes import ModularQuantConfig
+    from repro_torch.tree import tree_map
+
+    rng = np.random.default_rng(5)
+    n_pad = 8192
+
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    buf = arr(world, n_pad)
+    prev = buf + 0.01 * arr(world, n_pad)
+    u = torch.from_numpy(rng.random((world, n_pad)).astype(np.float32))
+    mask = torch.ones(world, dtype=torch.bool)
+    mask[world // 2] = False
+    pairs = B.pairs_from_perm(_ms_perm(world))
+    pool = _ms_pool(world)
+    quants = _ms_quants()
+    out = {"buf": buf, "prev": prev, "u": u, "mask": mask, "flat": {},
+           "scales": {}}
+    for name, q in quants.items():
+        if name not in ("exact", "bf16"):
+            out["scales"][name] = B.as_codec(q).encode(
+                buf, prev, None, u=u)[1].reshape(world, -1)
+        for masked in (False, True):
+            kw = dict(quant=q, prev_buf=prev, u=u,
+                      mask=mask if masked else None)
+            out["flat"][(name, masked, "static")] = B.gossip_flat_ppermute(
+                buf, pairs, **kw)
+            out["flat"][(name, masked, "pool")] = \
+                B.gossip_flat_ppermute_pool(buf, pool, 2, **kw)
+    payload = (buf, torch.from_numpy(
+        rng.integers(0, 256, size=(world * 8, 256)).astype(np.uint8)))
+    out["payload"] = payload
+    out["permuted"] = {
+        "static": B.permute_payload_ppermute(payload, pairs, world),
+        "pool": B.permute_payload_pool(payload, pool, 2, world)}
+    tree = {"a": arr(world, 6, 16), "b": arr(world, 300),
+            "c": arr(world, 3, 5).to(torch.bfloat16)}
+    tprev = tree_map(lambda x: (x.float() + 0.01).to(x.dtype), tree)
+    u_leaf = [torch.from_numpy(rng.random(
+        (1, -(-x[0].numel() // 256), 256)).astype(np.float32))
+        for x in (tree["a"], tree["b"], tree["c"])]
+    out.update(tree=tree, tprev=tprev, u_leaf=u_leaf, leaf={})
+    for name, q in (("exact", None), ("q8", ModularQuantConfig())):
+        out["leaf"][name] = E.gossip_ppermute(
+            tree, pairs, q, tprev, None,
+            u=[x.repeat(world, 1, 1) for x in u_leaf])
+    # the engine cases: each superstep's state, and where it went
+    model = TransformerLM(cfg)
+    h, batch, seq = 2, 2, 16
+    out["engines"] = {}
+    for codec, mode in MS_ENGINES:
+        q8 = codec == "q8"
+        scfg = SwarmConfig(n_nodes=world, H=h, quantize=q8,
+                           nonblocking=mode != "blocking",
+                           overlap=mode == "overlap", gossip_impl="ppermute")
+        opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
+        step = make_swarm_step(scfg, model.functional_loss, opt.update,
+                               lambda s: 0.05, transport=E.GossipTransport(
+                                   world, impl="ppermute",
+                                   static_pairs=pairs))
+        gen = torch.Generator().manual_seed(0)
+        state = swarm_init(gen, scfg, lambda g: init_params(g, cfg, "cpu"),
+                           opt.init)
+        if not q8:    # distinct nodes, so the exact exchange moves them
+            state.params = tree_map(
+                lambda x: x + 0.01 * torch.randn(x.shape, generator=gen),
+                state.params)
+        n_pad_m = B.build_layout(state.params).n_padded
+        traj = []
+        for t in range(3):
+            tok = torch.randint(0, cfg.vocab_size, (world, h, batch, seq + 1),
+                                generator=gen)
+            b = {"tokens": tok[..., :-1], "targets": tok[..., 1:]}
+            ut = torch.rand((world, n_pad_m), generator=gen)
+            scales = []
+            orig = LatticeCodec.encode
+
+            def enc(codec_, *a, **kw):
+                q_, s_ = orig(codec_, *a, **kw)
+                scales.append(s_.reshape(world, -1))
+                return q_, s_
+            LatticeCodec.encode = enc
+            try:
+                nxt, m = step(state, b, _ms_perm(world),
+                              np.full(world, h), None, u=ut)
+            finally:
+                LatticeCodec.encode = orig
+            if mode == "overlap":
+                s = state.inflight["wire"][1].reshape(world, -1)
+            else:
+                s = scales[0] if scales else None
+            traj.append({"state": state, "batch": b, "u": ut, "scales": s,
+                         "after": nxt.params, "loss": float(m["loss"]),
+                         "gamma": float(m["gamma"])})
+            state = nxt
+        out["engines"][(codec, mode)] = traj
+    return out
+
+
+def _ms_rows(x, r: int, n: int = 1):
+    """Rank r's rows of a node-stacked tree / tuple / tensor, to its
+    device later."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_ms_rows(v, r, n) for v in x)
+    if isinstance(x, dict):
+        return {k: _ms_rows(v, r, n) for k, v in x.items()}
+    return x[r * n:(r + 1) * n]
+
+
+def _ms_to(x, dev):
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_ms_to(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _ms_to(v, dev) for k, v in x.items()}
+    return x.to(dev)
+
+
+def _ms_reference_rank(rank, world, port, path, device):
+    """A rank of `multi_shard_reference`: every reduced case on its GPU
+    from the CPU's inputs (engine supersteps restarted from the CPU's
+    state), and the planted faults; saves its results beside `path`."""
+    import numpy as np
+    import torch
+    mesh = _ms_mesh(rank, world, port, device)
+    dev = mesh.device
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import bucket as B
+    from repro_torch.core import exchange as E
+    from repro_torch.core.swarm import SwarmConfig, SwarmState
+    from repro_torch.core.swarm import make_swarm_step
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import make_optimizer
+    from repro_torch.quant.schemes import ModularQuantConfig
+    inp = torch.load(path, weights_only=False)
+    pairs = B.pairs_from_perm(_ms_perm(world))
+    pool = _ms_pool(world)
+    quants = _ms_quants()
+    buf, prev, u = (_ms_to(_ms_rows(inp[k], rank), dev)
+                    for k in ("buf", "prev", "u"))
+    mask = inp["mask"].to(dev)
+    out = {"flat": {}, "leaf": {}, "faults": {}, "engines": {}}
+    try:
+        for name, q in quants.items():
+            for masked in (False, True):
+                kw = dict(quant=q, prev_buf=prev, u=u,
+                          mask=mask if masked else None, mesh=mesh)
+                out["flat"][(name, masked, "static")] = \
+                    B.gossip_flat_ppermute(buf, pairs, **kw).cpu()
+                out["flat"][(name, masked, "pool")] = \
+                    B.gossip_flat_ppermute_pool(buf, pool, 2, **kw).cpu()
+        pay = _ms_to((_ms_rows(inp["payload"][0], rank),
+                      _ms_rows(inp["payload"][1], rank, 8)), dev)
+        out["permuted"] = {
+            "static": _ms_to(B.permute_payload_ppermute(
+                pay, pairs, world, mesh=mesh), "cpu"),
+            "pool": _ms_to(B.permute_payload_pool(
+                pay, pool, 2, world, mesh=mesh), "cpu")}
+        tree, tprev = (_ms_to(_ms_rows(inp[k], rank), dev)
+                       for k in ("tree", "tprev"))
+        u_leaf = [x.to(dev) for x in inp["u_leaf"]]
+        for name, q in (("exact", None), ("q8", ModularQuantConfig())):
+            out["leaf"][name] = _ms_to(E.gossip_ppermute(
+                tree, pairs, q, tprev, None, u=u_leaf, mesh=mesh), "cpu")
+        # planted faults on the masked q8 exchange
+        q8 = quants["q8"]
+        out["faults"]["mask_ignored"] = B.gossip_flat_ppermute(
+            buf, pairs, quant=q8, prev_buf=prev, u=u, mesh=mesh).cpu()
+        shifted = [(s, (d + 1) % world) for s, d in pairs]
+        out["faults"]["partner_off_by_one"] = B.gossip_flat_ppermute(
+            buf, shifted, quant=q8, prev_buf=prev, u=u, mask=mask,
+            mesh=mesh).cpu()
+        wait = B.Posted.wait
+
+        def missed(posted):
+            # the decode reads the receive buffers as they were before
+            # the transfer landed (the work itself is waited, so the
+            # channel stays in step)
+            return tuple(torch.zeros_like(x) for x in wait(posted))
+        B.Posted.wait = missed
+        try:
+            out["faults"]["missed_wait"] = B.gossip_flat_ppermute(
+                buf, pairs, quant=q8, prev_buf=prev, u=u, mask=mask,
+                mesh=mesh).cpu()
+        finally:
+            B.Posted.wait = wait
+        cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=32)
+        model = TransformerLM(cfg)
+        for (codec, mode), traj in inp["engines"].items():
+            scfg = SwarmConfig(n_nodes=world, H=2, quantize=codec == "q8",
+                               nonblocking=mode != "blocking",
+                               overlap=mode == "overlap",
+                               gossip_impl="ppermute")
+            opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
+            step = make_swarm_step(
+                scfg, model.functional_loss, opt.update, lambda s: 0.05,
+                transport=E.GossipTransport(world, impl="ppermute",
+                                            static_pairs=pairs, mesh=mesh),
+                mesh=mesh)
+            res = []
+            for t, rec in enumerate(traj):
+                s0 = rec["state"]
+                rpn = None if s0.inflight is None else \
+                    s0.inflight["sbuf"].shape[1] // 256
+                infl = None if s0.inflight is None else {
+                    "sbuf": _ms_rows(s0.inflight["sbuf"], rank),
+                    "prev": _ms_rows(s0.inflight["prev"], rank),
+                    "wire": _ms_rows(s0.inflight["wire"], rank, rpn)}
+                st = SwarmState(*(_ms_to(_ms_rows(x, rank), dev) for x in
+                                  (s0.params, s0.opt, s0.prev)), t,
+                                _ms_to(infl, dev))
+                b = _ms_to(_ms_rows(rec["batch"], rank), dev)
+                nxt, m = step(st, b, _ms_perm(world), np.full(world, 2),
+                              None, u=_ms_rows(rec["u"], rank).to(dev))
+                res.append({"after": _ms_to(nxt.params, "cpu"),
+                            "loss": float(m["loss"]),
+                            "gamma": float(m["gamma"])})
+            out["engines"][(codec, mode)] = res
+        _sync(dev)
+    finally:
+        mesh.close()
+    torch.save(out, os.path.join(os.path.dirname(path),
+                                 f"reference_rank{rank}.pt"))
+
+
+def phase_multi_shard_reference(world: int, device: str = "cuda"):
+    """`multi_shard_reference`: the reduced cases of
+    ``tests/test_torch_multishard.py`` on a mesh of `world` ranks, one a
+    GPU over NCCL, against the CPU's one-shard port (plain versions) on
+    the same inputs — the flat exchange at every codec, masked and not,
+    static and pool; the payload permutes; the per-leaf oracles; 3
+    supersteps of the reduced transformer-wmt engine blocking exact and
+    q8, non-blocking and overlapped q8, each restarted from the CPU's
+    state — held to `phase_reference`'s bound, with planted faults (a
+    mask ignored, a partner off by one, a missed wait on the received
+    tensors) that must fail it."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import bucket as B
+    os.makedirs(MS_DIR, exist_ok=True)
+    path = os.path.join(MS_DIR, "reference_inputs.pt")
+    cfg = reduced(get_config("transformer-wmt"), n_layers=1, d_model=32)
+    inp = _ms_reference_inputs(world, cfg)
+    torch.save(inp, path)
+    t0 = time.time()
+    _ms_spawn(_ms_reference_rank, world, path, device)
+    ranks = [torch.load(os.path.join(MS_DIR, f"reference_rank{r}.pt"),
+                        weights_only=False) for r in range(world)]
+    perm = _ms_perm(world)
+    cases, bitwise_pairs = {}, {}
+
+    def scales_of(name, form):
+        if name not in inp["scales"]:
+            return None
+        p = perm if form == "static" else _ms_pool(world)[2]
+        return inp["scales"][name][torch.as_tensor(p)]
+
+    def readings(got, want, s):
+        d = (got - want).abs()
+        r = {"max_abs": float(d.max()),
+             "share_within_2e-5": float((d <= 2e-5).double().mean()),
+             "finite": bool(torch.isfinite(got).all())}
+        if s is not None:
+            d = d.reshape(world, -1, 256)
+            r["beyond_one_step"] = int((~(d <= s.reshape(world, -1, 1)
+                                         + 2e-5)).sum())
+        return r
+
+    def ok(r):
+        return r["finite"] and _within_bound(r)
+    for key, want in inp["flat"].items():
+        got = torch.cat([r["flat"][key] for r in ranks])
+        r = readings(got, want, scales_of(key[0], key[2]))
+        cases["flat_{}_{}_{}".format(key[0], "masked" if key[1] else "full",
+                                     key[2])] = r
+        bitwise_pairs["flat_{}_{}_{}".format(*key)] = same_bits(got, want)
+        check(ok(r), f"multi_shard_reference: flat {key} {r}")
+    for form, want in inp["permuted"].items():
+        matched = torch.as_tensor(
+            (perm if form == "static" else _ms_pool(world)[2])
+            != list(range(world)))
+        for i, w in enumerate(want):
+            got = torch.cat([r["permuted"][form][i] for r in ranks])
+            rows = got.reshape(world, -1, *got.shape[1:])
+            same = same_bits(rows[matched],
+                             w.reshape(rows.shape)[matched]) and \
+                not rows[~matched].any()
+            bitwise_pairs[f"permuted_{form}_{i}"] = same
+            check(same, f"multi_shard_reference: payload permute {form}")
+    for name, want in inp["leaf"].items():
+        for k in want:
+            got = torch.cat([r["leaf"][name][k] for r in ranks])
+            r = readings(got.float(), want[k].float(), None)
+            cases[f"leaf_{name}_{k}"] = r
+            check(r["finite"] and r["share_within_2e-5"] >= 0.999 and
+                  (name != "exact" or r["max_abs"] <= 2e-5),
+                  f"multi_shard_reference: per-leaf {name} {k} {r}")
+    for (codec, mode), traj in inp["engines"].items():
+        for t, rec in enumerate(traj):
+            got = [r["engines"][(codec, mode)][t] for r in ranks]
+            lay = B.build_layout(rec["after"])
+            want = B.pack(lay, rec["after"])
+            card = torch.cat([B.pack(B.build_layout(g["after"]), g["after"])
+                              for g in got])
+            r = readings(card, want, None if rec["scales"] is None else
+                         rec["scales"][torch.as_tensor(perm)])
+            r["loss_rel"] = abs(got[0]["loss"] - rec["loss"]) / \
+                abs(rec["loss"])
+            r["gamma"] = [got[0]["gamma"], rec["gamma"]]
+            cases[f"engine_{codec}_{mode}_{t}"] = r
+            check(ok(r) and r["loss_rel"] < 1e-4 and
+                  len({g["loss"] for g in got}) == 1 and
+                  len({g["gamma"] for g in got}) == 1,
+                  f"multi_shard_reference: engine {codec} {mode} t={t} {r}")
+    faults = {}
+    want = inp["flat"][("q8", True, "static")]
+    for name in ("mask_ignored", "partner_off_by_one", "missed_wait"):
+        got = torch.cat([r["faults"][name] for r in ranks])
+        r = readings(got, want, scales_of("q8", "static"))
+        faults[name] = {"fails_bound": not ok(r), **r}
+        check(not ok(r), f"multi_shard_reference: planted fault {name} "
+              f"passes the bound {r}")
+    log("multi_shard_reference", ranks=world, seconds=time.time() - t0,
+        bitwise_card_vs_cpu=bitwise_pairs, cases=cases,
+        planted_faults=faults)
+
+
+def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
+    """A rank of `multi_shard_full_width`: its node of transformer-wmt at
+    full width (or `cfg_name`, a reduced stand-in for a CPU rehearsal) in
+    each of the MS_COMMANDS, 4 supersteps each; after each superstep rank
+    0 reruns the exchange on one device through the one-shard path from
+    every rank's gathered inputs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    mesh = _ms_mesh(rank, world, port, device)
+    dev = mesh.device
+    from repro_torch.algorithms import make_algorithm
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import bucket as B
+    from repro_torch.core import exchange as E
+    from repro_torch.core.graph import make_graph
+    from repro_torch.core.potential import gamma_potential
+    from repro_torch.core.swarm import SwarmConfig, swarm_init
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.data import make_node_batches
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.profile import summarize
+    from repro_torch.launch.train import presample_inputs
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.quant.codecs import LatticeCodec
+
+    cfg = get_config("transformer-wmt") if cfg_name is None else \
+        reduced(get_config("transformer-wmt"), n_layers=2, d_model=64)
+    model = TransformerLM(cfg)
+    graph = make_graph("complete", world)
+    batch, seq, h = 4, 128 if cfg_name is None else 16, 2
+
+    def gather(x):
+        """Every rank's `x` (one node's rows), stacked in rank order."""
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts)
+
+    def all_layout(layout):
+        return dataclasses.replace(layout, n_nodes=world)
+
+    results = {}
+    events = _Events(dev)
+    for name, (impl, quantize, mode) in MS_COMMANDS.items():
+        seed = 0
+        scfg = SwarmConfig(n_nodes=world, H=h, quantize=quantize,
+                           nonblocking=mode != "blocking",
+                           overlap=mode == "overlap", gossip_impl=impl,
+                           pool_size=8)
+        kw = {}
+        if impl.startswith("ppermute_pool"):
+            kw["matching_pool"] = E.make_matching_pool(graph, 8, seed)
+        else:
+            kw["static_pairs"] = B.pairs_from_perm(
+                E.static_ppermute_matching(graph, seed))
+        tr = E.GossipTransport(world, impl=impl, quant=scfg.quant,
+                               codec=scfg.make_codec(), mesh=mesh, **kw)
+        opt = make_optimizer("sgd", lr=0.05, momentum=0.9,
+                             state_dtype=cfg.opt_state_dtype)
+        step = make_algorithm("swarm", scfg=scfg,
+                              loss_fn=model.functional_loss,
+                              opt_update=opt.update, lr_fn=lambda s: 0.05,
+                              n_nodes=world, transport=tr, mesh=mesh)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        state = swarm_init(gen, scfg, lambda g: init_params(g, cfg, dev),
+                           opt.init, mesh=mesh)
+        ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=seq, seed=seed),
+                                n_nodes=world)
+        perms, hs = presample_inputs(scfg, graph,
+                                     np.random.default_rng(seed), MS_STEPS,
+                                     seed=seed)
+        ugen = torch.Generator(device=dev)
+        ugen.manual_seed(1000 + rank)
+        n_pad = B.build_layout(state.params).n_padded
+        # warm-up: NCCL sets up a pair's connection at its first exchange
+        B.permute_payload_ppermute((torch.zeros(1, 256, device=dev),),
+                                   tr.mesh_pairs(perms[0]), world,
+                                   mesh=mesh)
+        stash = {}
+        orig = {"mix": E.GossipTransport.mix_pair,
+                "decode": LatticeCodec.decode_avg,
+                "post": B.post_exchange, "wait": B.Posted.wait}
+
+        def mix(self, tree, perm, matched, **kw_):
+            out = orig["mix"](self, tree, perm, matched, **kw_)
+            stash.update(tree=tree, prev=kw_.get("prev"), u=kw_.get("u"),
+                         out=out)
+            return out
+
+        def decode(self, wire, ybuf, matched_rows=None, **kw_):
+            out = orig["decode"](self, wire, ybuf, matched_rows, **kw_)
+            stash.update(recv=wire, ybuf=ybuf, m_rows=matched_rows,
+                         decoded=out)
+            return out
+
+        def hooks(on: bool):
+            E.GossipTransport.mix_pair = mix if on else orig["mix"]
+            LatticeCodec.decode_avg = decode if on else orig["decode"]
+            B.post_exchange = post if on else orig["post"]
+            B.Posted.wait = wait if on else orig["wait"]
+
+        def post(payload, mesh_, pairs):
+            events.mark()
+            return orig["post"](payload, mesh_, pairs)
+
+        def wait(posted):
+            got = orig["wait"](posted)
+            events.mark()
+            return got
+        def check_exchange(t, sent):
+            """Rank 0 reruns superstep t's exchange through the one-shard
+            path from every rank's gathered inputs; -> into `rec`."""
+            if mode == "overlap":
+                q_all, s_all = (gather(w) for w in sent)
+                sb_all = gather(stash["ybuf"])
+                mr_all = gather(stash["m_rows"].to(torch.uint8))
+                out_all = gather(stash["decoded"])
+                recv_all = tuple(gather(w) for w in stash["recv"])
+                if rank == 0:
+                    recv1 = B.permute_payload_pool(
+                        (q_all, s_all), tr.matching_pool,
+                        torch.tensor([int(perms[t][0])], device=dev), world)
+                    out1 = tr.codec.decode_avg(recv1, sb_all, mr_all.bool())
+                    rec["recv_bitwise"].append(all(
+                        same_bits(a, b) for a, b in zip(recv1, recv_all)))
+                    rec["exchange_bitwise"].append(same_bits(out1, out_all))
+                return
+            tree = stash["tree"]
+            lay = B.build_layout(tree)
+            lay_all = all_layout(lay)
+            buf_all = gather(B.pack(lay, tree))
+            out_all = gather(B.pack(lay, stash["out"]))
+            pairs = tr.mesh_pairs(perms[t])
+            if quantize:
+                pb_all = gather(B.pack(lay, stash["prev"]))
+                u_all = gather(stash["u"])
+                if rank == 0:
+                    one = B.gossip_flat_ppermute(buf_all, pairs,
+                                                 quant=tr.codec,
+                                                 prev_buf=pb_all, u=u_all)
+                    rec["exchange_bitwise"].append(same_bits(
+                        B.pack(lay_all, B.unpack(lay_all, one)), out_all))
+            elif rank == 0:
+                leaf = B.pack(lay_all, E.gossip_ppermute(
+                    B.unpack(lay_all, buf_all), pairs))
+                flat = B.gossip_flat_ppermute(buf_all, pairs)
+                rec["exchange_bitwise"].append(same_bits(leaf, out_all))
+                rec["flat_equals_per_leaf"].append(same_bits(
+                    B.pack(lay_all, B.unpack(lay_all, flat)), leaf))
+
+        def barrier():
+            """Every rank at the same point, its device idle."""
+            dist.all_reduce(torch.zeros((1,), device=dev))
+            _sync(dev)
+
+        hooks(True)
+        rec = {"superstep_s": [], "nccl_ms": [], "losses": [], "gamma": [],
+               "peak_bytes": 0, "exchange_bitwise": [],
+               "flat_equals_per_leaf": [], "recv_bitwise": []}
+        try:
+            reset_launch_counts()
+            for t in range(MS_STEPS):
+                nb = make_node_batches(ds, t, batch * scfg.h_loop_bound)
+                bt = {k: torch.from_numpy(v[rank:rank + 1].reshape(
+                    1, scfg.h_loop_bound, batch, seq)).to(dev)
+                    for k, v in nb.items()}
+                u = torch.rand((1, n_pad), generator=ugen, device=dev) \
+                    if quantize else None
+                sent = state.inflight["wire"] if mode == "overlap" else None
+                stash.clear()
+                _sync(dev)
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                profiled = mode == "overlap" and t == 2 and rank == 0 \
+                    and dev.type == "cuda"
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) if profiled \
+                    else None
+                if prof is not None:
+                    prof.__enter__()
+                barrier()
+                t0 = time.perf_counter()
+                state, m = step(state, bt, perms[t], hs[t], gen, u=u)
+                m = {k: float(v) for k, v in m.items()}
+                _sync(dev)
+                dt = time.perf_counter() - t0
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    trace = os.path.join(out_dir, "overlap_trace.json")
+                    prof.export_chrome_trace(trace)
+                    with open(trace) as f:
+                        rec["profile"] = summarize(json.load(f), dt * 1e3)
+                    rec["profile"].pop("spans")
+                rec["superstep_s"].append(dt)
+                rec["nccl_ms"].append(sum(events.spans_ms()))
+                rec["losses"].append(m["loss"])
+                rec["gamma"].append(m["gamma"])
+                if dev.type == "cuda":
+                    rec["peak_bytes"] = max(
+                        rec["peak_bytes"],
+                        torch.cuda.max_memory_allocated(dev))
+                counts = dict(LAUNCHES)
+                # the check: rank 0 reruns this exchange on one device
+                # through the one-shard path (its launches not counted)
+                hooks(False)
+                check_exchange(t, sent)
+                stash.clear()
+                hooks(True)
+                LAUNCHES.update(counts)
+            rec["launches"] = dict(LAUNCHES)
+        finally:
+            hooks(False)
+        rec["wire_bytes_per_node"] = tr.payload_num_bytes(state.params,
+                                                          quantize)
+        results[name] = rec
+        last = state
+        del state, step, tr, sent
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    # Γ on the mesh: one all-reduce of the packed buffer, one of a scalar
+    g_ms = []
+    for _ in range(5):
+        events.mark()
+        gamma_potential(last.params, mesh=mesh)
+        events.mark()
+        g_ms.extend(events.spans_ms())
+    buf = B.pack(B.build_layout(last.params), last.params)[0]
+    ar_ms = []
+    for _ in range(5):
+        events.mark()
+        dist.all_reduce(buf)
+        events.mark()
+        ar_ms.extend(events.spans_ms())
+    results["gamma_ms"] = g_ms
+    results["allreduce_ms"] = ar_ms
+    results["allreduce_bytes"] = buf.numel() * buf.element_size()
+    mesh.close()
+    with open(os.path.join(out_dir, f"full_width_rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+
+
+def _link_type(world: int) -> dict:
+    """GPU0's link to each other GPU of the mesh, as ``nvidia-smi topo
+    -m`` prints it (NV<k> = k NVLinks); where that query fails, what it
+    printed, GPU0's NVLink status (``nvidia-smi nvlink -s -i 0``) and
+    whether GPU0 can reach each peer's memory directly."""
+    import torch
+
+    def smi(*a):
+        try:
+            return subprocess.run(["nvidia-smi", *a], capture_output=True,
+                                  text=True, timeout=60).stdout.strip()
+        except (OSError, subprocess.TimeoutExpired) as e:
+            return f"error: {e}"
+    txt = smi("topo", "-m")
+    rows = [ln.split() for ln in txt.splitlines() if ln.startswith("GPU0")]
+    if rows and len(rows[0]) > world:
+        return {f"GPU0-GPU{j}": rows[0][1 + j] for j in range(1, world)}
+    links = [ln.strip() for ln in smi("nvlink", "-s", "-i", "0").splitlines()
+             if ln.strip().startswith("Link")]
+    return {"topo_m": txt[:200], "nvlink_gpu0": links,
+            "peer_access_gpu0": [torch.cuda.can_device_access_peer(0, j)
+                                 for j in range(1, world)]}
+
+
+def phase_multi_shard_full_width(world: int, device: str = "cuda",
+                                 cfg_name=None) -> dict:
+    """`multi_shard_full_width`: transformer-wmt at full width and depth
+    (12 layers, d_model 1024, bf16 with fp32 momentum, batch 4 x seq
+    128), one node a rank, `world` ranks over NCCL; three commands of
+    MS_STEPS supersteps — blocking q8 ``ppermute``, ``ppermute_pool
+    --nonblocking --overlap`` q8 (pool 8) and the ``ppermute_legacy``
+    oracle exact. Every superstep's exchange equals, bitwise, rank 0's
+    rerun of it on one device through the one-shard path (the lifted
+    perm, the ranks' uniforms); the flat exact exchange equals its
+    per-leaf oracle bitwise; every rank launches all three kernels of the
+    q8 commands. Prints per command the superstep times (every rank's),
+    the exchange's NCCL time (CUDA events from the post to the landed
+    work), wire bytes per node, the GPUs' link, ``permute_overlap``
+    (overlapped command, rank 0's trace of its 3rd superstep), peak
+    memory and launches per rank, and Γ, then Γ's and an all-reduce's
+    time at the model's size; -> {path: rank 0's launches}."""
+    os.makedirs(MS_DIR, exist_ok=True)
+    t0 = time.time()
+    _ms_spawn(_ms_full_width_rank, world, cfg_name, MS_DIR, device)
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(MS_DIR, f"full_width_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    want = {"multi_shard_ppermute_q8": {"sgd_update": 8, "quantize_mod": 4,
+                                        "decode_avg": 4},
+            "multi_shard_pool_overlap_q8": {"sgd_update": 8,
+                                            "quantize_mod": 4,
+                                            "decode_avg": 4},
+            "multi_shard_ppermute_legacy_exact": {"sgd_update": 8,
+                                                  "quantize_mod": 0,
+                                                  "decode_avg": 0}}
+    out, by_path = {}, {}
+    for name in MS_COMMANDS:
+        per = [r[name] for r in ranks]
+        r0 = per[0]
+        losses = [p["losses"] for p in per]
+        check(all(math.isfinite(x) for x in losses[0]) and
+              all(x == losses[0] for x in losses),
+              f"{name}: losses not finite or not the same on every rank")
+        check(len(r0["exchange_bitwise"]) == MS_STEPS and
+              all(r0["exchange_bitwise"]),
+              f"{name}: the mesh's exchange != the one-shard rerun: "
+              f"{r0['exchange_bitwise']}")
+        if name.endswith("legacy_exact"):
+            check(all(r0["flat_equals_per_leaf"]) and
+                  len(r0["flat_equals_per_leaf"]) == MS_STEPS,
+                  f"{name}: flat exact != per-leaf oracle")
+        if "overlap" in name:
+            check(all(r0["recv_bitwise"]), f"{name}: received != sent")
+        if device == "cuda":
+            for r, p in enumerate(per):
+                check(p["launches"] == want[name],
+                      f"{name}: rank {r} launches {p['launches']} != "
+                      f"{want[name]}")
+        steady = [statistics.median(p["superstep_s"][1:]) for p in per]
+        out[name] = {
+            "superstep_s_by_rank": [p["superstep_s"] for p in per],
+            "superstep_median_s_rank0": steady[0],
+            "superstep_median_s_max_rank": max(steady),
+            "nccl_ms_by_rank": [p["nccl_ms"] for p in per],
+            "wire_bytes_per_node": r0["wire_bytes_per_node"],
+            "peak_bytes_by_rank": [p["peak_bytes"] for p in per],
+            "launches_by_rank": [p["launches"] for p in per],
+            "losses": r0["losses"], "gamma": r0["gamma"],
+            "exchange_bitwise": r0["exchange_bitwise"],
+            **({"flat_equals_per_leaf": r0["flat_equals_per_leaf"]}
+               if r0["flat_equals_per_leaf"] else {}),
+            **({"permute_overlap": r0["profile"]["permute_overlap"],
+                "profile_idle_share": r0["profile"]["idle_share"]}
+               if "profile" in r0 else {})}
+        by_path[name] = r0["launches"]
+    log("multi_shard_full_width", ranks=world, seconds=time.time() - t0,
+        link=_link_type(world) if device == "cuda" else None,
+        gamma_ms=ranks[0]["gamma_ms"], allreduce_ms=ranks[0]["allreduce_ms"],
+        allreduce_bytes=ranks[0]["allreduce_bytes"], **out)
+    return by_path
+
+
+def phase_multi_shard() -> dict:
+    """The node-mesh phases where the host has 2 or more GPUs; on one,
+    the declared not-run line. -> {path: launches}."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("multi_shard", ran=False, gpus=n, needs=2)
+        return {}
+    world = _ms_world(n)
+    # rank 0 shares GPU 0 with this process: hand back its cached blocks
+    _fresh_memory()
+    phase_multi_shard_reference(world)
+    return phase_multi_shard_full_width(world)
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--only", choices=["multi_shard"], default=None,
+                    help="run only these phases (multi_shard: the node "
+                         "mesh's two phases, for a host with 2 or more "
+                         "GPUs); default: every phase")
+    args = ap.parse_args(argv)
     # expandable segments, set before the allocator starts, as the port's
     # entry points set them (launch/train.py `use_expandable_segments`):
     # the smoke calls the drivers' functions, not their `main`, in one
@@ -3592,6 +4441,13 @@ def main() -> int:
     build.build_all()
     log("build", seconds=time.time() - t0,
         libraries=[str(build.library_path(n)) for n in build.KERNELS])
+    if args.only == "multi_shard":
+        phase_multi_shard()
+        print(smi[0], flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     records = phase_kernels()
     phase_reference()
@@ -3620,6 +4476,7 @@ def main() -> int:
     phase_zoo_reference()
     serving.update(phase_zoo_train_full_width())
     serving.update(phase_zoo_serve_full_width())
+    serving.update(phase_multi_shard())
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": TPU_KERNELS[n], "launches": counts[n],
                 "launches_by_path": {"overlap_q8_geometric": counts[n],

@@ -9,9 +9,10 @@ n_nodes=..., ...)`` and returns a superstep with the uniform signature
 :data:`CAPABILITIES` is the JAX package's matrix, row for row: which
 (transport, execution mode, quantization, codec, scheduler) combination
 each algorithm supports. `validate_run_config` raises wherever the
-reference's raises, and nowhere else: every transport of the
-reference runs in the port on one shard (a multi-shard transport raises
-in ``core/bucket.py``, naming its ROADMAP.md item).
+reference's raises; on one shard nowhere else. On a node mesh
+(``launch/mesh.py``) it also refuses what the mesh does not carry yet —
+the baselines, the gather transport, ``--scan-chunk`` — each naming its
+ROADMAP.md item (``core/bucket.py`` NOT_ON_A_MESH).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from dataclasses import dataclass
 from typing import Callable, Tuple
 
 from repro_torch.algorithms import adpsgd, allreduce, dpsgd, localsgd, sgp
+from repro_torch.core.bucket import NOT_ON_A_MESH
 from repro_torch.quant.codecs import make_codec
 
 
@@ -97,10 +99,12 @@ CAPABILITIES = {
 
 
 def _make_swarm(loss_fn, opt_update, lr_fn, n_nodes, H: int = 2, scfg=None,
-                track_potential: bool = None, transport=None, **swarm_kw):
+                track_potential: bool = None, transport=None, mesh=None,
+                **swarm_kw):
     """Route 'swarm' through the baselines' factory signature: pass a full
     SwarmConfig via `scfg`, or let one be built from (n_nodes, H) plus any
-    SwarmConfig field given as a keyword."""
+    SwarmConfig field given as a keyword; `mesh` passes through to
+    `make_swarm_step`."""
     from repro_torch.core.swarm import SwarmConfig, make_swarm_step
     if scfg is None:
         if track_potential is not None:
@@ -112,7 +116,7 @@ def _make_swarm(loss_fn, opt_update, lr_fn, n_nodes, H: int = 2, scfg=None,
         raise TypeError(f"pass either scfg or SwarmConfig fields, not both: "
                         f"{extra}")
     return make_swarm_step(scfg, loss_fn, opt_update, lr_fn,
-                           transport=transport)
+                           transport=transport, mesh=mesh)
 
 
 ALGORITHMS = {
@@ -129,6 +133,8 @@ def make_algorithm(name: str, **kw) -> Callable:
     if name not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {name!r}; known: "
                          f"{sorted(ALGORITHMS)}")
+    if name != "swarm" and kw.pop("mesh", None) is not None:
+        raise NotImplementedError(f"--algo {name}: {NOT_ON_A_MESH['gather']}")
     return ALGORITHMS[name](**kw)
 
 
@@ -137,15 +143,18 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
                         overlap: bool = False, rate_profile: str = "none",
                         codec: str = None, avail: str = None,
                         topology: str = None, compress_state: bool = False,
-                        n_nodes: int = None) -> AlgoCaps:
+                        n_nodes: int = None, mesh=None,
+                        scan_chunk: int = 0) -> AlgoCaps:
     """Config-time validation of a run against the capability matrix.
 
     Raises ValueError with the algorithm's matrix row where the reference
     does (``--gossip-impl``, ``--rate-profile``, ``--avail``,
     ``--topology``, ``--codec`` and ``--compress-state`` included). There
     is no environment default: None means gather, the q8 lattice, no
-    topology, no availability profile. Returns the AlgoCaps row
-    otherwise."""
+    topology, no availability profile. On a node `mesh` it raises
+    NotImplementedError, naming the ROADMAP.md item, for a baseline, the
+    gather transport and ``--scan-chunk`` (a residual codec is refused
+    off gather already). Returns the AlgoCaps row otherwise."""
     if algo not in CAPABILITIES:
         raise ValueError(f"unknown algorithm {algo!r}; known: "
                          f"{sorted(CAPABILITIES)}")
@@ -161,6 +170,13 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     gossip_impl = gossip_impl or "gather"
     base = gossip_impl[:-len("_legacy")] \
         if gossip_impl.endswith("_legacy") else gossip_impl
+    if mesh is not None:
+        if algo != "swarm" or base == "gather":
+            raise NotImplementedError(
+                f"--algo {algo} --gossip-impl {gossip_impl}: "
+                f"{NOT_ON_A_MESH['gather']}")
+        if scan_chunk:
+            raise NotImplementedError(NOT_ON_A_MESH["scan"])
     if base not in caps.transports:
         reject(f"--gossip-impl {gossip_impl}")
     mode = "overlap" if overlap else \

@@ -21,9 +21,12 @@ Three transports move the payload between nodes, as in the reference:
 ``ppermute_pool`` (a matching drawn each superstep from K precompiled ones,
 by an index). With every node in one process on one device — one shard —
 the ppermute transports are a local permute by the static pairs or by the
-pool entry, as the reference's one-shard branch is; a mesh of more than
-one shard (one rank a GPU) waits for the multi-GPU item of ROADMAP.md and
-raises.
+pool entry, as the reference's one-shard branch is. On a node mesh
+(``launch/mesh.py``: one node a ``torch.distributed`` rank, NCCL on the
+card, gloo on the CPU) they are the reference's ``shard_map`` bodies: each
+rank encodes its own rows, ONE ``batch_isend_irecv`` message per wire
+tensor crosses to and from its partner by the static pairs, and the fused
+decode-average lands against its own rows.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.quant.codecs import LatticeCodec, WireCodec
@@ -314,19 +318,28 @@ def gossip_flat_quantized(qcfg, buf, prev_buf, perm, matched, rng, *,
 
 
 # ---------------------------------------------------------------------------
-# The ppermute transports on one shard
+# The ppermute transports: every node on one shard, or a node mesh of one
+# node a rank (``launch/mesh.py``)
 # ---------------------------------------------------------------------------
 
-MULTI_SHARD = ("a node mesh of more than one shard (one rank a GPU over "
-               "torch.distributed) waits for the multi-GPU (NCCL) "
-               "transport item of ROADMAP.md (Queue A 4)")
+#: What a node mesh does not carry yet, each refusal naming the ROADMAP.md
+#: item that carries it.
+NOT_ON_A_MESH = {
+    "gather": ("the gather transport and the baselines' global_mean / "
+               "matrix_mix on a node mesh (an all-gather / all-reduce) wait "
+               "for ROADMAP.md Queue A 3"),
+    "scan": ("--scan-chunk on a node mesh (NCCL inside CUDA graphs) waits "
+             "for ROADMAP.md Queue A 4"),
+    "nodes_per_shard": ("a node mesh holds one node a rank; more than one "
+                        "node a shard waits for ROADMAP.md Queue A 6"),
+}
 
 
-def check_one_shard(n_shards: int) -> None:
-    """Every node lives in this process on one device; anything else
-    raises — there is no fallback to the one-shard path."""
-    if n_shards != 1:
-        raise NotImplementedError(f"n_shards={n_shards}: {MULTI_SHARD}")
+def check_mesh_nodes(n_nodes: int, mesh) -> None:
+    """One node a rank: `n_nodes` must be the mesh's size."""
+    if n_nodes != mesh.size:
+        raise ValueError(f"n_nodes={n_nodes} on a node mesh of {mesh.size} "
+                         f"ranks: {NOT_ON_A_MESH['nodes_per_shard']}")
 
 
 def _perm_from_pairs(n: int, pairs):
@@ -374,20 +387,155 @@ def pool_perm(pool, pool_idx, device) -> torch.Tensor:
     return stacked.index_select(0, idx).reshape(-1)
 
 
+def pool_pairs(pool, pool_idx):
+    """The static pairs of ``pool[pool_idx]``, chosen on the host: a node
+    mesh posts its messages by them, so the index is a host value (an
+    int, a numpy array or a CPU tensor, its first element read), clamped
+    into the pool as ``lax.switch`` clamps it."""
+    idx = int(np.asarray(pool_idx).reshape(-1)[0])
+    return pairs_from_perm(pool[min(max(idx, 0), len(pool) - 1)])
+
+
+def mesh_peers(pairs, mesh):
+    """-> (dst, src): the rank this rank sends to and the one it receives
+    from under the static `pairs` (None where it has none; a self-pair
+    moves nothing), as ``ppermute`` reads them: each rank a source and a
+    destination at most once."""
+    for s, d in pairs:
+        if not (0 <= s < mesh.size and 0 <= d < mesh.size):
+            raise ValueError(f"pair {(s, d)} outside a node mesh of "
+                             f"{mesh.size}")
+    dst = [int(d) for s, d in pairs if s == mesh.rank and s != d]
+    src = [int(s) for s, d in pairs if d == mesh.rank and s != d]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"pairs {pairs}: rank {mesh.rank} sends to {dst} "
+                         f"and receives from {src}; a permutation sends and "
+                         "receives once")
+    return (dst[0] if dst else None), (src[0] if src else None)
+
+
+class Posted:
+    """The point-to-point work of one exchange in flight on a node mesh:
+    `recv`, the tensors it receives into, holds the partner's payload once
+    :meth:`wait` returns. It holds what it sends until then. ``wait``
+    makes the current CUDA stream wait for the transfer (NCCL; the NCCL
+    stream itself waited for the current stream when the work was posted)
+    or blocks until it is done (gloo)."""
+
+    def __init__(self, works, recv, sent):
+        self.works, self.recv, self._sent = works, recv, sent
+
+    def wait(self) -> Tuple[torch.Tensor, ...]:
+        for w in self.works:
+            w.wait()
+        self.works, self._sent = [], ()
+        return self.recv
+
+
+def post_exchange(payload: Sequence[torch.Tensor], mesh, pairs) -> Posted:
+    """Post this rank's share of one exchange of `payload` (a tuple of
+    tensors, the rank's rows) by the static `pairs`: ONE message per
+    tensor to its destination and one from its source, in one
+    ``batch_isend_irecv``, in payload order on both sides. Every tensor
+    crosses as a contiguous uint8 view of its bytes and is viewed back on
+    receipt (NCCL has no 16-bit integer type), so uint16 codes and bf16
+    cross bit for bit. Where the pairs give the rank no source it receives
+    zeros, as ``ppermute`` gives; an all-identity matching posts
+    nothing."""
+    dst, src = mesh_peers(pairs, mesh)
+    ops, recv, sent = [], [], []
+    for i, x in enumerate(payload):
+        if dst is not None:
+            xb = x.contiguous().reshape(-1).view(torch.uint8)
+            ops.append(dist.P2POp(dist.isend, xb, dst, group=mesh.group,
+                                  tag=i))
+            sent.append(xb)
+        nb = x.numel() * x.element_size()
+        if src is None:
+            rb = torch.zeros((nb,), dtype=torch.uint8, device=x.device)
+        else:
+            rb = torch.empty((nb,), dtype=torch.uint8, device=x.device)
+            ops.append(dist.P2POp(dist.irecv, rb, src, group=mesh.group,
+                                  tag=i))
+        recv.append(rb.view(x.dtype).reshape(x.shape))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return Posted(works, tuple(recv), tuple(sent))
+
+
+def _one_node_a_rank(x: torch.Tensor, mesh) -> None:
+    if x.shape[0] != 1:
+        raise ValueError(f"a rank of a node mesh holds one node, got a "
+                         f"leading dim of {x.shape[0]}: "
+                         f"{NOT_ON_A_MESH['nodes_per_shard']}")
+
+
+def mesh_landing(mesh, pairs, mask, device) -> torch.Tensor:
+    """This rank's landing flag, bool [1]: matched by the static pairs,
+    gated by ``mask[rank]`` when a participation `mask` (bool
+    [mesh.size], the global vector) is given — the reference's
+    ``_local_mask(axis_index, mask)``."""
+    if mask is not None and tuple(mask.shape) != (mesh.size,):
+        raise ValueError(f"a mask of shape {tuple(mask.shape)} on a node "
+                         f"mesh of {mesh.size}: it takes the global "
+                         f"[{mesh.size}] vector")
+    if _perm_from_pairs(mesh.size, pairs)[mesh.rank] == mesh.rank:
+        return torch.zeros((1,), dtype=torch.bool, device=device)
+    if mask is None:
+        return torch.ones((1,), dtype=torch.bool, device=device)
+    return mask[mesh.rank:mesh.rank + 1].to(device=device, dtype=torch.bool)
+
+
+def _gossip_on_mesh(buf, pairs, codec, prev_buf, rng, u, mask, mesh,
+                    tile_rows):
+    """This rank's share of a static-pairs exchange on a node mesh (the
+    reference's ``shard_map`` body): the encode of its own rows with its
+    own uniforms, one message per wire tensor to and from its partner, the
+    fused decode-average against its own rows, landing where
+    :func:`mesh_landing` says. A rank with no partner returns `buf`."""
+    _one_node_a_rank(buf, mesh)
+    if codec is not None and codec.needs_rng and u is None \
+            and rng is not None:
+        # every rank folds, partner or not, so the run's generator moves
+        # on alike everywhere
+        rng = mesh.fold_generator(rng)
+    peers = mesh_peers(pairs, mesh)
+    m = mesh_landing(mesh, pairs, mask, buf.device)
+    if peers == (None, None):
+        return buf
+    if codec is None:
+        with record_function("gossip.permute"):
+            xh, = post_exchange((buf,), mesh, pairs).wait()
+        return torch.where(m[:, None], (buf + xh) * 0.5, buf)
+    with record_function("gossip.encode"):
+        wire = codec.encode(buf, prev_buf, rng, u=u, tile_rows=tile_rows)
+    with record_function("gossip.permute"):
+        wire_p = post_exchange(wire, mesh, pairs).wait()
+    del wire
+    m_rows = row_mask(m, buf.shape[1] // codec.block)
+    with record_function("gossip.decode"):
+        return codec.decode_avg(wire_p, buf, m_rows, tile_rows=tile_rows)
+
+
 def permute_payload_ppermute(payload: Sequence[torch.Tensor], pairs,
-                             n_nodes: int, *, n_shards: int = 1):
-    """ONE permute per in-flight payload tensor by the static pairs."""
-    check_one_shard(n_shards)
+                             n_nodes: int, *, mesh=None):
+    """ONE permute per in-flight payload tensor by the static pairs: a
+    local gather on one shard; on a node `mesh` ONE message per tensor to
+    and from the rank's partner, -> the tensors it received."""
+    if mesh is not None:
+        check_mesh_nodes(n_nodes, mesh)
+        return post_exchange(payload, mesh, pairs).wait()
     perm = device_constant(_perm_from_pairs(n_nodes, pairs),
                            payload[0].device)
     return tuple(permute_rows(x, perm, n_nodes) for x in payload)
 
 
 def permute_payload_pool(payload: Sequence[torch.Tensor], pool, pool_idx,
-                         n_nodes: int, *, n_shards: int = 1):
+                         n_nodes: int, *, mesh=None):
     """ONE permute per in-flight payload tensor by the pool entry
-    `pool_idx` selects."""
-    check_one_shard(n_shards)
+    `pool_idx` selects (on a node mesh a host index, :func:`pool_pairs`)."""
+    if mesh is not None:
+        return permute_payload_ppermute(payload, pool_pairs(pool, pool_idx),
+                                        n_nodes, mesh=mesh)
     perm = pool_perm(pool, pool_idx, payload[0].device)
     return tuple(permute_rows(x, perm, n_nodes) for x in payload)
 
@@ -415,16 +563,24 @@ def _no_residual(codec):
 
 
 def gossip_flat_ppermute(buf, pairs, *, quant=None, prev_buf=None, rng=None,
-                         u=None, mask=None, n_shards: int = 1,
+                         u=None, mask=None, mesh=None,
                          tile_rows: int = DEFAULT_TILE_ROWS):
     """The static matching's exchange over the flat buffer: fp32, or the
     codec `quant` (a ModularQuantConfig or any codec without a residual)
     through its encode / permute / fused decode. `pairs` is the static
     involution [(src, dst), ...]; `mask` (bool [n_nodes]) gates which of
-    its pairs land this superstep."""
+    its pairs land this superstep.
+
+    On a node `mesh` `buf` (and `prev_buf`, `u`) hold the rank's one node
+    ([1, n_padded]) and `mask` is the global [mesh.size] vector: one
+    message per wire tensor crosses to and from the rank's partner, and
+    the uniforms, unless given, come from the rank's own generator folded
+    from `rng` (``NodeMesh.fold_generator``)."""
     codec = as_codec(quant)
     _no_residual(codec)
-    check_one_shard(n_shards)
+    if mesh is not None:
+        return _gossip_on_mesh(buf, pairs, codec, prev_buf, rng, u, mask,
+                               mesh, tile_rows)
     perm = device_constant(_perm_from_pairs(buf.shape[0], pairs), buf.device)
     return _gossip_by_perm(buf, perm, codec, prev_buf, rng, u, mask,
                            tile_rows)
@@ -432,13 +588,16 @@ def gossip_flat_ppermute(buf, pairs, *, quant=None, prev_buf=None, rng=None,
 
 def gossip_flat_ppermute_pool(buf, pool, pool_idx, *, quant=None,
                               prev_buf=None, rng=None, u=None, mask=None,
-                              n_shards: int = 1,
+                              mesh=None,
                               tile_rows: int = DEFAULT_TILE_ROWS):
     """`gossip_flat_ppermute` by the pool entry `pool_idx` selects (a
-    device tensor or an int); `mask` gates which of its pairs land."""
+    device tensor or an int on one shard, a host value on a node `mesh`);
+    `mask` gates which of its pairs land."""
     codec = as_codec(quant)
     _no_residual(codec)
-    check_one_shard(n_shards)
+    if mesh is not None:
+        return _gossip_on_mesh(buf, pool_pairs(pool, pool_idx), codec,
+                               prev_buf, rng, u, mask, mesh, tile_rows)
     perm = pool_perm(pool, pool_idx, buf.device)
     return _gossip_by_perm(buf, perm, codec, prev_buf, rng, u, mask,
                            tile_rows)

@@ -22,10 +22,13 @@ matching, gathered), ``ppermute`` (one static matching, fixed at build) or
 which the engine's `perm` input carries broadcast to [n]), each over the
 flat buffer; ``*_legacy`` selects the reference's per-leaf oracle of the
 same transport (``gossip_exact`` / ``gossip_quantized`` and their
-ppermute forms), against which the flat paths are held. Every node lives
-in one process on one device — one shard — so the ppermute transports
-permute locally, as the reference's one-shard branch does; more shards
-wait for the multi-GPU item of ROADMAP.md and raise.
+ppermute forms), against which the flat paths are held. With every node in
+one process on one device — one shard — the ppermute transports permute
+locally, as the reference's one-shard branch does. On a node mesh
+(``launch/mesh.py``, one node a rank; ``GossipTransport(mesh=...)``) the
+ppermute transports and their per-leaf oracles exchange point to point
+with the rank's partner (``core/bucket.py``); the gather transport and the
+baselines' collectives do not run there yet (``bucket.NOT_ON_A_MESH``).
 """
 from __future__ import annotations
 
@@ -87,11 +90,13 @@ class StepInputs:
     host copy of h (`h_host`), which decides how many local-step sweeps
     run. A CUDA graph reads these tensors where they lie, so the chunk
     driver (``core/scan.py``) refills one StepInputs before each replay;
-    the per-step driver builds a fresh one each superstep."""
+    the per-step driver builds a fresh one each superstep. `perm_host` is
+    the host copy of the matching where the caller gave it on the host
+    (None otherwise): a node mesh posts its messages by it."""
 
-    def __init__(self, lr, perm, h, mask, h_host):
+    def __init__(self, lr, perm, h, mask, h_host, perm_host=None):
         self.lr, self.perm, self.h, self.mask = lr, perm, h, mask
-        self.h_host = h_host
+        self.h_host, self.perm_host = h_host, perm_host
 
     @classmethod
     def from_host(cls, lr: float, perm, h_counts, mask, device):
@@ -107,7 +112,10 @@ class StepInputs:
         h_t = torch.as_tensor(
             h_counts if isinstance(h_counts, torch.Tensor)
             else np.asarray(h_counts), dtype=torch.int32, device=device)
-        return cls(lr_t, perm_t, h_t, as_mask(mask, device), h_host)
+        perm_host = None if isinstance(perm, torch.Tensor) \
+            and perm.device.type != "cpu" else np.asarray(perm)
+        return cls(lr_t, perm_t, h_t, as_mask(mask, device), h_host,
+                   perm_host)
 
     @classmethod
     def static(cls, n_nodes: int, device, masked: bool):
@@ -135,14 +143,16 @@ class EngineStep:
     fresh StepInputs first. `graph_key(state, h_host)` names the host
     values `run`'s control flow depends on (the local-step signature for
     the steps that take h, anything algorithm-specific from `key_fn`):
-    one captured graph serves every superstep with the same key."""
+    one captured graph serves every superstep with the same key. `mesh` is
+    the node mesh the step runs on (None: one shard)."""
 
     def __init__(self, run, lr_fn, *, h_max: Optional[int] = None,
-                 key_fn=None):
+                 key_fn=None, mesh=None):
         self.run = run
         self.lr_fn = lr_fn
         self.h_max = h_max          # None: the step ignores h
         self.key_fn = key_fn
+        self.mesh = mesh
 
     def graph_key(self, state, h_host) -> tuple:
         key = () if self.h_max is None else \
@@ -238,9 +248,10 @@ def as_mask(mask, device) -> Optional[torch.Tensor]:
 
 def land(ready) -> None:
     """Order the current stream after an in-flight permute
-    (``GossipTransport.permute_inflight``'s `ready`; None on the CPU)."""
+    (``GossipTransport.permute_inflight``'s `ready`: the side stream's
+    event, a node mesh's posted work, None on one shard on the CPU)."""
     if ready is not None:
-        torch.cuda.current_stream().wait_event(ready)
+        ready.wait()
 
 
 def masked_mean_loss(losses, mask):
@@ -289,12 +300,42 @@ def gossip_quantized(qcfg: ModularQuantConfig, params, prev, perm, matched,
     return tree_unflatten(tdef, out)
 
 
+def _per_leaf_on_mesh(params, pairs, quant, prev, rng, u, mesh):
+    """The per-leaf oracle's share of one rank of a node mesh (the
+    reference's per-leaf ``shard_map``): one message per leaf (per leaf
+    and wire group when quantized) to and from the rank's partner, one
+    leaf at a time. The uniforms, unless given, come from `rng` itself:
+    the reference splits the same key on every shard, so every rank draws
+    the same ones."""
+    leaves, tdef = tree_flatten(params)
+    for x in leaves:
+        B._one_node_a_rank(x, mesh)
+    peers = B.mesh_peers(pairs, mesh)
+    matched = B.mesh_landing(mesh, pairs, None, leaves[0].device)
+    if peers == (None, None):
+        return tree_unflatten(tdef, list(leaves))
+    prev_leaves = tree_leaves(prev) if quant is not None else leaves
+    out = []
+    for i, (x, pv) in enumerate(zip(leaves, prev_leaves)):
+        if quant is None:
+            xh, = B.post_exchange((x,), mesh, pairs).wait()
+        else:
+            q, s = encode_modular(quant, x, pv, rng,
+                                  u=None if u is None else u[i], lead=1)
+            qp, sp = B.post_exchange((q, s), mesh, pairs).wait()
+            xh = decode_modular(quant, qp, sp, x, lead=1)
+        out.append(_avg(x, xh, matched))
+    return tree_unflatten(tdef, out)
+
+
 def gossip_ppermute(params, pairs, quant: Optional[ModularQuantConfig] = None,
-                    prev=None, rng=None, *, u=None, n_shards: int = 1):
+                    prev=None, rng=None, *, u=None, mesh=None):
     """The per-leaf oracle of the static-matching transport: on one shard
     a local permute by the static (src, dst) `pairs`, exact or through
-    the lattice of `quant`."""
-    B.check_one_shard(n_shards)
+    the lattice of `quant`; on a node `mesh` the rank's leaves ([1, ...]
+    each) cross leaf by leaf to and from its partner."""
+    if mesh is not None:
+        return _per_leaf_on_mesh(params, pairs, quant, prev, rng, u, mesh)
     x0 = tree_leaves(params)[0]
     perm = B.device_constant(B._perm_from_pairs(x0.shape[0], pairs),
                              x0.device)
@@ -304,9 +345,12 @@ def gossip_ppermute(params, pairs, quant: Optional[ModularQuantConfig] = None,
 
 
 def gossip_ppermute_pool(params, pool, pool_idx, quant=None, prev=None,
-                         rng=None, *, u=None, n_shards: int = 1):
-    """`gossip_ppermute` by the pool entry `pool_idx` selects."""
-    B.check_one_shard(n_shards)
+                         rng=None, *, u=None, mesh=None):
+    """`gossip_ppermute` by the pool entry `pool_idx` selects (on a node
+    `mesh` a host index, ``bucket.pool_pairs``)."""
+    if mesh is not None:
+        return _per_leaf_on_mesh(params, B.pool_pairs(pool, pool_idx), quant,
+                                 prev, rng, u, mesh)
     x0 = tree_leaves(params)[0]
     perm = B.pool_perm(pool, pool_idx, x0.device)
     matched = perm != torch.arange(x0.shape[0], device=x0.device)
@@ -335,23 +379,33 @@ class GossipTransport:
     the flat buffer for ``gather`` / ``ppermute`` / ``ppermute_pool``, the
     per-leaf oracle for their ``*_legacy`` forms. ``ppermute`` needs its
     `static_pairs` and ``ppermute_pool`` its `matching_pool` (as
-    `transport_from_config` builds them); `n_shards` > 1 raises. The codec
-    owns the quantized wire format; `quant` seeds the lattice family when
-    no codec is given. The refusals are the reference's: a codec other
-    than the lattice on a per-leaf oracle, a residual codec off
-    ``gather``."""
+    `transport_from_config` builds them). The codec owns the quantized
+    wire format; `quant` seeds the lattice family when no codec is given.
+    The refusals are the reference's: a codec other than the lattice on a
+    per-leaf oracle, a residual codec off ``gather``.
+
+    On a node `mesh` (``launch/mesh.py``; `n_nodes` its size) the
+    ppermute transports and their oracles exchange the rank's node with
+    its partner point to point, and the node perm a method takes is the
+    host array (``ppermute_pool``: the pool index broadcast), by which the
+    messages are posted. ``gather``, ``global_mean`` and ``matrix_mix``
+    raise there, naming their ROADMAP.md item."""
 
     def __init__(self, n_nodes: int, *, impl: str = "gather",
                  quant: Optional[ModularQuantConfig] = None,
                  codec: Optional[WireCodec] = None, static_pairs=None,
-                 matching_pool=None, n_shards: int = 1):
+                 matching_pool=None, mesh=None):
         if impl not in GOSSIP_IMPLS:
             raise ValueError(f"unknown gossip impl {impl!r}; known: "
                              f"{list(GOSSIP_IMPLS)}")
-        B.check_one_shard(n_shards)
         self.impl = impl
         self.legacy = impl.endswith("_legacy")
         self.base_impl = impl[:-len("_legacy")] if self.legacy else impl
+        if mesh is not None:
+            B.check_mesh_nodes(n_nodes, mesh)
+            if self.base_impl == "gather":
+                raise NotImplementedError(f"--gossip-impl {impl}: "
+                                          f"{B.NOT_ON_A_MESH['gather']}")
         self.n_nodes = n_nodes
         self.codec = codec if codec is not None \
             else LatticeCodec(quant or ModularQuantConfig())
@@ -377,6 +431,7 @@ class GossipTransport:
                                                   or len(matching_pool) == 0):
             raise ValueError("the ppermute_pool transport needs its "
                              "matching_pool")
+        self.mesh = mesh
         self.static_pairs = static_pairs
         self.matching_pool = matching_pool
         self._side_streams = {}     # CUDA device -> permute_inflight stream
@@ -413,6 +468,14 @@ class GossipTransport:
                                perm.device), pool_idx
         return perm, None
 
+    def mesh_pairs(self, perm):
+        """On a node mesh, the static pairs this superstep's messages go
+        by: ``ppermute``'s own, or the pool entry the host `perm` carries
+        (``ppermute_pool``)."""
+        if self.base_impl == "ppermute":
+            return self.static_pairs
+        return B.pool_pairs(self.matching_pool, perm)
+
     def _wire_permute(self, payload, perm):
         if self.base_impl == "ppermute":
             return B.permute_payload_ppermute(payload, self.static_pairs,
@@ -429,7 +492,16 @@ class GossipTransport:
         the card the permutes run on a side stream, so they overlap the
         local steps the caller launches next on the current stream; the
         caller makes the current stream wait on `ready` (:func:`land`)
-        before it reads the received tensors. On the CPU, ready is None."""
+        before it reads the received tensors. On the CPU, ready is None.
+
+        On a node mesh the rank posts its messages to and from its
+        partner here (`perm` the host array) and `ready` is the posted
+        work: the transfer is in flight across whatever the caller
+        launches next, and :func:`land` waits on it."""
+        if self.mesh is not None:
+            posted = B.post_exchange(payload, self.mesh,
+                                     self.mesh_pairs(perm))
+            return posted.recv, posted
         if perm.device.type != "cuda":
             return self._wire_permute(payload, perm), None
         dev = perm.device
@@ -489,7 +561,11 @@ class GossipTransport:
                     B.pack(layout, prev)
         new_residual = None
         codec = self.codec if quantize else None
-        if self.base_impl == "ppermute":
+        if self.mesh is not None:
+            out = B.gossip_flat_ppermute(buf, self.mesh_pairs(perm),
+                                         quant=codec, prev_buf=pbuf, rng=rng,
+                                         u=u, mask=mask, mesh=self.mesh)
+        elif self.base_impl == "ppermute":
             out = B.gossip_flat_ppermute(buf, self.static_pairs, quant=codec,
                                          prev_buf=pbuf, rng=rng, u=u,
                                          mask=mask)
@@ -521,6 +597,9 @@ class GossipTransport:
                              "packed transport")
         lat = self.quant if quantize else None
         with record_function("gossip.legacy"):
+            if self.mesh is not None:
+                return gossip_ppermute(tree, self.mesh_pairs(perm), lat,
+                                       prev, rng, u=u, mesh=self.mesh)
             if self.base_impl == "ppermute":
                 return gossip_ppermute(tree, self.static_pairs, lat, prev,
                                        rng, u=u)
@@ -538,6 +617,7 @@ class GossipTransport:
         LocalSGD's resync and AllReduce's gradient mean. With `mask` the
         mean runs over the participants only and is still broadcast
         everywhere. A *_legacy oracle takes it leaf by leaf."""
+        self._not_on_a_mesh("global_mean")
         if self.legacy:
             return tree_map(lambda x: _leaf_mean(x, mask), tree)
         layout = B.build_layout(tree, block=self.codec.block)
@@ -553,6 +633,7 @@ class GossipTransport:
         """Dense mixing X <- W X (D-PSGD): one [n, n] x [n, n_padded] fp32
         product over the packed buffer (one per leaf for a *_legacy
         oracle)."""
+        self._not_on_a_mesh("matrix_mix")
         if self.legacy:
             return tree_map(lambda x: torch.einsum(
                 "nm,m...->n...", W.to(torch.float32),
@@ -565,6 +646,22 @@ class GossipTransport:
         del buf
         with record_function("gossip.unpack"):
             return B.unpack(layout, out)
+
+    def _not_on_a_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what}: "
+                                      f"{B.NOT_ON_A_MESH['gather']}")
+
+    def partner_tree(self, tree, perm):
+        """On a node mesh, the partner's `tree` (the rank's leaves,
+        [1, ...] each): packed to one fp32 buffer, ONE message each way,
+        unpacked to the leaf dtypes (exact: every leaf dtype is carried
+        by fp32); zeros where the rank has no partner."""
+        layout = B.build_layout(tree, block=self.codec.block)
+        recv, = B.permute_payload_ppermute((B.pack(layout, tree),),
+                                           self.mesh_pairs(perm),
+                                           self.n_nodes, mesh=self.mesh)
+        return B.unpack(layout, recv)
 
     def payload_num_bytes(self, tree, quantize: bool = False) -> int:
         """Exact wire bytes per node for one gossip send of `tree`, from

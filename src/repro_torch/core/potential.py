@@ -4,7 +4,9 @@ analytic bound of Lemma F.3, E[Γ_t] ≤ (40r/λ₂ + 80r²/λ₂²)·n·η²·H
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import bucket as B
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -14,8 +16,22 @@ def mean_model(params_stacked):
                     params_stacked)
 
 
-def gamma_potential(params_stacked) -> torch.Tensor:
-    """Γ_t = Σᵢ ‖Xᵢ − μ‖² summed over every parameter leaf (fp32)."""
+def gamma_potential(params_stacked, mesh=None) -> torch.Tensor:
+    """Γ_t = Σᵢ ‖Xᵢ − μ‖² summed over every parameter leaf (fp32).
+
+    On a node `mesh` (one node a rank, `params_stacked` its [1, ...]
+    leaves) every rank gets the global Γ: one all-reduce of the rank's
+    packed fp32 buffer gives the sum, so μ; each rank's squared distance
+    to μ, and one scalar all-reduce sums them."""
+    if mesh is not None:
+        buf = B.pack(B.build_layout(params_stacked), params_stacked)[0]
+        mu = buf.clone()
+        dist.all_reduce(mu, group=mesh.group)
+        mu.div_(mesh.size)
+        g = torch.sum(torch.square(buf - mu)).reshape(1)
+        del buf, mu
+        dist.all_reduce(g, group=mesh.group)
+        return g[0]
     total = None
     for x in tree_leaves(params_stacked):
         xf = x.to(torch.float32)

@@ -53,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import bucket as B
 from repro_torch.core.exchange import EngineStep, StepInputs
 from repro_torch.core.swarm import SwarmState
 from repro_torch.kernels import ops as K
@@ -141,6 +142,8 @@ class SuperstepChunk:
         if not isinstance(step, EngineStep):
             raise TypeError("the chunk driver takes an EngineStep (from "
                             "make_swarm_step / make_algorithm)")
+        if step.mesh is not None:
+            raise NotImplementedError(B.NOT_ON_A_MESH["scan"])
         self.step = step
         self.with_mask = with_mask
         self.graphs = {}          # graph key -> (CUDAGraph, launches)

@@ -39,6 +39,14 @@ Every step is an :class:`~repro_torch.core.exchange.EngineStep`: its
 ``run`` half reads the superstep's inputs from device tensors and can be
 captured as a CUDA graph (``core/scan.py``).
 
+On a node mesh (``launch/mesh.py``: one node a ``torch.distributed`` rank,
+NCCL on the card, gloo on the CPU; ``swarm_init(mesh=...)`` and
+``make_swarm_step(mesh=...)`` on a ppermute transport) each rank holds its
+own node's state and runs its local steps, its encode and its fused
+decode on its own device; the exchange and the momentum average cross
+point to point to and from its partner, and the metrics are the global
+ones.
+
 Elastic membership (a scheduler trace with ``--avail``): a join bin runs
 ``make_join_step`` — the joiner copies its donor's model, one row gather
 on the packed buffer, no batch, no encode — in place of a superstep, and
@@ -51,12 +59,13 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.core import bucket as B
 from repro_torch.core.exchange import (
-    GOSSIP_IMPLS, EngineStep, GossipTransport, _avg, as_mask, land,
-    make_local_steps, masked_mean_loss, select, stale_combine,
+    GOSSIP_IMPLS, EngineStep, GossipTransport, StepInputs, _avg, as_mask,
+    land, make_local_steps, masked_mean_loss, select, stale_combine,
 )
 from repro_torch.core.potential import gamma_potential
 from repro_torch.quant.codecs import make_codec
@@ -137,30 +146,40 @@ class SwarmState:
 
 
 def swarm_init(gen: torch.Generator, cfg: SwarmConfig,
-               param_init: Callable, opt_init: Callable) -> SwarmState:
+               param_init: Callable, opt_init: Callable, *,
+               mesh=None) -> SwarmState:
     """Every node starts from the same model, drawn once from `gen`. In
     overlap mode the pipeline is primed here (its encode draws from
     `gen`); under compress_state the comm copy is encoded here (its
     uniforms drawn from `gen`); an error-feedback codec starts from a zero
-    residual."""
+    residual. On a node `mesh` the state is the rank's one node (leading
+    axis 1; every rank draws the same model from `gen`), and an encode
+    here draws from the rank's generator folded from `gen`."""
+    n_local = cfg.n_nodes
+    if mesh is not None:
+        B.check_mesh_nodes(cfg.n_nodes, mesh)
+        n_local = 1
     one = param_init(gen)
     params = tree_map(lambda x: x.unsqueeze(0).repeat(
-        (cfg.n_nodes,) + (1,) * x.ndim), one)
+        (n_local,) + (1,) * x.ndim), one)
     del one
     opt = opt_init(params)
+    enc_gen = (lambda: gen) if mesh is None \
+        else (lambda: mesh.fold_generator(gen))
     if cfg.overlap:
         # pipelined mode: the comm copy lives packed in `inflight`
-        return pipeline_prologue(cfg, SwarmState(params, opt, None, 0), gen)
+        return pipeline_prologue(cfg, SwarmState(params, opt, None, 0),
+                                 enc_gen())
     codec = cfg.make_codec()
     prev = residual = None
     if cfg.compress_state:
         layout = B.build_layout(params, block=codec.block)
-        prev = codec.encode_state(B.pack(layout, params), gen)
+        prev = codec.encode_state(B.pack(layout, params), enc_gen())
     elif cfg.quantize or cfg.nonblocking:
         prev = tree_map(torch.clone, params)
     if cfg.quantize and codec.carries_residual:
         layout = B.build_layout(params, block=codec.block)
-        residual = torch.zeros((cfg.n_nodes, layout.n_padded),
+        residual = torch.zeros((n_local, layout.n_padded),
                                dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
     return SwarmState(params, opt, prev, 0, None, residual)
@@ -236,7 +255,8 @@ def select_rows(m_rows, new, old):
 
 def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                     lr_fn: Callable,
-                    transport: Optional[GossipTransport] = None):
+                    transport: Optional[GossipTransport] = None, *,
+                    mesh=None):
     """Returns the superstep, an :class:`EngineStep`: step(state, batch,
     perm, h_counts, rng, mask=None, *, u=None, u_state=None) -> (state,
     metrics). batch leaves are [n_nodes, h_loop_bound, local_batch, ...]
@@ -247,10 +267,29 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
     uniforms, or `u` the uniforms themselves ([n_nodes, n_padded]; under
     compress_state `u_state` those of the comm copy's re-encode); `mask`
     the optional participation gate (bool [n_nodes]). With cfg.overlap the
-    step is the pipelined steady state and needs a primed state."""
+    step is the pipelined steady state and needs a primed state.
+
+    On a node `mesh` (``launch/mesh.py``; cfg.n_nodes its size) the
+    transport is a ppermute one built on that mesh (``GossipTransport(...,
+    mesh=mesh)``; gather raises, naming its ROADMAP.md item). The state is
+    the rank's node (``swarm_init(mesh=...)``) and `batch` its node's
+    slice ([1, h_loop_bound, ...]); `perm`, `h_counts` and `mask` stay
+    the global [n] vectors, `perm` on the host, and each rank reads its
+    own entries: its matched flag is ``perm[rank] != rank`` (under
+    ppermute_pool the pool entry's), which must agree with the static
+    pairs. `u` is the rank's own uniforms ([1, n_padded]); drawn, they
+    come from the rank's generator folded from `rng`. The loss and
+    matched_frac come from all-gathered per-node scalars and Γ from
+    all-reduces, so every rank reports the global metrics."""
     tr = transport or GossipTransport(cfg.n_nodes, impl=cfg.gossip_impl,
                                       quant=cfg.quant,
-                                      codec=cfg.make_codec())
+                                      codec=cfg.make_codec(), mesh=mesh)
+    if mesh is not None and tr.mesh is not mesh:
+        raise ValueError("the transport is not built on the step's mesh "
+                         "(GossipTransport(..., mesh=mesh))")
+    mesh = tr.mesh
+    if mesh is not None:
+        B.check_mesh_nodes(cfg.n_nodes, mesh)
     ef = cfg.quantize and tr.codec.carries_residual
     cs = cfg.compress_state
     if cs and (tr.codec.carries_residual or not cfg.quantize
@@ -265,25 +304,76 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
     local_steps = make_local_steps(loss_fn, opt_update, cfg.h_loop_bound)
 
     def matching(inp, device):
-        """-> (perm, node perm, participation mask, landing mask)."""
+        """-> (the perm the transport takes, node perm, participation
+        mask, landing mask); on a node mesh the host perm and the rank's
+        own landing flag ([1])."""
+        perm_h = inp.perm_host
+        if mesh is not None:
+            if perm_h is None or perm_h.shape != (cfg.n_nodes,):
+                raise ValueError("on a node mesh the step takes the global "
+                                 f"[{cfg.n_nodes}] perm on the host (numpy "
+                                 "or a CPU tensor)")
+            if tr.base_impl == "ppermute" and not np.array_equal(
+                    perm_h, B._perm_from_pairs(cfg.n_nodes,
+                                               tr.static_pairs)):
+                raise ValueError(f"perm {perm_h.tolist()} disagrees with the "
+                                 f"transport's static pairs "
+                                 f"{tr.static_pairs}")
         node_perm, _ = tr.resolve_perm(inp.perm)
         matched = node_perm != torch.arange(cfg.n_nodes, device=device)
         if inp.mask is not None:
             matched = matched & inp.mask
-        return inp.perm, node_perm, inp.mask, matched
+        if mesh is None:
+            return inp.perm, node_perm, inp.mask, matched
+        return perm_h, node_perm, inp.mask, \
+            matched[mesh.rank:mesh.rank + 1]
 
-    def average_momentum(opt, node_perm, matched):
+    def local(inp):
+        """The rank's own entries of the global inputs, for its local
+        steps (the inputs themselves on one shard)."""
+        if mesh is None:
+            return inp
+        if len(inp.h_host) != cfg.n_nodes:
+            raise ValueError(f"h_counts of {len(inp.h_host)} on a node mesh "
+                             f"of {cfg.n_nodes}: the global vector")
+        r = slice(mesh.rank, mesh.rank + 1)
+        return StepInputs(inp.lr, inp.perm, inp.h[r], None, inp.h_host[r],
+                          inp.perm_host)
+
+    def folded(rng, u):
+        """The encode's generator: on a node mesh the rank's own, folded
+        from `rng` (unless the uniforms are given)."""
+        if mesh is None or u is not None or rng is None:
+            return rng
+        return mesh.fold_generator(rng)
+
+    def average_momentum(opt, perm_x, node_perm, matched):
         if not cfg.average_momentum or not tree_leaves(opt):
             return opt
+        if mesh is not None:
+            partner = tr.partner_tree(opt, perm_x)
+            return tree_map(lambda x, p: _avg(x, p, matched), opt, partner)
         return tree_map(lambda x: _avg(x, x[node_perm], matched), opt)
+
+    def global_scalars(losses, matched):
+        """Every rank's (loss, landed) pair, all-gathered -> the global
+        [n] losses and landing mask."""
+        mine = torch.stack([losses.reshape(()).to(torch.float32),
+                            matched.reshape(()).to(torch.float32)])
+        parts = [torch.empty_like(mine) for _ in range(mesh.size)]
+        dist.all_gather(parts, mine, group=mesh.group)
+        g = torch.stack(parts)
+        return g[:, 0], g[:, 1] != 0
 
     def finish(state, params, opt, prev, inflight, residual, losses,
                matched, mask, lr):
+        if mesh is not None:
+            losses, matched = global_scalars(losses, matched)
         metrics = {"loss": masked_mean_loss(losses, mask), "lr": lr,
                    "matched_frac": torch.mean(matched.to(torch.float32))}
         if cfg.track_potential:
             with record_function("swarm.gamma"):
-                metrics["gamma"] = gamma_potential(params)
+                metrics["gamma"] = gamma_potential(params, mesh=mesh)
         return SwarmState(params, opt, prev, state.step + 1,
                           inflight, residual), metrics
 
@@ -292,7 +382,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
         lr = inp.lr
         device = lr.device
         S = state.params                      # superstep-start models
-        params, opt, losses = local_steps(S, state.opt, batch, inp)
+        params, opt, losses = local_steps(S, state.opt, batch, local(inp))
         perm_t, node_perm, mask, matched = matching(inp, device)
         layout = B.build_layout(S, block=tr.codec.block)
         prev_buf = None
@@ -301,7 +391,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             # encode measures its distance against
             with record_function("swarm.prev"):
                 prev_buf = tr.codec.decode_state(
-                    state.prev, (cfg.n_nodes, layout.n_padded))
+                    state.prev, (layout.n_nodes, layout.n_padded))
         new_residual = state.residual
 
         def mix(tree):
@@ -327,15 +417,15 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                 # Algorithm 1: average the post-local-step models
                 params = mix(params)
         del prev_buf
-        opt = average_momentum(opt, node_perm, matched)
+        opt = average_momentum(opt, perm_t, node_perm, matched)
         new_prev = None
         if cs:
             # compressed refresh: re-encode the post-interaction model
             # against zeros once, then take the matched nodes' wire rows;
             # unmatched nodes keep their old bytes (no re-quantization)
             with record_function("swarm.prev"):
-                enc = tr.codec.encode_state(B.pack(layout, params), rng,
-                                            u=u_state)
+                enc = tr.codec.encode_state(B.pack(layout, params),
+                                            folded(rng, u_state), u=u_state)
                 m_rows = B.row_mask(matched, layout.rows_per_node)
                 new_prev = tuple(select_rows(m_rows, e, o)
                                  for e, o in zip(enc, state.prev))
@@ -377,7 +467,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
 
         # 2. local steps, overlapping the permute
         params, opt, losses = local_steps(state.params, state.opt, batch,
-                                          inp)
+                                          local(inp))
 
         # 3. land: decode + average against the STALE packed model S
         sbuf = infl["sbuf"]
@@ -385,7 +475,10 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             land(ready)
             if cfg.quantize:
                 m_rows = B.row_mask(matched, layout.rows_per_node)
-                B.count_wraps(codec, recv, sbuf, node_perm, matched)
+                if mesh is None:
+                    # the wrap counter reads the sender's row, which a
+                    # rank of a node mesh does not hold
+                    B.count_wraps(codec, recv, sbuf, node_perm, matched)
                 with record_function("gossip.decode"):
                     base_buf = codec.decode_avg(recv, sbuf, m_rows)
             else:
@@ -401,7 +494,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             del post_buf, base_buf
             with record_function("gossip.unpack"):
                 params = B.unpack(layout, new_buf)
-        opt = average_momentum(opt, node_perm, matched)
+        opt = average_momentum(opt, perm_t, node_perm, matched)
 
         # 4. refresh the packed comm copy to the value SENT (S, in sbuf)
         # and encode the next payload
@@ -409,7 +502,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             with record_function("swarm.prev"):
                 prev_buf = torch.where(m_col, sbuf, infl["prev"])
             with record_function("gossip.encode"):
-                wire = codec.encode(new_buf, prev_buf, rng, u=u)
+                wire = codec.encode(new_buf, prev_buf, folded(rng, u), u=u)
             new_infl = {"sbuf": new_buf, "prev": prev_buf, "wire": wire}
         else:
             new_infl = {"sbuf": new_buf}
@@ -417,7 +510,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                       matched, mask, lr)
 
     return EngineStep(pipelined_superstep if cfg.overlap else superstep,
-                      lr_fn, h_max=cfg.h_loop_bound)
+                      lr_fn, h_max=cfg.h_loop_bound, mesh=mesh)
 
 
 _WIRE_PREV = ("join bootstrap re-bases the per-leaf comm copy; the "

@@ -1,0 +1,99 @@
+"""The port's node mesh (counterpart of ``repro/launch/mesh.py``
+``make_host_mesh`` and ``repro/compat.py`` ``make_mesh_compat`` for the
+node axis): SwarmSGD's nodes sharded over ``torch.distributed`` ranks, one
+node a rank, as the reference's static pairs index the shards of its node
+axis.
+
+On the card each rank owns one GPU (``cuda:<rank>``) and the backend is
+NCCL; on the CPU the backend is gloo. The backend follows the device the
+caller names, and there is no fallback between them: a mesh on ``cuda``
+without a GPU for the rank, or without NCCL, raises.
+
+  mesh = init_node_mesh("cuda")            # RANK, WORLD_SIZE, MASTER_* set
+  mesh = init_node_mesh("cpu", rank=r, world_size=4,
+                        init_method="tcp://localhost:29500")
+
+FUNCTIONS and a dataclass only: importing this module touches no device
+state and starts nothing.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+
+@dataclass(frozen=True)
+class NodeMesh:
+    """One rank's view of the node mesh: its rank, the mesh size (the
+    number of nodes, one a rank), its device and the process group (None:
+    the default group)."""
+    rank: int
+    size: int
+    device: torch.device
+    group: Optional[Any] = None
+
+    def fold_generator(self, rng: torch.Generator) -> torch.Generator:
+        """This rank's generator for one encode, made from the run's
+        generator `rng` and the rank (the counterpart of
+        ``jax.random.fold_in(key, axis_index)``): seeded from `rng`'s
+        state and the rank, after which `rng` moves on by one draw, the
+        same on every rank. Reads the state on the host: no device
+        sync."""
+        state = rng.get_state().numpy().tobytes()
+        digest = hashlib.sha256(state + self.rank.to_bytes(8, "little"))
+        seed = int.from_bytes(digest.digest()[:8], "little") >> 1
+        torch.empty((1,), device=rng.device).uniform_(generator=rng)
+        g = torch.Generator(device=rng.device)
+        g.manual_seed(seed)
+        return g
+
+    def close(self) -> None:
+        """Tear down the process group (every rank calls it)."""
+        dist.destroy_process_group(self.group)
+
+
+def init_node_mesh(device="cuda", *, rank: Optional[int] = None,
+                   world_size: Optional[int] = None,
+                   init_method: Optional[str] = None) -> NodeMesh:
+    """Join the node mesh: rank and size from the arguments or the usual
+    ``RANK`` / ``WORLD_SIZE`` variables, the rendezvous from
+    `init_method` or ``env://`` (``MASTER_ADDR`` / ``MASTER_PORT``). On
+    ``cuda`` the rank takes GPU `rank` (``torch.cuda.set_device``) and the
+    group is NCCL; on ``cpu`` it is gloo. One all-reduce then runs on
+    every rank, so the group's first call is a collective and a later P2P
+    batch may involve only a pair."""
+    dev = torch.device(device)
+    rank = int(os.environ["RANK"]) if rank is None else int(rank)
+    world_size = int(os.environ["WORLD_SIZE"]) if world_size is None \
+        else int(world_size)
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside a mesh of {world_size}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("a node mesh on cuda needs a GPU a rank; "
+                               "none is available")
+        if rank >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank} needs GPU {rank}, but "
+                               f"{torch.cuda.device_count()} are visible "
+                               "(one node a GPU)")
+        if not dist.is_nccl_available():
+            raise RuntimeError("a node mesh on cuda needs NCCL, which this "
+                               "torch lacks")
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+        backend = "nccl"
+    elif dev.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"a node mesh runs on cuda (NCCL) or cpu (gloo), "
+                         f"got {device!r}")
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init_method or "env://",
+                            world_size=world_size, rank=rank, **kw)
+    dist.all_reduce(torch.zeros((1,), device=dev))
+    return NodeMesh(rank, world_size, dev)

@@ -62,6 +62,7 @@ from repro_torch.core.exchange import GossipTransport, transport_from_config
 from repro_torch.core.graph import GRAPH_KINDS, make_graph
 from repro_torch.core.swarm import SwarmConfig, SwarmState
 from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import NodeMesh
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import make_optimizer
 from repro_torch.quant.codecs import LatticeCodec
@@ -536,8 +537,10 @@ def test_transport_payload_bytes_and_impls():
                                                                       q)
     assert tr.impl == tr.base_impl == "gather"
     # every impl of the reference builds from the config on one shard
-    # (payload bytes as the gather's); more shards wait for NCCL
+    # (payload bytes as the gather's); on a node mesh a rank holds one
+    # node, and gather waits for its ROADMAP item
     g = make_graph("complete", N)
+    mesh = NodeMesh(0, 2, torch.device("cpu"))
     for impl in ("ppermute", "ppermute_pool", "gather_legacy",
                  "ppermute_legacy", "ppermute_pool_legacy"):
         t = transport_from_config(SwarmConfig(n_nodes=N, gossip_impl=impl),
@@ -546,8 +549,12 @@ def test_transport_payload_bytes_and_impls():
         for q in (False, True):
             assert t.payload_num_bytes(tree, q) == tr.payload_num_bytes(tree,
                                                                         q)
-        with pytest.raises(NotImplementedError, match="NCCL"):
-            GossipTransport(N, impl=impl, n_shards=2)
+        with pytest.raises(ValueError, match="ROADMAP.md Queue A 6"):
+            GossipTransport(N, impl=impl, mesh=mesh)
+        if impl.startswith("gather"):
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP.md Queue A 3"):
+                GossipTransport(2, impl=impl, mesh=mesh)
     q4 = ModularQuantConfig(bits=4)
     assert transport_from_config(SwarmConfig(n_nodes=N, quant=q4)) \
         .codec.name == "q4"
@@ -676,9 +683,9 @@ def test_validate_accepts_the_reference_set_minus_unported(algo,
 def test_validate_names_the_roadmap_item(kw, item, monkeypatch):
     """The pool transport, which the port refused until it was ported, is
     accepted where JAX accepts it (also under the scheduler's flags) with
-    the same capability row; what the port still does not carry — the
-    node axis over more than one shard — is refused by the transport
-    with the ROADMAP item it waits for."""
+    the same capability row; what the port still does not carry on a
+    node mesh — the chunk driver (NCCL inside CUDA graphs), more than one
+    node a shard — is refused with the ROADMAP item it waits for."""
     for var in ("REPRO_DEFAULT_GOSSIP_IMPL", "REPRO_CODEC", "REPRO_TOPOLOGY",
                 "REPRO_AVAIL_PROFILE"):
         monkeypatch.delenv(var, raising=False)
@@ -687,9 +694,12 @@ def test_validate_names_the_roadmap_item(kw, item, monkeypatch):
     assert (got.transports, got.modes) == (want.transports, want.modes)
     pool = [np.arange(8)]
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        GossipTransport(8, impl=kw["gossip_impl"], matching_pool=pool,
-                        n_shards=2)
+        validate_run_config("swarm", n_nodes=8, scan_chunk=4,
+                            mesh=NodeMesh(0, 8, torch.device("cpu")), **kw)
     assert item in str(e.value)
+    with pytest.raises(ValueError, match="ROADMAP.md Queue A 6"):
+        GossipTransport(8, impl=kw["gossip_impl"], matching_pool=pool,
+                        mesh=NodeMesh(0, 2, torch.device("cpu")))
 
 
 @pytest.mark.parametrize("kw", [

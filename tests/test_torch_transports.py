@@ -57,6 +57,7 @@ from repro_torch.core.scan import make_superstep_scan
 from repro_torch.core.swarm import (SwarmConfig, SwarmState, make_swarm_step,
                                     swarm_init)
 from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import NodeMesh
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import make_optimizer
 from repro_torch.quant import schemes as TS
@@ -755,13 +756,18 @@ def test_refusals_are_the_reference():
         TE.GossipTransport(N, impl="allgather")
     with pytest.raises(ValueError, match="gossip_impl"):
         SwarmConfig(n_nodes=N, gossip_impl="allgather")
-    # more than one shard waits for the multi-GPU item, no fallback
-    for fn in (lambda: TE.GossipTransport(N, n_shards=2),
+    # on a node mesh: gather waits for its ROADMAP item, and a rank holds
+    # one node — no fallback to the one-shard path
+    mesh = NodeMesh(0, 2, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TE.GossipTransport(2, mesh=mesh)
+    for fn in (lambda: TE.GossipTransport(N, impl="ppermute",
+                                          static_pairs=[(0, 1)], mesh=mesh),
                lambda: TB.gossip_flat_ppermute(torch.zeros(N, 256),
-                                               [(0, 1)], n_shards=4),
+                                               [(0, 1)], mesh=mesh),
                lambda: TE.gossip_ppermute({"w": torch.zeros(N, 2)},
-                                          [(0, 1)], n_shards=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                          [(0, 1)], mesh=mesh)):
+        with pytest.raises(ValueError, match="ROADMAP"):
             fn()
 
 
