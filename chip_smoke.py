@@ -192,23 +192,42 @@ Phases, each printed on its own line:
     every codec, masked and not, static and pool, the payload permutes,
     the per-leaf oracles, 3 supersteps of the reduced transformer-wmt
     engine blocking exact / q8, non-blocking and overlapped q8, each
-    restarted from the CPU's state — against the CPU's one-shard port,
-    within `phase_reference`'s bound, with planted faults (a mask
-    ignored, a partner off by one, a missed wait on the received
-    tensors) failing it;
+    restarted from the CPU's state — and of
+    ``tests/test_torch_multishard_gather.py`` — the gather exchange at
+    every codec (exact, q4, q8, q16, bf16, top-k with its residual) by a
+    matching and by SGP's cyclic shift, masked and not, the node mean
+    and the dense mix, the per-leaf gather oracle, 3 restarted steps of
+    the swarm on gather (blocking exact and q8, non-blocking top-k,
+    overlapped q8, ``--compress-state`` q8) and of each baseline
+    (all-reduce and D-PSGD masked, Local SGD, AD-PSGD q8 masked, SGP
+    exact masked and q8), one join bin — against the CPU's one-shard
+    port, within each codec's bound of `codecs_reference` (the join
+    bitwise), with planted faults (a mask ignored, a partner off by one,
+    a missed wait on the received tensors; a rank sending to
+    ``perm[r]`` instead of to the ``j`` with ``perm[j] == r``, a mean
+    over the rank's own row, the wrong row of ``W X``, a missed wait on
+    the gather) failing it;
 29. the node mesh at full width (``multi_shard_full_width``):
     transformer-wmt at full width and depth, one node a GPU, 4
     supersteps each of blocking q8 ``ppermute``, ``ppermute_pool
-    --nonblocking --overlap`` q8 and the ``ppermute_legacy`` oracle
-    exact; every exchange bitwise rank 0's rerun of it on one card
-    through the one-shard path, flat exact bitwise its per-leaf oracle,
-    launches 8/4/4, 8/4/4, 8/0/0 on every rank; it prints superstep
-    times, the exchange's NCCL time, wire bytes, the GPUs' link, the
-    overlapped command's ``permute_overlap``, peak memory, Γ and Γ's
-    all-reduce time. With one GPU both print ``{"phase": "multi_shard",
-    "ran": false, "gpus": 1, "needs": 2}`` and run nothing: a declared
-    precondition (NCCL refuses two ranks on one GPU). The parent builds
-    the kernels before it spawns the ranks, which load them.
+    --nonblocking --overlap`` q8, the ``ppermute_legacy`` oracle exact,
+    blocking q8 ``gather`` (Algorithm 1 on the default transport),
+    ``gather --nonblocking --codec topk:0.25``, ``gather
+    --compress-state`` q8, ``--algo allreduce``, ``--algo localsgd --H
+    2``, ``--algo dpsgd --graph ring``, ``--algo adpsgd --quantize`` and
+    ``--algo sgp``; every exchange, node mean and dense mix bitwise rank
+    0's rerun of it on one card through the one-shard path, flat exact
+    bitwise its per-leaf oracle, SGP's sum of w the node count, launches
+    8/4/4, 8/4/4, 8/0/0, 8/4/4, 8/0/0, 8/8/8, 4/0/0, 8/0/0, 4/0/0, 4/4/4,
+    4/0/0 on every rank (``MS_WANT``); it prints superstep times, the
+    NCCL time from post to landed (around the all-gather for the mean
+    and the mix), wire bytes a node or all-gather bytes a rank, the
+    GPUs' link, the overlapped command's ``permute_overlap``, peak
+    memory, Γ and Γ's all-reduce time. With one GPU both print
+    ``{"phase": "multi_shard", "ran": false, "gpus": 1, "needs": 2}``
+    and run nothing: a declared precondition (NCCL refuses two ranks on
+    one GPU). The parent builds the kernels before it spawns the ranks,
+    which load them.
 
 The card's line is printed again before the kernels' JSON record, which
 is the line before the last; the last line is
@@ -3593,13 +3612,41 @@ MS_DIR = os.path.join(ROOT, "build", "chip_smoke_multi_shard")
 MS_STEPS = 4
 MS_ENGINES = (("exact", "blocking"), ("q8", "blocking"),
               ("q8", "nonblocking"), ("q8", "overlap"))
-# the full-width commands: name -> (gossip impl, quantize, mode)
+# the full-width commands: name -> (algorithm, gossip impl, codec (None:
+# exact), mode)
 MS_COMMANDS = {
-    "multi_shard_ppermute_q8": ("ppermute", True, "blocking"),
-    "multi_shard_pool_overlap_q8": ("ppermute_pool", True, "overlap"),
-    "multi_shard_ppermute_legacy_exact": ("ppermute_legacy", False,
+    "multi_shard_ppermute_q8": ("swarm", "ppermute", "q8", "blocking"),
+    "multi_shard_pool_overlap_q8": ("swarm", "ppermute_pool", "q8",
+                                    "overlap"),
+    "multi_shard_ppermute_legacy_exact": ("swarm", "ppermute_legacy", None,
                                           "blocking"),
+    "multi_shard_gather_q8": ("swarm", "gather", "q8", "blocking"),
+    "multi_shard_gather_topk_nonblocking": ("swarm", "gather", "topk:0.25",
+                                            "nonblocking"),
+    "multi_shard_gather_compress_q8": ("swarm", "gather", "q8", "compress"),
+    "multi_shard_allreduce": ("allreduce", "gather", None, "blocking"),
+    "multi_shard_localsgd": ("localsgd", "gather", None, "blocking"),
+    "multi_shard_dpsgd": ("dpsgd", "gather", None, "blocking"),
+    "multi_shard_adpsgd_q8": ("adpsgd", "gather", "q8", "blocking"),
+    "multi_shard_sgp": ("sgp", "gather", None, "blocking"),
 }
+# each command's launches of sgd_update / quantize_mod / decode_avg on
+# every rank over MS_STEPS supersteps: one sweep a local step (H 2 for the
+# swarm and Local SGD, 1 for the others), one encode and one decode an
+# exchange; compress_state also re-encodes and decodes its comm copy
+MS_WANT = {name: dict(zip(("sgd_update", "quantize_mod", "decode_avg"), n))
+           for name, n in (
+               ("multi_shard_ppermute_q8", (8, 4, 4)),
+               ("multi_shard_pool_overlap_q8", (8, 4, 4)),
+               ("multi_shard_ppermute_legacy_exact", (8, 0, 0)),
+               ("multi_shard_gather_q8", (8, 4, 4)),
+               ("multi_shard_gather_topk_nonblocking", (8, 0, 0)),
+               ("multi_shard_gather_compress_q8", (8, 8, 8)),
+               ("multi_shard_allreduce", (4, 0, 0)),
+               ("multi_shard_localsgd", (8, 0, 0)),
+               ("multi_shard_dpsgd", (4, 0, 0)),
+               ("multi_shard_adpsgd_q8", (4, 4, 4)),
+               ("multi_shard_sgp", (4, 0, 0)))}
 
 
 def _ms_world(n_gpus: int) -> int:
@@ -3803,6 +3850,8 @@ def _ms_reference_inputs(world: int, cfg) -> dict:
                          "gamma": float(m["gamma"])})
             state = nxt
         out["engines"][(codec, mode)] = traj
+    out["gather"] = dict(_ms_gather_reference_inputs(world, cfg, out),
+                         cfg=cfg)
     return out
 
 
@@ -3928,11 +3977,345 @@ def _ms_reference_rank(rank, world, port, path, device):
                             "loss": float(m["loss"]),
                             "gamma": float(m["gamma"])})
             out["engines"][(codec, mode)] = res
+        out["gather"] = _ms_gather_reference_rank(rank, world, mesh, inp,
+                                                  inp["gather"])
         _sync(dev)
     finally:
         mesh.close()
     torch.save(out, os.path.join(os.path.dirname(path),
                                  f"reference_rank{rank}.pt"))
+
+
+# the gather transport, the baselines and the join on the node mesh
+MS_GATHER_CODECS = ("exact", "q4", "q8", "q16", "bf16", "topk")
+# (algorithm, codec, mode) of the reduced step cases, 3 steps each
+MS_GATHER_STEPS = (("swarm", "exact", "blocking"), ("swarm", "q8", "blocking"),
+                   ("swarm", "topk", "nonblocking"),
+                   ("swarm", "q8", "overlap"), ("swarm", "q8", "compress"),
+                   ("allreduce", "exact", "masked"),
+                   ("localsgd", "exact", "blocking"),
+                   ("dpsgd", "exact", "masked"), ("adpsgd", "q8", "masked"),
+                   ("sgp", "exact", "masked"), ("sgp", "q8", "blocking"))
+
+
+def _ms_gather_perms(world: int) -> dict:
+    """The gather cases' perms: the reference cases' matching and SGP's
+    cyclic shift by one (not an involution for 3 or more ranks)."""
+    import numpy as np
+    return {"match": _ms_perm(world),
+            "shift": (np.arange(world) - 1) % world}
+
+
+def _ms_gather_codec(name):
+    from repro_torch.quant.codecs import make_codec
+    return None if name == "exact" else \
+        make_codec("topk:0.25" if name == "topk" else name)
+
+
+def _ms_gather_step(case, cfg, world, mesh=None):
+    """The step of a reduced step case (transformer-wmt cut to 1 layer of
+    d_model 32), on `mesh` (None: one shard, every node here) ->
+    (step, its SwarmConfig for init, its optimizer)."""
+    from repro_torch.algorithms import make_algorithm
+    from repro_torch.core import exchange as E
+    from repro_torch.core.graph import make_graph
+    from repro_torch.core.swarm import SwarmConfig
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim import make_optimizer
+    from repro_torch.quant.schemes import ModularQuantConfig
+    algo, codec, mode = case
+    quant = ModularQuantConfig(safety=16.0)
+    opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
+    kw = dict(loss_fn=TransformerLM(cfg).functional_loss,
+              opt_update=opt.update, lr_fn=lambda s: 0.05, n_nodes=world,
+              mesh=mesh)
+    if algo == "swarm":
+        scfg = SwarmConfig(n_nodes=world, H=2, quantize=codec != "exact",
+                           quant=quant,
+                           codec="topk:0.25" if codec == "topk" else None,
+                           nonblocking=mode in ("nonblocking", "overlap"),
+                           overlap=mode == "overlap",
+                           compress_state=mode == "compress")
+        kw.update(scfg=scfg, transport=E.GossipTransport(
+            world, quant=quant, codec=scfg.make_codec(), mesh=mesh))
+        return make_algorithm("swarm", **kw), scfg, opt
+    scfg = SwarmConfig(n_nodes=world, H=2 if algo == "localsgd" else 1,
+                       quantize=codec != "exact", quant=quant)
+    kw["transport"] = E.GossipTransport(world, quant=quant, mesh=mesh)
+    if algo == "localsgd":
+        kw["H"] = 2
+    if algo == "dpsgd":
+        kw["graph"] = make_graph("ring", world)
+    if algo in ("adpsgd", "sgp"):
+        kw["quantize"] = codec != "exact"
+    return make_algorithm(algo, **kw), scfg, opt
+
+
+def _ms_gather_reference_inputs(world: int, cfg, inp: dict) -> dict:
+    """The CPU's one-shard side of the gather cases of
+    `multi_shard_reference`, on `inp`'s buffers: the flat gather exchange
+    at every codec by a matching and by SGP's shift (masked and not), the
+    node mean and the dense mix, the per-leaf oracle, 3 restarted steps of
+    each of MS_GATHER_STEPS with their states, and one join bin."""
+    import numpy as np
+    import torch
+    from repro_torch.algorithms.dpsgd import metropolis_weights
+    from repro_torch.algorithms.sgp import sgp_init_state
+    from repro_torch.core import bucket as B
+    from repro_torch.core import exchange as E
+    from repro_torch.core.graph import make_graph, sample_matching
+    from repro_torch.core.swarm import (SwarmConfig, SwarmState,
+                                        make_join_step, swarm_init)
+    from repro_torch.models import init_params
+    from repro_torch.quant.codecs import LatticeCodec, TopKCodec
+    from repro_torch.quant.schemes import ModularQuantConfig
+    from repro_torch.tree import tree_map
+    buf, prev, u, mask = inp["buf"], inp["prev"], inp["u"], inp["mask"]
+    gen = torch.Generator().manual_seed(9)
+    res = 0.01 * torch.randn(buf.shape, generator=gen)
+    W = torch.from_numpy(metropolis_weights(make_graph("ring", world))
+                         .astype(np.float32))
+    out = {"res": res, "W": W, "flat": {}, "scales": {}, "steps": {}}
+    for pname, perm in _ms_gather_perms(world).items():
+        pt = torch.as_tensor(perm)
+        for name in MS_GATHER_CODECS:
+            codec = B.as_codec(_ms_gather_codec(name))
+            for masked in (False, True):
+                matched = pt != torch.arange(world)
+                if masked:
+                    matched = matched & mask
+                if codec is None:
+                    got = (B.gossip_flat_exact(buf, pt, matched if masked
+                                               else None), None)
+                else:
+                    got = B.gossip_flat_coded(
+                        codec, buf, prev, pt, matched, None, u=u,
+                        residual=res if codec.carries_residual else None)
+                out["flat"][(name, pname, masked)] = got
+    for name in MS_GATHER_CODECS[1:]:
+        codec = B.as_codec(_ms_gather_codec(name))
+        if isinstance(codec, LatticeCodec):
+            out["scales"][name] = codec.encode(buf, prev, None, u=u)[1]
+        elif isinstance(codec, TopKCodec):
+            out["scales"][name] = codec.encode_ef(buf, prev, None, res)[0][
+                0].abs().amax(dim=1)
+    out["mean"] = {m: B.gossip_flat_mean(buf, mask if m else None)
+                   .contiguous() for m in (False, True)}
+    out["matrix"] = B.gossip_flat_matrix(W, buf)
+    tree, tprev = inp["tree"], inp["tprev"]
+    u_leaf = [torch.rand((world,) + tuple(x.shape[1:]), generator=gen)
+              for x in inp["u_leaf"]]
+    out["u_leaf_all"] = u_leaf
+    perm = torch.as_tensor(_ms_gather_perms(world)["shift"])
+    m_all = (perm != torch.arange(world)) & mask
+    out["leaf"] = {"exact": E.gossip_exact(tree, perm, m_all),
+                   "q8": E.gossip_quantized(ModularQuantConfig(), tree,
+                                            tprev, perm, m_all, None,
+                                            u=u_leaf)}
+    # the step cases: each step's state, inputs and where it went
+    rng = np.random.default_rng(4)
+    graph = make_graph("complete", world)
+    for case in MS_GATHER_STEPS:
+        algo, codec, mode = case
+        step, scfg, opt = _ms_gather_step(case, cfg, world)
+        state = swarm_init(torch.Generator().manual_seed(0), scfg,
+                           lambda g: init_params(g, cfg, "cpu"), opt.init)
+        if codec == "exact" and algo != "allreduce":
+            # distinct nodes, so the exchange moves them
+            state.params = tree_map(
+                lambda x: x + 0.01 * torch.randn(x.shape, generator=gen),
+                state.params)
+        if algo == "sgp":
+            state = sgp_init_state(state, world, codec != "exact")
+        h = 2 if algo in ("swarm", "localsgd") else 1
+        traj = []
+        for t in range(3):
+            tok = torch.randint(0, cfg.vocab_size, (world, h, 2, 17),
+                                generator=gen)
+            b = {"tokens": tok[..., :-1], "targets": tok[..., 1:]}
+            n_pad = B.build_layout(state.params).n_padded
+            ut = torch.rand((world, n_pad), generator=gen)
+            us = torch.rand((world, n_pad), generator=gen)
+            p = sample_matching(graph, rng)
+            m = mask.numpy() if mode == "masked" else None
+            rows = []
+            orig = (LatticeCodec.encode, TopKCodec.encode_ef)
+
+            def enc(c, *a, **k):
+                q_, s_ = orig[0](c, *a, **k)
+                rows.append(s_.reshape(-1))
+                return q_, s_
+
+            def enc_ef(c, *a, **k):
+                w_, r_ = orig[1](c, *a, **k)
+                rows.append(w_[0].abs().amax(dim=1))
+                return w_, r_
+            LatticeCodec.encode, TopKCodec.encode_ef = enc, enc_ef
+            try:
+                nxt, met = step(state, b, p, np.full(world, h), None, m,
+                                u=ut, **({"u_state": us}
+                                         if mode == "compress" else {}))
+            finally:
+                LatticeCodec.encode, TopKCodec.encode_ef = orig
+            if mode == "overlap":
+                term = state.inflight["wire"][1]
+            else:
+                term = rows[0] if rows else None
+            partner = (np.arange(world) - 2 ** (t % max(1, int(
+                np.log2(world))))) % world if algo == "sgp" else p
+            traj.append({"state": state, "batch": b, "perm": p, "mask": m,
+                         "u": ut, "u_state": us, "term": term,
+                         "partner": partner, "after": nxt,
+                         "loss": float(met["loss"])})
+            state = nxt
+        out["steps"][case] = traj
+    # one join bin: the last rank joins from donor 0
+    scfg = SwarmConfig(n_nodes=world, quantize=True, codec="topk:0.25")
+    st = swarm_init(torch.Generator().manual_seed(1), scfg,
+                    lambda g: init_params(g, cfg, "cpu"), lambda p: {})
+    st = SwarmState(tree_map(lambda x: x + 0.01 * torch.randn(
+        x.shape, generator=gen).to(x.dtype), st.params), {},
+        tree_map(torch.clone, st.params), 0, None,
+        torch.randn(st.residual.shape, generator=gen))
+    jperm = np.arange(world)
+    jperm[0], jperm[world - 1] = world - 1, 0
+    jm = np.arange(world) == world - 1
+    out["join"] = {"state": st, "perm": jperm, "jm": jm,
+                   "after": make_join_step(scfg)(st, jperm, jm)}
+    return out
+
+
+def _ms_faulty_peers(perm, mesh, land=None):
+    """A planted fault: the rank sends to perm[rank] (and so receives from
+    the j with perm[j] == rank) — right on a matching, backwards on a
+    shift."""
+    import numpy as np
+    p = np.asarray(perm).reshape(-1)
+    r = mesh.rank
+    src = int(np.flatnonzero(p == r)[0])
+    return ([int(p[r])] if p[r] != r else []), (src if src != r else None)
+
+
+def _ms_gather_reference_rank(rank, world, mesh, inp, g):
+    """A rank's gather cases of `multi_shard_reference` on its GPU from the
+    CPU's inputs `inp` and gather inputs `g` (steps restarted from the
+    CPU's state), and the planted faults -> results on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bucket as B
+    from repro_torch.core import exchange as E
+    from repro_torch.core.swarm import SwarmState, make_join_step
+    from repro_torch.core.swarm import SwarmConfig
+    from repro_torch.quant.schemes import ModularQuantConfig
+    dev = mesh.device
+
+    def mine(x, n=1):
+        return _ms_to(_ms_rows(x, rank, n), dev)
+    buf, prev, u, res = (mine(inp["buf"]), mine(inp["prev"]), mine(inp["u"]),
+                         mine(g["res"]))
+    mask = inp["mask"].to(dev)
+    out = {"flat": {}, "steps": {}, "faults": {}}
+    for pname, perm in _ms_gather_perms(world).items():
+        for name in MS_GATHER_CODECS:
+            codec = B.as_codec(_ms_gather_codec(name))
+            for masked in (False, True):
+                matched = torch.as_tensor(perm != np.arange(world),
+                                          device=dev)
+                if masked:
+                    matched = matched & mask
+                m_r = matched[rank:rank + 1]
+                if codec is None:
+                    got = (B.gossip_flat_exact(buf, perm, m_r if masked
+                                               else None, mesh=mesh), None)
+                else:
+                    got = B.gossip_flat_coded(
+                        codec, buf, prev, perm, m_r, None, u=u,
+                        residual=res if codec.carries_residual else None,
+                        mesh=mesh)
+                out["flat"][(name, pname, masked)] = _ms_to(got, "cpu")
+    out["mean"] = {m: B.gossip_flat_mean(buf, mask if m else None,
+                                         mesh=mesh).cpu() for m in (False,
+                                                                    True)}
+    out["matrix"] = B.gossip_flat_matrix(g["W"].to(dev), buf,
+                                         mesh=mesh).cpu()
+    perm = _ms_gather_perms(world)["shift"]
+    m_r = torch.as_tensor((perm != np.arange(world))[rank:rank + 1],
+                          device=dev) & mask[rank:rank + 1]
+    tree, tprev = mine(inp["tree"]), mine(inp["tprev"])
+    u_leaf = [mine(x) for x in g["u_leaf_all"]]
+    out["leaf"] = {
+        "exact": _ms_to(E.gossip_exact(tree, perm, m_r, mesh=mesh), "cpu"),
+        "q8": _ms_to(E.gossip_quantized(ModularQuantConfig(), tree, tprev,
+                                        perm, m_r, None, u=u_leaf,
+                                        mesh=mesh), "cpu")}
+    # the step cases, each step restarted from the CPU's state
+    cfg = g["cfg"]
+    for case, traj in g["steps"].items():
+        step, _, _ = _ms_gather_step(case, cfg, world, mesh)
+        got = []
+        for t, rec in enumerate(traj):
+            s0 = rec["state"]
+            infl = None
+            if s0.inflight is not None:
+                rpn = s0.inflight["sbuf"].shape[1] // 256
+                infl = {"sbuf": mine(s0.inflight["sbuf"]),
+                        "prev": mine(s0.inflight["prev"]),
+                        "wire": mine(s0.inflight["wire"], rpn)}
+            prev_s = s0.prev
+            if isinstance(prev_s, tuple):
+                prev_s = mine(prev_s, rec["u"].shape[1] // 256)
+            else:
+                prev_s = mine(prev_s)
+            st = SwarmState(mine(s0.params), mine(s0.opt), prev_s, t, infl,
+                            mine(s0.residual))
+            kw = {"u": mine(rec["u"])}
+            if case[2] == "compress":
+                kw["u_state"] = mine(rec["u_state"])
+            h = 2 if case[0] in ("swarm", "localsgd") else 1
+            nxt, met = step(st, mine(rec["batch"]), rec["perm"],
+                            [h] * world, None, rec["mask"], **kw)
+            got.append({"params": _ms_to(nxt.params, "cpu"),
+                        "residual": _ms_to(nxt.residual, "cpu"),
+                        "loss": float(met["loss"])})
+        out["steps"][case] = got
+    j = g["join"]
+    st = make_join_step(SwarmConfig(n_nodes=world, quantize=True,
+                                    codec="topk:0.25"), mesh=mesh)(
+        SwarmState(mine(j["state"].params), {}, mine(j["state"].prev), 0,
+                   None, mine(j["state"].residual)), j["perm"], j["jm"])
+    out["join"] = SwarmState(_ms_to(st.params, "cpu"), {},
+                             _ms_to(st.prev, "cpu"), 1, None,
+                             st.residual.cpu())
+    # planted faults
+    peers = B.gather_peers
+    B.gather_peers = _ms_faulty_peers
+    try:
+        out["faults"]["send_to_perm"] = B.gossip_flat_exact(
+            buf, perm, None, mesh=mesh).cpu()
+    finally:
+        B.gather_peers = peers
+    rows_fn = B.all_gather_rows
+    B.all_gather_rows = lambda x, mesh_: x.expand(
+        (mesh_.size,) + tuple(x.shape[1:]))
+    try:
+        out["faults"]["own_row_mean"] = B.gossip_flat_mean(
+            buf, mesh=mesh).cpu()
+    finally:
+        B.all_gather_rows = rows_fn
+    wrong = (rank + 1) % world
+    out["faults"]["wrong_row"] = B.gossip_flat_matrix(
+        g["W"].to(dev), B.all_gather_rows(buf, mesh))[wrong:wrong + 1].cpu()
+    wait = B.Posted.wait
+    B.Posted.wait = lambda posted: tuple(torch.zeros_like(x)
+                                         for x in wait(posted))
+    try:
+        out["faults"]["missed_wait"] = B.gossip_flat_coded(
+            B.as_codec(ModularQuantConfig()), buf, prev, perm,
+            torch.ones(1, dtype=torch.bool, device=dev), None, u=u,
+            mesh=mesh)[0].cpu()
+    finally:
+        B.Posted.wait = wait
+    return out
 
 
 def phase_multi_shard_reference(world: int, device: str = "cuda"):
@@ -4032,17 +4415,121 @@ def phase_multi_shard_reference(world: int, device: str = "cuda"):
         faults[name] = {"fails_bound": not ok(r), **r}
         check(not ok(r), f"multi_shard_reference: planted fault {name} "
               f"passes the bound {r}")
+    _ms_gather_reference_checks(world, inp["gather"],
+                                [r["gather"] for r in ranks], cases,
+                                bitwise_pairs, faults)
     log("multi_shard_reference", ranks=world, seconds=time.time() - t0,
         bitwise_card_vs_cpu=bitwise_pairs, cases=cases,
         planted_faults=faults)
 
 
+def _ms_gather_reference_checks(world, g, gr, cases, bitwise_pairs, faults):
+    """The gather cases of `multi_shard_reference`, card (`gr`, a rank
+    each) against the CPU's one-shard port (`g`): each codec's bound of
+    `codecs_reference` (exact within 2e-5), the join bitwise, the planted
+    faults failing the bound; -> into `cases`, `bitwise_pairs`,
+    `faults`."""
+    import types
+    import torch
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def cat(trees):
+        return tree_map(lambda *xs: torch.cat(xs), *trees)
+
+    def held(name, card, cpu, term, partner):
+        if name == "exact":
+            r = _readings(card.params, cpu.params, None, partner)
+            return r, _within_bound(r)
+        spec = "topk:0.25" if name == "topk" else name
+        r = _codec_readings(spec, card, cpu, term, partner)
+        return r, _codec_ok(r)
+
+    def ns(params, residual=None):
+        return types.SimpleNamespace(params=params, residual=residual)
+    for key, (want, want_res) in g["flat"].items():
+        name, pname, masked = key
+        got = torch.cat([r["flat"][key][0] for r in gr])
+        res = None if want_res is None else \
+            torch.cat([r["flat"][key][1] for r in gr])
+        partner = _ms_gather_perms(world)[pname]
+        r, good = held(name, ns({"b": got}, res), ns({"b": want}, want_res),
+                       g["scales"].get(name), partner)
+        tag = "gather_flat_{}_{}_{}".format(name, pname,
+                                            "masked" if masked else "full")
+        cases[tag] = r
+        bitwise_pairs[tag] = same_bits(got, want)
+        check(good, f"multi_shard_reference: {tag} {r}")
+    for what, want in (("mean_full", g["mean"][False]),
+                       ("mean_masked", g["mean"][True]),
+                       ("matrix", g["matrix"])):
+        got = torch.cat([r["mean"][what == "mean_masked"] if
+                         what.startswith("mean") else r["matrix"]
+                         for r in gr])
+        r = {"max_abs": float((got - want).abs().max())}
+        cases[f"gather_{what}"] = r
+        bitwise_pairs[f"gather_{what}"] = same_bits(got, want)
+        check(r["max_abs"] <= 2e-5, f"multi_shard_reference: {what} {r}")
+    for name, want in g["leaf"].items():
+        for k in want:
+            got = torch.cat([r["leaf"][name][k] for r in gr]).float()
+            d = (got - want[k].float()).abs()
+            r = {"max_abs": float(d.max()),
+                 "share_within_2e-5": float((d <= 2e-5).double().mean())}
+            cases[f"gather_leaf_{name}_{k}"] = r
+            check(r["share_within_2e-5"] >= 0.999 and
+                  (name != "exact" or r["max_abs"] <= 2e-5),
+                  f"multi_shard_reference: gather per-leaf {name} {k} {r}")
+    for case, traj in g["steps"].items():
+        tag = "_".join(case)
+        for t, rec in enumerate(traj):
+            got = [r["steps"][case][t] for r in gr]
+            card = ns(cat([x["params"] for x in got]),
+                      None if got[0]["residual"] is None else
+                      torch.cat([x["residual"] for x in got]))
+            r, good = held(case[1], card, rec["after"], rec["term"],
+                           rec["partner"])
+            r["loss_rel"] = abs(got[0]["loss"] - rec["loss"]) / \
+                abs(rec["loss"])
+            cases[f"gather_{tag}_{t}"] = r
+            check(good and r["loss_rel"] < 1e-4 and
+                  len({x["loss"] for x in got}) == 1,
+                  f"multi_shard_reference: {tag} t={t} {r}")
+    j, got = g["join"], [r["join"] for r in gr]
+    after = j["after"]
+    same = all(same_bits(a, b) for a, b in zip(
+        tree_leaves(cat([x.params for x in got])) +
+        tree_leaves(cat([x.prev for x in got])) +
+        [torch.cat([x.residual for x in got])],
+        tree_leaves(after.params) + tree_leaves(after.prev) +
+        [after.residual]))
+    bitwise_pairs["gather_join"] = same
+    check(same, "multi_shard_reference: the join bin != the CPU's")
+    perms = _ms_gather_perms(world)
+    planted = {
+        "send_to_perm": (g["flat"][("exact", "shift", False)][0],
+                         "exact", None, None),
+        "own_row_mean": (g["mean"][False], "exact", None, None),
+        "wrong_row": (g["matrix"], "exact", None, None),
+        "missed_wait": (g["flat"][("q8", "shift", False)][0], "q8",
+                        g["scales"]["q8"], perms["shift"])}
+    if world < 3:
+        del planted["send_to_perm"]    # a shift of 2 is an involution
+    for name, (want, spec, term, partner) in planted.items():
+        got = torch.cat([r["faults"][name] for r in gr])
+        r, good = held(spec, ns({"b": got}), ns({"b": want}), term,
+                       partner if partner is not None else perms["match"])
+        faults[f"gather_{name}"] = {"fails_bound": not good, **r}
+        check(not good, f"multi_shard_reference: planted fault gather "
+              f"{name} passes the bound {r}")
+
+
 def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
     """A rank of `multi_shard_full_width`: its node of transformer-wmt at
     full width (or `cfg_name`, a reduced stand-in for a CPU rehearsal) in
-    each of the MS_COMMANDS, 4 supersteps each; after each superstep rank
-    0 reruns the exchange on one device through the one-shard path from
-    every rank's gathered inputs."""
+    each of the MS_COMMANDS, MS_STEPS supersteps each; after each
+    superstep rank 0 reruns its exchange, node mean or dense mix on one
+    device through the one-shard path from every rank's gathered
+    inputs."""
     import dataclasses
     import numpy as np
     import torch
@@ -4050,6 +4537,7 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
     mesh = _ms_mesh(rank, world, port, device)
     dev = mesh.device
     from repro_torch.algorithms import make_algorithm
+    from repro_torch.algorithms.sgp import sgp_init_state
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import bucket as B
     from repro_torch.core import exchange as E
@@ -4083,30 +4571,46 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
 
     results = {}
     events = _Events(dev)
-    for name, (impl, quantize, mode) in MS_COMMANDS.items():
+    for name, (algo, impl, codec_spec, mode) in MS_COMMANDS.items():
         seed = 0
-        scfg = SwarmConfig(n_nodes=world, H=h, quantize=quantize,
-                           nonblocking=mode != "blocking",
-                           overlap=mode == "overlap", gossip_impl=impl,
-                           pool_size=8)
+        quantize = codec_spec is not None
+        scfg = SwarmConfig(n_nodes=world,
+                           H=h if algo in ("swarm", "localsgd") else 1,
+                           quantize=quantize,
+                           codec=None if codec_spec in (None, "q8")
+                           else codec_spec,
+                           nonblocking=mode in ("nonblocking", "overlap"),
+                           overlap=mode == "overlap",
+                           compress_state=mode == "compress",
+                           gossip_impl=impl, pool_size=8)
         kw = {}
         if impl.startswith("ppermute_pool"):
             kw["matching_pool"] = E.make_matching_pool(graph, 8, seed)
-        else:
+        elif impl.startswith("ppermute"):
             kw["static_pairs"] = B.pairs_from_perm(
                 E.static_ppermute_matching(graph, seed))
         tr = E.GossipTransport(world, impl=impl, quant=scfg.quant,
                                codec=scfg.make_codec(), mesh=mesh, **kw)
         opt = make_optimizer("sgd", lr=0.05, momentum=0.9,
                              state_dtype=cfg.opt_state_dtype)
-        step = make_algorithm("swarm", scfg=scfg,
-                              loss_fn=model.functional_loss,
-                              opt_update=opt.update, lr_fn=lambda s: 0.05,
-                              n_nodes=world, transport=tr, mesh=mesh)
+        akw = dict(loss_fn=model.functional_loss, opt_update=opt.update,
+                   lr_fn=lambda s: 0.05, n_nodes=world, transport=tr,
+                   mesh=mesh)
+        if algo == "swarm":
+            akw["scfg"] = scfg
+        if algo == "localsgd":
+            akw["H"] = h
+        if algo == "dpsgd":
+            akw["graph"] = make_graph("ring", world)
+        if algo in ("adpsgd", "sgp"):
+            akw["quantize"] = quantize
+        step = make_algorithm(algo, **akw)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         state = swarm_init(gen, scfg, lambda g: init_params(g, cfg, dev),
                            opt.init, mesh=mesh)
+        if algo == "sgp":
+            state = sgp_init_state(state, world, quantize, mesh=mesh)
         ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
                                            seq_len=seq, seed=seed),
                                 n_nodes=world)
@@ -4117,18 +4621,37 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
         ugen.manual_seed(1000 + rank)
         n_pad = B.build_layout(state.params).n_padded
         # warm-up: NCCL sets up a pair's connection at its first exchange
-        B.permute_payload_ppermute((torch.zeros(1, 256, device=dev),),
-                                   tr.mesh_pairs(perms[0]), world,
-                                   mesh=mesh)
+        # and a collective's ring at its first call
+        warm = (torch.zeros(1, 256, device=dev),)
+        if impl == "gather":
+            for p in (perms[0], (np.arange(world) - 1) % world,
+                      (np.arange(world) - 2) % world):
+                B.post_gather(warm, mesh, p).wait()
+        else:
+            B.post_exchange(warm, mesh, tr.mesh_pairs(perms[0])).wait()
+        B.all_gather_rows(warm[0], mesh)
         stash = {}
         orig = {"mix": E.GossipTransport.mix_pair,
+                "mean": E.GossipTransport.global_mean,
+                "matrix": E.GossipTransport.matrix_mix,
                 "decode": LatticeCodec.decode_avg,
-                "post": B.post_exchange, "wait": B.Posted.wait}
+                "post": B.post_exchange, "post_gather": B.post_gather,
+                "wait": B.Posted.wait, "rows": B.all_gather_rows}
 
         def mix(self, tree, perm, matched, **kw_):
             out = orig["mix"](self, tree, perm, matched, **kw_)
-            stash.update(tree=tree, prev=kw_.get("prev"), u=kw_.get("u"),
-                         out=out)
+            stash.update(kind="mix", tree=tree, perm=perm, matched=matched,
+                         out=out, **kw_)
+            return out
+
+        def mean(self, tree, mask=None):
+            out = orig["mean"](self, tree, mask)
+            stash.update(kind="mean", tree=tree, mask=mask, out=out)
+            return out
+
+        def matrix(self, tree, W):
+            out = orig["matrix"](self, tree, W)
+            stash.update(kind="matrix", tree=tree, W=W, out=out)
             return out
 
         def decode(self, wire, ybuf, matched_rows=None, **kw_):
@@ -4137,23 +4660,39 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
                          decoded=out)
             return out
 
-        def hooks(on: bool):
-            E.GossipTransport.mix_pair = mix if on else orig["mix"]
-            LatticeCodec.decode_avg = decode if on else orig["decode"]
-            B.post_exchange = post if on else orig["post"]
-            B.Posted.wait = wait if on else orig["wait"]
-
         def post(payload, mesh_, pairs):
             events.mark()
             return orig["post"](payload, mesh_, pairs)
+
+        def post_gather(payload, mesh_, perm, land=None):
+            events.mark()
+            return orig["post_gather"](payload, mesh_, perm, land)
 
         def wait(posted):
             got = orig["wait"](posted)
             events.mark()
             return got
+
+        def rows(x, mesh_):
+            events.mark()
+            got = orig["rows"](x, mesh_)
+            events.mark()
+            return got
+
+        def hooks(on: bool):
+            E.GossipTransport.mix_pair = mix if on else orig["mix"]
+            E.GossipTransport.global_mean = mean if on else orig["mean"]
+            E.GossipTransport.matrix_mix = matrix if on else orig["matrix"]
+            LatticeCodec.decode_avg = decode if on else orig["decode"]
+            B.post_exchange = post if on else orig["post"]
+            B.post_gather = post_gather if on else orig["post_gather"]
+            B.Posted.wait = wait if on else orig["wait"]
+            B.all_gather_rows = rows if on else orig["rows"]
+
         def check_exchange(t, sent):
-            """Rank 0 reruns superstep t's exchange through the one-shard
-            path from every rank's gathered inputs; -> into `rec`."""
+            """Rank 0 reruns superstep t's exchange (or mean, or mix)
+            through the one-shard path from every rank's gathered inputs;
+            -> into `rec`."""
             if mode == "overlap":
                 q_all, s_all = (gather(w) for w in sent)
                 sb_all = gather(stash["ybuf"])
@@ -4169,11 +4708,54 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
                         same_bits(a, b) for a, b in zip(recv1, recv_all)))
                     rec["exchange_bitwise"].append(same_bits(out1, out_all))
                 return
+            ef = isinstance(stash["out"], tuple)
+            out_tree = stash["out"][0] if ef else stash["out"]
             tree = stash["tree"]
             lay = B.build_layout(tree)
             lay_all = all_layout(lay)
             buf_all = gather(B.pack(lay, tree))
-            out_all = gather(B.pack(lay, stash["out"]))
+            out_all = gather(B.pack(lay, out_tree))
+
+            def same_tree(one):
+                return same_bits(B.pack(lay_all, B.unpack(lay_all, one)),
+                                 out_all)
+            if stash["kind"] == "mean":
+                if rank == 0:
+                    rec["exchange_bitwise"].append(same_tree(
+                        B.gossip_flat_mean(buf_all, stash["mask"])))
+                return
+            if stash["kind"] == "matrix":
+                if rank == 0:
+                    rec["exchange_bitwise"].append(same_tree(
+                        B.gossip_flat_matrix(stash["W"], buf_all)))
+                return
+            if impl == "gather":
+                m_all = gather(stash["matched"].to(torch.uint8)).bool()
+                if quantize:
+                    pb = stash.get("prev_buf")
+                    pb_all = gather(pb if pb is not None
+                                    else B.pack(lay, stash["prev"]))
+                    u_all = None if stash.get("u") is None \
+                        else gather(stash["u"])
+                    r_all = None if stash.get("residual") is None \
+                        else gather(stash["residual"])
+                    nr_all = gather(stash["out"][1]) if ef else None
+                    if rank == 0:
+                        one, one_r = B.gossip_flat_coded(
+                            tr.codec, buf_all, pb_all,
+                            torch.as_tensor(stash["perm"], device=dev),
+                            m_all, None, u=u_all, residual=r_all)
+                        rec["exchange_bitwise"].append(
+                            same_tree(one) and
+                            (not ef or same_bits(one_r, nr_all)))
+                elif rank == 0:
+                    rec["exchange_bitwise"].append(same_tree(
+                        B.gossip_flat_exact(
+                            buf_all, torch.as_tensor(stash["perm"],
+                                                     device=dev),
+                            m_all if stash.get("mask") is not None
+                            else None)))
+                return
             pairs = tr.mesh_pairs(perms[t])
             if quantize:
                 pb_all = gather(B.pack(lay, stash["prev"]))
@@ -4182,8 +4764,7 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
                     one = B.gossip_flat_ppermute(buf_all, pairs,
                                                  quant=tr.codec,
                                                  prev_buf=pb_all, u=u_all)
-                    rec["exchange_bitwise"].append(same_bits(
-                        B.pack(lay_all, B.unpack(lay_all, one)), out_all))
+                    rec["exchange_bitwise"].append(same_tree(one))
             elif rank == 0:
                 leaf = B.pack(lay_all, E.gossip_ppermute(
                     B.unpack(lay_all, buf_all), pairs))
@@ -4210,6 +4791,9 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
                     for k, v in nb.items()}
                 u = torch.rand((1, n_pad), generator=ugen, device=dev) \
                     if quantize else None
+                extra = {"u_state": torch.rand(
+                    (1, n_pad), generator=ugen, device=dev)} \
+                    if mode == "compress" else {}
                 sent = state.inflight["wire"] if mode == "overlap" else None
                 stash.clear()
                 _sync(dev)
@@ -4225,7 +4809,8 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
                     prof.__enter__()
                 barrier()
                 t0 = time.perf_counter()
-                state, m = step(state, bt, perms[t], hs[t], gen, u=u)
+                state, m = step(state, bt, perms[t], hs[t], gen, u=u,
+                                **extra)
                 m = {k: float(v) for k, v in m.items()}
                 _sync(dev)
                 dt = time.perf_counter() - t0
@@ -4255,10 +4840,17 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
             rec["launches"] = dict(LAUNCHES)
         finally:
             hooks(False)
-        rec["wire_bytes_per_node"] = tr.payload_num_bytes(state.params,
-                                                          quantize)
+        if algo in ("allreduce", "localsgd", "dpsgd"):
+            # every other rank's packed rows arrive at each rank
+            rec["allgather_bytes_per_rank"] = (world - 1) * \
+                tr.payload_num_bytes(state.params, False)
+        else:
+            rec["wire_bytes_per_node"] = tr.payload_num_bytes(
+                state.params, quantize)
+        if algo == "sgp":
+            rec["sum_w"] = float(gather(state.params["w"]).sum())
         results[name] = rec
-        last = state
+        last = state.params["model"] if algo == "sgp" else state.params
         del state, step, tr, sent
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -4266,10 +4858,10 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
     g_ms = []
     for _ in range(5):
         events.mark()
-        gamma_potential(last.params, mesh=mesh)
+        gamma_potential(last, mesh=mesh)
         events.mark()
         g_ms.extend(events.spans_ms())
-    buf = B.pack(B.build_layout(last.params), last.params)[0]
+    buf = B.pack(B.build_layout(last), last)[0]
     ar_ms = []
     for _ in range(5):
         events.mark()
@@ -4282,6 +4874,8 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
     mesh.close()
     with open(os.path.join(out_dir, f"full_width_rank{rank}.json"), "w") as f:
         json.dump(results, f)
+
+
 
 
 def _link_type(world: int) -> dict:
@@ -4312,19 +4906,24 @@ def phase_multi_shard_full_width(world: int, device: str = "cuda",
                                  cfg_name=None) -> dict:
     """`multi_shard_full_width`: transformer-wmt at full width and depth
     (12 layers, d_model 1024, bf16 with fp32 momentum, batch 4 x seq
-    128), one node a rank, `world` ranks over NCCL; three commands of
-    MS_STEPS supersteps — blocking q8 ``ppermute``, ``ppermute_pool
-    --nonblocking --overlap`` q8 (pool 8) and the ``ppermute_legacy``
-    oracle exact. Every superstep's exchange equals, bitwise, rank 0's
-    rerun of it on one device through the one-shard path (the lifted
-    perm, the ranks' uniforms); the flat exact exchange equals its
-    per-leaf oracle bitwise; every rank launches all three kernels of the
-    q8 commands. Prints per command the superstep times (every rank's),
-    the exchange's NCCL time (CUDA events from the post to the landed
-    work), wire bytes per node, the GPUs' link, ``permute_overlap``
-    (overlapped command, rank 0's trace of its 3rd superstep), peak
-    memory and launches per rank, and Γ, then Γ's and an all-reduce's
-    time at the model's size; -> {path: rank 0's launches}."""
+    128), one node a rank, `world` ranks over NCCL; each of MS_COMMANDS
+    for MS_STEPS supersteps — blocking q8 ``ppermute``, ``ppermute_pool
+    --nonblocking --overlap`` q8 (pool 8), the ``ppermute_legacy``
+    oracle exact; on gather blocking q8 (Algorithm 1 on the default
+    transport), ``--nonblocking --codec topk:0.25`` with its residual and
+    ``--compress-state`` q8; ``--algo allreduce``, ``localsgd`` (H 2),
+    ``dpsgd`` (ring), ``adpsgd --quantize`` and ``sgp``. Every
+    superstep's exchange, node mean or dense mix equals, bitwise, rank
+    0's rerun of it on one device through the one-shard path (the ranks'
+    inputs and uniforms gathered); the flat exact exchange equals its
+    per-leaf oracle bitwise; every rank launches the kernels MS_WANT
+    names. Prints per command the superstep times (every rank's), the
+    NCCL time (CUDA events from the post to the landed work, or around
+    the all-gather), wire bytes per node or all-gather bytes per rank,
+    ``permute_overlap`` (overlapped command, rank 0's trace of its 3rd
+    superstep), peak memory and launches per rank, and Γ, then Γ's and
+    an all-reduce's time at the model's size, and the GPUs' link;
+    -> {path: rank 0's launches}."""
     os.makedirs(MS_DIR, exist_ok=True)
     t0 = time.time()
     _ms_spawn(_ms_full_width_rank, world, cfg_name, MS_DIR, device)
@@ -4332,14 +4931,6 @@ def phase_multi_shard_full_width(world: int, device: str = "cuda",
     for r in range(world):
         with open(os.path.join(MS_DIR, f"full_width_rank{r}.json")) as f:
             ranks.append(json.load(f))
-    want = {"multi_shard_ppermute_q8": {"sgd_update": 8, "quantize_mod": 4,
-                                        "decode_avg": 4},
-            "multi_shard_pool_overlap_q8": {"sgd_update": 8,
-                                            "quantize_mod": 4,
-                                            "decode_avg": 4},
-            "multi_shard_ppermute_legacy_exact": {"sgd_update": 8,
-                                                  "quantize_mod": 0,
-                                                  "decode_avg": 0}}
     out, by_path = {}, {}
     for name in MS_COMMANDS:
         per = [r[name] for r in ranks]
@@ -4358,20 +4949,26 @@ def phase_multi_shard_full_width(world: int, device: str = "cuda",
                   f"{name}: flat exact != per-leaf oracle")
         if "overlap" in name:
             check(all(r0["recv_bitwise"]), f"{name}: received != sent")
+        if "sum_w" in r0:
+            check(abs(r0["sum_w"] - world) <= 1e-4 * world,
+                  f"{name}: SGP's sum of w {r0['sum_w']} != {world}")
         if device == "cuda":
             for r, p in enumerate(per):
-                check(p["launches"] == want[name],
+                check(p["launches"] == MS_WANT[name],
                       f"{name}: rank {r} launches {p['launches']} != "
-                      f"{want[name]}")
+                      f"{MS_WANT[name]}")
         steady = [statistics.median(p["superstep_s"][1:]) for p in per]
         out[name] = {
             "superstep_s_by_rank": [p["superstep_s"] for p in per],
             "superstep_median_s_rank0": steady[0],
             "superstep_median_s_max_rank": max(steady),
             "nccl_ms_by_rank": [p["nccl_ms"] for p in per],
-            "wire_bytes_per_node": r0["wire_bytes_per_node"],
+            **{k: r0[k] for k in ("wire_bytes_per_node",
+                                  "allgather_bytes_per_rank", "sum_w")
+               if k in r0},
             "peak_bytes_by_rank": [p["peak_bytes"] for p in per],
             "launches_by_rank": [p["launches"] for p in per],
+            "want": MS_WANT[name],
             "losses": r0["losses"], "gamma": r0["gamma"],
             "exchange_bitwise": r0["exchange_bitwise"],
             **({"flat_equals_per_leaf": r0["flat_equals_per_leaf"]}

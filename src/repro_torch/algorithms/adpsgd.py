@@ -7,7 +7,9 @@ buffer: exact fp32, or any codec of the transport (the `prev` comm copy as
 the distance proxy; top-k threads its error-feedback residual through the
 state), blocking or non-blocking (the stale Algorithm-2 combine:
 the partner contributes its pre-step model, each node's own gradient
-delta rides on top), under an optional participation mask.
+delta rides on top), under an optional participation mask. On a node mesh
+each rank averages its node with its partner's by the global host perm
+(any transport), landing by its own entry of the matched mask.
 """
 from __future__ import annotations
 
@@ -16,17 +18,19 @@ from torch.profiler import record_function
 
 from repro_torch.algorithms.common import (fold_batch, gated_grad_step,
                                            metrics_of, node_grad_step,
-                                           refresh_prev)
-from repro_torch.core.exchange import (EngineStep, GossipTransport,
-                                       stale_combine)
+                                           refresh_prev, transport_of)
+from repro_torch.core.exchange import (EngineStep, GossipTransport, matching,
+                                       own_rows, stale_combine)
 from repro_torch.core.swarm import SwarmState
 
 
 def make_step(loss_fn, opt_update, lr_fn, n_nodes,
               track_potential: bool = True,
               transport: GossipTransport = None,
-              quantize: bool = False, nonblocking: bool = False):
-    tr = transport or GossipTransport(n_nodes)
+              quantize: bool = False, nonblocking: bool = False, *,
+              mesh=None):
+    tr = transport_of(transport, n_nodes, mesh)
+    mesh = tr.mesh
     gs_plain = node_grad_step(loss_fn, opt_update)
     gs_gated = gated_grad_step(loss_fn, opt_update)
 
@@ -34,18 +38,16 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
 
     def step(state: SwarmState, batch, inp, rng, *, u=None):
         lr, mask = inp.lr, inp.mask
-        device = lr.device
         S = state.params                  # pre-step models (staleness ref)
         mb = fold_batch(batch)
         if mask is None:
             params, opt, losses = gs_plain(S, state.opt, mb, lr)
         else:
-            params, opt, losses = gs_gated(S, state.opt, mb, lr, mask)
-        perm_t = inp.perm
-        node_perm, _ = tr.resolve_perm(perm_t)
-        matched = node_perm != torch.arange(n_nodes, device=device)
-        if mask is not None:
-            matched = matched & mask
+            params, opt, losses = gs_gated(S, state.opt, mb, lr,
+                                           own_rows(mask, mesh))
+        # the matching; `matched` is what this process lands by (on a node
+        # mesh the rank's entry of `matched_all`)
+        perm_t, _, matched_all, matched = matching(tr, inp, n_nodes)
 
         new_residual = state.residual
 
@@ -74,6 +76,6 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
         return (SwarmState(params, opt, new_prev, state.step + 1, None,
                            new_residual),
                 metrics_of(params, losses, lr, track_potential, mask,
-                           matched_frac=torch.mean(
-                               matched.to(torch.float32))))
-    return EngineStep(step, lr_fn)
+                           mesh=mesh, matched_frac=torch.mean(
+                               matched_all.to(torch.float32))))
+    return EngineStep(step, lr_fn, mesh=mesh)

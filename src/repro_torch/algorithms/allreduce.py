@@ -6,13 +6,16 @@ The node-stacked bf16 gradients pack into one fp32 flat buffer, the
 transport's `global_mean` takes their node mean (over the participants
 under a mask, applied everywhere: backup-worker semantics), unpacks it to
 bf16, and one optimizer sweep applies it — so nodes that start equal stay
-bitwise equal.
+bitwise equal. On a node mesh the mean all-gathers the ranks' packed
+gradients and reduces them as on one shard, so every rank applies the
+same bits.
 """
 from __future__ import annotations
 
 from torch.profiler import record_function
 
-from repro_torch.algorithms.common import fold_batch, metrics_of
+from repro_torch.algorithms.common import (fold_batch, metrics_of,
+                                           transport_of)
 from repro_torch.core.exchange import EngineStep, GossipTransport, \
     node_grads_fn
 from repro_torch.core.swarm import SwarmState
@@ -20,8 +23,9 @@ from repro_torch.core.swarm import SwarmState
 
 def make_step(loss_fn, opt_update, lr_fn, n_nodes,
               track_potential: bool = True,
-              transport: GossipTransport = None):
-    tr = transport or GossipTransport(n_nodes)
+              transport: GossipTransport = None, *, mesh=None):
+    tr = transport_of(transport, n_nodes, mesh)
+    mesh = tr.mesh
     node_grads = node_grads_fn(loss_fn)
 
     def step(state: SwarmState, batch, inp, rng, *, u=None):
@@ -37,5 +41,6 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
             params, opt = opt_update(state.params, grads, state.opt, lr)
         del grads
         return (SwarmState(params, opt, state.prev, state.step + 1),
-                metrics_of(params, losses, lr, track_potential, mask))
-    return EngineStep(step, lr_fn)
+                metrics_of(params, losses, lr, track_potential, mask,
+                           mesh=mesh))
+    return EngineStep(step, lr_fn, mesh=mesh)

@@ -15,6 +15,12 @@ is one vmapped gradient over the node axis, then ONE fused ``sgd_update``
 sweep over every node (elementwise, so bitwise the per-node update), and a
 participation gate is a ``torch.where`` after the sweep — never a loop over
 nodes, so a step launches the kernel once.
+
+On a node mesh (``launch/mesh.py``; ``make_algorithm(name, mesh=...)``)
+each rank holds its node's state (leading axis 1) and the step's `perm`,
+`h_counts` and `mask` stay the global [n] vectors, `perm` on the host: a
+rank gates its own update by its entry of the mask, the transport
+exchanges over the mesh, and the metrics are the global ones.
 """
 from __future__ import annotations
 
@@ -24,9 +30,20 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core.exchange import (  # noqa: F401
-    make_local_steps, masked_mean_loss, node_grads_fn, select, select_into,
+    GossipTransport, global_scalars, make_local_steps, masked_mean_loss,
+    node_grads_fn, select, select_into,
 )
 from repro_torch.core.potential import gamma_potential
+
+
+def transport_of(transport, n_nodes: int, mesh) -> GossipTransport:
+    """The baseline's transport: the one given, or gather on `mesh` (None:
+    one shard); a transport built on another mesh than `mesh` raises."""
+    tr = transport or GossipTransport(n_nodes, mesh=mesh)
+    if mesh is not None and tr.mesh is not mesh:
+        raise ValueError("the transport is not built on the step's mesh "
+                         "(GossipTransport(..., mesh=mesh))")
+    return tr
 
 
 def fold_batch(batch: dict) -> dict:
@@ -73,12 +90,18 @@ def gated_grad_step(loss_fn: Callable, opt_update: Callable):
 gated_local_loop = make_local_steps
 
 
-def metrics_of(params, losses, lr, track_potential=True, mask=None,
-               **extra):
+def metrics_of(params, losses, lr, track_potential=True, mask=None, *,
+               mesh=None, **extra):
+    """The step's metrics: the loss over the participants, Γ and `extra`.
+    On a node `mesh` (the rank's `losses` [1], the global `mask`) the
+    losses are all-gathered and Γ all-reduced, so every rank reports the
+    global metrics."""
+    if mesh is not None:
+        losses = global_scalars(mesh, losses)
     m = {"loss": masked_mean_loss(losses, mask), "lr": lr, **extra}
     if track_potential:
         with record_function("swarm.gamma"):
-            m["gamma"] = gamma_potential(params)
+            m["gamma"] = gamma_potential(params, mesh=mesh)
     return m
 
 

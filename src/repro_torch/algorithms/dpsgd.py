@@ -6,7 +6,9 @@ The mixing is the transport's `matrix_mix`: one dense [n, n] x
 [n, n_padded] fp32 product over the packed buffer. Under a participation
 mask only edges whose BOTH endpoints are active mix: W_eff = I + M (W - I)
 M with M = diag(mask), which stays symmetric doubly stochastic (inactive
-rows are the identity, dropped mass folds back onto the diagonal).
+rows are the identity, dropped mass folds back onto the diagonal). On a
+node mesh W and W_eff are replicated [n, n] on every rank, the mix
+all-gathers the ranks' packed models and each rank keeps its row of W X.
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.algorithms.common import (fold_batch, gated_grad_step,
-                                           metrics_of, node_grad_step)
-from repro_torch.core.exchange import EngineStep, GossipTransport
+                                           metrics_of, node_grad_step,
+                                           transport_of)
+from repro_torch.core.exchange import EngineStep, GossipTransport, own_rows
 from repro_torch.core.graph import Graph
 from repro_torch.core.swarm import SwarmState
 
@@ -48,8 +51,9 @@ def masked_metropolis(W: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def make_step(loss_fn, opt_update, lr_fn, n_nodes, graph: Graph,
               track_potential: bool = True,
-              transport: GossipTransport = None):
-    tr = transport or GossipTransport(n_nodes)
+              transport: GossipTransport = None, *, mesh=None):
+    tr = transport_of(transport, n_nodes, mesh)
+    mesh = tr.mesh
     W = torch.from_numpy(metropolis_weights(graph).astype(np.float32))
     gs_plain = node_grad_step(loss_fn, opt_update)
     gs_gated = gated_grad_step(loss_fn, opt_update)
@@ -68,11 +72,12 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes, graph: Graph,
             W_eff = W_dev
         else:
             params, opt, losses = gs_gated(state.params, state.opt, mb, lr,
-                                           mask)
+                                           own_rows(mask, mesh))
             W_eff = masked_metropolis(W_dev, mask)
         # gossip-matrix mixing: X <- W X over the packed node axis
         with record_function("swarm.gossip"):
             params = tr.matrix_mix(params, W_eff)
         return (SwarmState(params, opt, state.prev, state.step + 1),
-                metrics_of(params, losses, lr, track_potential, mask))
-    return EngineStep(step, lr_fn)
+                metrics_of(params, losses, lr, track_potential, mask,
+                           mesh=mesh))
+    return EngineStep(step, lr_fn, mesh=mesh)

@@ -10,8 +10,9 @@ n_nodes=..., ...)`` and returns a superstep with the uniform signature
 (transport, execution mode, quantization, codec, scheduler) combination
 each algorithm supports. `validate_run_config` raises wherever the
 reference's raises; on one shard nowhere else. On a node mesh
-(``launch/mesh.py``) it also refuses what the mesh does not carry yet —
-the baselines, the gather transport, ``--scan-chunk`` — each naming its
+(``launch/mesh.py``; ``make_algorithm(name, mesh=...)`` builds any
+algorithm there) it also refuses what the mesh does not carry yet —
+``--scan-chunk`` and more than one node a rank — each naming its
 ROADMAP.md item (``core/bucket.py`` NOT_ON_A_MESH).
 """
 from __future__ import annotations
@@ -130,11 +131,11 @@ ALGORITHMS = {
 
 
 def make_algorithm(name: str, **kw) -> Callable:
+    """The superstep of algorithm `name` from its factory's keywords; a
+    `mesh` keyword (``launch/mesh.py``) builds it on that node mesh."""
     if name not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {name!r}; known: "
                          f"{sorted(ALGORITHMS)}")
-    if name != "swarm" and kw.pop("mesh", None) is not None:
-        raise NotImplementedError(f"--algo {name}: {NOT_ON_A_MESH['gather']}")
     return ALGORITHMS[name](**kw)
 
 
@@ -151,10 +152,10 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     does (``--gossip-impl``, ``--rate-profile``, ``--avail``,
     ``--topology``, ``--codec`` and ``--compress-state`` included). There
     is no environment default: None means gather, the q8 lattice, no
-    topology, no availability profile. On a node `mesh` it raises
-    NotImplementedError, naming the ROADMAP.md item, for a baseline, the
-    gather transport and ``--scan-chunk`` (a residual codec is refused
-    off gather already). Returns the AlgoCaps row otherwise."""
+    topology, no availability profile. On a node `mesh` it also raises,
+    naming the ROADMAP.md item, for ``--scan-chunk`` (NotImplementedError)
+    and for `n_nodes` other than the mesh's size (ValueError: one node a
+    rank). Returns the AlgoCaps row otherwise."""
     if algo not in CAPABILITIES:
         raise ValueError(f"unknown algorithm {algo!r}; known: "
                          f"{sorted(CAPABILITIES)}")
@@ -171,12 +172,12 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     base = gossip_impl[:-len("_legacy")] \
         if gossip_impl.endswith("_legacy") else gossip_impl
     if mesh is not None:
-        if algo != "swarm" or base == "gather":
-            raise NotImplementedError(
-                f"--algo {algo} --gossip-impl {gossip_impl}: "
-                f"{NOT_ON_A_MESH['gather']}")
         if scan_chunk:
             raise NotImplementedError(NOT_ON_A_MESH["scan"])
+        if n_nodes is not None and n_nodes != mesh.size:
+            raise ValueError(f"n_nodes={n_nodes} on a node mesh of "
+                             f"{mesh.size} ranks: "
+                             f"{NOT_ON_A_MESH['nodes_per_shard']}")
     if base not in caps.transports:
         reject(f"--gossip-impl {gossip_impl}")
     mode = "overlap" if overlap else \

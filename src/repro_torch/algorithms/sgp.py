@@ -15,31 +15,39 @@ not an involution — and `state.prev` is the comm copy of that payload.
 Under a participation mask node i averages with its in-neighbour only
 when BOTH are active; that mixing is row- but not column-stochastic, which
 is what the push-sum weights correct for.
+
+On a node mesh each rank holds its node's (X, w) (w its [1]) and the
+shift crosses as one message a wire tensor from its in-neighbour and one
+to its out-neighbour, two different ranks: the mesh's first exchange by a
+permutation that is not an involution.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.algorithms.common import (fold_batch, metrics_of,
                                            node_grad_step, refresh_prev,
-                                           select)
-from repro_torch.core.exchange import EngineStep, GossipTransport, _rows
+                                           select, transport_of)
+from repro_torch.core.exchange import (EngineStep, GossipTransport, _rows,
+                                       own_rows)
 from repro_torch.core.swarm import SwarmState
 from repro_torch.tree import tree_leaves, tree_map
 
 
 def sgp_init_state(state: SwarmState, n_nodes: int,
-                   quantize: bool = False) -> SwarmState:
+                   quantize: bool = False, *, mesh=None) -> SwarmState:
     """Wrap a fresh swarm state into SGP's payload layout: params becomes
     the push-sum pair {"model": X, "w": 1}, prev (quantized runs only) its
-    comm copy — the quantizer's distance proxy, w included."""
+    comm copy — the quantizer's distance proxy, w included. On a node
+    `mesh` the state is the rank's node and w its [1]."""
     device = tree_leaves(state.params)[0].device
     payload = {"model": state.params,
-               "w": torch.ones((n_nodes,), dtype=torch.float32,
-                               device=device)}
+               "w": torch.ones((n_nodes if mesh is None else 1,),
+                               dtype=torch.float32, device=device)}
     prev = tree_map(torch.clone, payload) if quantize else None
     return SwarmState(payload, state.opt, prev, state.step)
 
@@ -62,8 +70,10 @@ def sgp_debias(payload) -> dict:
 
 def make_step(loss_fn, opt_update, lr_fn, n_nodes,
               track_potential: bool = True,
-              transport: GossipTransport = None, quantize: bool = False):
-    tr = transport or GossipTransport(n_nodes)
+              transport: GossipTransport = None, quantize: bool = False, *,
+              mesh=None):
+    tr = transport_of(transport, n_nodes, mesh)
+    mesh = tr.mesh
     log_n = max(1, int(math.log2(n_nodes)))
     gs = node_grad_step(loss_fn, opt_update)
 
@@ -80,8 +90,9 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
         if mask is None:
             X, opt = X2, opt2
         else:
-            X, opt = select(mask, X2, X), select(mask, opt2, state.opt)
-            losses = torch.where(mask, losses, 0.0)
+            mine = own_rows(mask, mesh)
+            X, opt = select(mine, X2, X), select(mine, opt2, state.opt)
+            losses = torch.where(mine, losses, 0.0)
         del X2, opt2
 
         # one-peer exponential: average with in-neighbour (i - 2^(t mod k));
@@ -92,14 +103,19 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
         # a directed edge lands only when BOTH endpoints are active
         gate = torch.ones((n_nodes,), dtype=torch.bool, device=device) \
             if mask is None else mask & mask[src]
+        # on a node mesh the shift goes by the host perm, and the rank
+        # lands by its own gate
+        perm_t = src if mesh is None else \
+            (np.arange(n_nodes) - shift) % n_nodes
         with record_function("swarm.gossip"):
-            mixed = tr.mix_pair({"model": X, "w": w}, src, gate,
-                                quantize=quantize, prev=state.prev, rng=rng,
-                                u=u, mask=mask)
+            mixed = tr.mix_pair({"model": X, "w": w}, perm_t,
+                                own_rows(gate, mesh), quantize=quantize,
+                                prev=state.prev, rng=rng, u=u, mask=mask)
         del X
-        new_prev = refresh_prev(state.prev, mixed, gate)
+        new_prev = refresh_prev(state.prev, mixed, own_rows(gate, mesh))
         return (SwarmState(mixed, opt, new_prev, state.step + 1),
                 metrics_of(sgp_debias(mixed) if track_potential else None,
-                           losses, lr, track_potential, mask,
+                           losses, lr, track_potential, mask, mesh=mesh,
                            matched_frac=torch.mean(gate.to(torch.float32))))
-    return EngineStep(step, lr_fn, key_fn=lambda state: state.step % log_n)
+    return EngineStep(step, lr_fn, key_fn=lambda state: state.step % log_n,
+                      mesh=mesh)

@@ -23,10 +23,14 @@ by an index). With every node in one process on one device — one shard —
 the ppermute transports are a local permute by the static pairs or by the
 pool entry, as the reference's one-shard branch is. On a node mesh
 (``launch/mesh.py``: one node a ``torch.distributed`` rank, NCCL on the
-card, gloo on the CPU) they are the reference's ``shard_map`` bodies: each
-rank encodes its own rows, ONE ``batch_isend_irecv`` message per wire
-tensor crosses to and from its partner by the static pairs, and the fused
-decode-average lands against its own rows.
+card, gloo on the CPU) each rank encodes its own rows, ONE
+``batch_isend_irecv`` message per wire tensor crosses between partners,
+and the fused decode-average lands against its own rows: the ppermute
+transports post by the static pairs (the reference's ``shard_map``
+bodies), the gather transport by the engine's host perm, which may be any
+permutation (SGP's cyclic shift included). The node mean and the dense
+mix all-gather the ranks' rows and run the one-shard reduction or product
+on them, so every mesh exchange is bitwise the one-shard one.
 """
 from __future__ import annotations
 
@@ -189,13 +193,23 @@ def permute_rows(x: torch.Tensor, perm: torch.Tensor, n_nodes: int):
     return x.reshape((n_nodes, r) + tuple(x.shape[1:]))[perm].reshape(x.shape)
 
 
-def gossip_flat_exact(buf, perm, matched=None):
+def gossip_flat_exact(buf, perm, matched=None, *, mesh=None):
     """(buf + buf[perm]) / 2 — one gather over one tensor. For a matching
     `perm` is an involution with fixed points at unmatched nodes, and
     (x + x) * 0.5 == x for every finite float, so no mask is needed unless
     `matched` gates a partial landing (SGP's directed shift gates through
-    `matched` the same way)."""
-    avg = (buf + buf[perm]) * 0.5
+    `matched` the same way).
+
+    On a node `mesh` `buf` is the rank's row ([1, n_padded]), `perm` the
+    global host perm and `matched` the rank's flag ([1]): the partner's
+    row arrives as one message (:func:`post_gather`)."""
+    if mesh is None:
+        avg = (buf + buf[perm]) * 0.5
+    else:
+        _one_node_a_rank(buf, mesh)
+        with record_function("gossip.permute"):
+            xp, = post_gather((buf,), mesh, perm).wait()
+        avg = (buf + xp) * 0.5
     if matched is None:
         return avg
     return torch.where(matched[:, None], avg, buf)
@@ -244,14 +258,27 @@ def count_wraps(codec, wire_p, sender_buf, perm, matched) -> None:
 
 
 def gossip_flat_coded(codec: WireCodec, buf, prev_buf, perm, matched, rng,
-                      *, residual=None, u=None,
+                      *, residual=None, u=None, mesh=None,
                       tile_rows: int = DEFAULT_TILE_ROWS):
     """Encode once (one quantize_mod sweep for the lattice), permute every
     wire tensor, decode + average + matched mask in one fused decode_avg
     sweep. Returns (mixed, new_residual); new_residual is None unless the
     codec carries an error-feedback residual, whose update is gated by
     `matched` (an unconsumed payload leaves it to re-enter the next
-    encode)."""
+    encode).
+
+    On a node `mesh` `buf`, `prev_buf`, `residual` and `u` are the rank's
+    row ([1, n_padded]), `perm` the global host perm and `matched` the
+    rank's flag ([1]); the uniforms, unless given, come from the rank's
+    generator folded from `rng` (every rank folds, so the run's generator
+    moves on alike). Each wire tensor crosses as one message
+    (:func:`post_gather`); a fixed point of `perm` decodes its own wire,
+    as ``buf[perm]`` gives it its own row, and lands nothing unless
+    `matched` says so."""
+    if mesh is not None:
+        _one_node_a_rank(buf, mesh)
+        if codec.needs_rng and u is None and rng is not None:
+            rng = mesh.fold_generator(rng)
     n_nodes, n_padded = buf.shape
     rpn = n_padded // codec.block
     new_residual = None
@@ -268,21 +295,49 @@ def gossip_flat_coded(codec: WireCodec, buf, prev_buf, perm, matched, rng,
         else:
             wire = codec.encode(buf, prev_buf, rng, u=u, tile_rows=tile_rows)
     with record_function("gossip.permute"):
-        wire_p = tuple(permute_rows(w, perm, n_nodes) for w in wire)
+        if mesh is None:
+            wire_p = tuple(permute_rows(w, perm, n_nodes) for w in wire)
+        else:
+            wire_p = post_gather(wire, mesh, perm).wait()
         m_rows = row_mask(matched, rpn)
     del wire
-    count_wraps(codec, wire_p, buf, perm, matched)
+    if mesh is None:
+        # the wrap counter reads the sender's row, which a rank of a node
+        # mesh does not hold
+        count_wraps(codec, wire_p, buf, perm, matched)
     with record_function("gossip.decode"):
         out = codec.decode_avg(wire_p, buf, m_rows, tile_rows=tile_rows)
     return out, new_residual
 
 
-def gossip_flat_mean(buf, mask=None):
+def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's row `x` ([1, ...]) -> every rank's, stacked in rank
+    order ([mesh.size, ...]): ONE all-gather of its bytes (a uint8 view,
+    as :func:`post_exchange` sends them, so every dtype crosses bit for
+    bit) into one buffer."""
+    _one_node_a_rank(x, mesh)
+    xb = x.contiguous().reshape(-1).view(torch.uint8)
+    out = torch.empty((mesh.size, xb.numel()), dtype=torch.uint8,
+                      device=x.device)
+    dist.all_gather(list(out.unbind(0)), xb, group=mesh.group)
+    return out.view(x.dtype).reshape((mesh.size,) + tuple(x.shape[1:]))
+
+
+def gossip_flat_mean(buf, mask=None, *, mesh=None):
     """(Masked) mean over the node axis, broadcast back to every node —
     the flat form of LocalSGD's resync and AllReduce's gradient mean. With
     `mask` the mean runs over the participants only, sum(w * buf) /
     max(sum(w), 1), and is still broadcast everywhere. The result is a
-    broadcast view of one row; `unpack` copies it out."""
+    broadcast view of one row; `unpack` copies it out.
+
+    On a node `mesh` (`buf` the rank's row, `mask` the global vector) the
+    rows are all-gathered and reduced as on one shard, so the mean is
+    bitwise the one-shard one (a ring all-reduce sums in an order that
+    changes with its chunking and would not be); -> the rank's row."""
+    if mesh is not None:
+        with record_function("gossip.gather"):
+            rows = all_gather_rows(buf, mesh)
+        return gossip_flat_mean(rows, mask)[mesh.rank:mesh.rank + 1]
     if mask is None:
         mu = torch.mean(buf, dim=0, keepdim=True)
     else:
@@ -292,11 +347,19 @@ def gossip_flat_mean(buf, mask=None):
     return mu.expand(buf.shape)
 
 
-def gossip_flat_matrix(W, buf):
+def gossip_flat_matrix(W, buf, *, mesh=None):
     """Dense mixing X <- W X over the packed buffer: ONE [n, n] x
     [n, n_padded] fp32 product for the whole model (D-PSGD's Metropolis
     mixing). The caller keeps TF32 off on the card
-    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    (``torch.backends.cuda.matmul.allow_tf32 = False``).
+
+    On a node `mesh` (`buf` the rank's row, `W` the replicated [n, n])
+    the rows are all-gathered and the same product runs as on one shard;
+    -> the rank's row of W X."""
+    if mesh is not None:
+        with record_function("gossip.gather"):
+            rows = all_gather_rows(buf, mesh)
+        return gossip_flat_matrix(W, rows)[mesh.rank:mesh.rank + 1]
     return torch.matmul(W.to(torch.float32), buf)
 
 
@@ -325,9 +388,6 @@ def gossip_flat_quantized(qcfg, buf, prev_buf, perm, matched, rng, *,
 #: What a node mesh does not carry yet, each refusal naming the ROADMAP.md
 #: item that carries it.
 NOT_ON_A_MESH = {
-    "gather": ("the gather transport and the baselines' global_mean / "
-               "matrix_mix on a node mesh (an all-gather / all-reduce) wait "
-               "for ROADMAP.md Queue A 3"),
     "scan": ("--scan-chunk on a node mesh (NCCL inside CUDA graphs) waits "
              "for ROADMAP.md Queue A 4"),
     "nodes_per_shard": ("a node mesh holds one node a rank; more than one "
@@ -396,6 +456,27 @@ def pool_pairs(pool, pool_idx):
     return pairs_from_perm(pool[min(max(idx, 0), len(pool) - 1)])
 
 
+def gather_peers(perm, mesh, land=None):
+    """-> (dsts, src) of this rank under the gather by the host `perm`
+    (global [mesh.size] int array), ``out[i] = in[perm[i]]``: it receives
+    from ``perm[rank]`` and sends to every ``j != rank`` with ``perm[j] ==
+    rank``. For a matching that is its one partner both ways; under a
+    permutation that is not an involution (SGP's cyclic shift) the two
+    differ. A fixed point receives nothing (src None). With `land` (host
+    bool [mesh.size]) only the ranks it marks receive: the others' sends
+    to them are not posted."""
+    p = np.asarray(perm).reshape(-1)
+    if p.shape != (mesh.size,) or p.min() < 0 or p.max() >= mesh.size:
+        raise ValueError(f"perm {p.tolist()} on a node mesh of {mesh.size}: "
+                         "the global host vector of node indices")
+    lm = np.ones(mesh.size, bool) if land is None \
+        else np.asarray(land, bool).reshape(-1)
+    r = mesh.rank
+    dsts = [int(j) for j in np.flatnonzero(p == r) if j != r and lm[j]]
+    src = int(p[r]) if p[r] != r and lm[r] else None
+    return dsts, src
+
+
 def mesh_peers(pairs, mesh):
     """-> (dst, src): the rank this rank sends to and the one it receives
     from under the static `pairs` (None where it has none; a self-pair
@@ -432,34 +513,51 @@ class Posted:
         return self.recv
 
 
-def post_exchange(payload: Sequence[torch.Tensor], mesh, pairs) -> Posted:
-    """Post this rank's share of one exchange of `payload` (a tuple of
-    tensors, the rank's rows) by the static `pairs`: ONE message per
-    tensor to its destination and one from its source, in one
-    ``batch_isend_irecv``, in payload order on both sides. Every tensor
-    crosses as a contiguous uint8 view of its bytes and is viewed back on
-    receipt (NCCL has no 16-bit integer type), so uint16 codes and bf16
-    cross bit for bit. Where the pairs give the rank no source it receives
-    zeros, as ``ppermute`` gives; an all-identity matching posts
-    nothing."""
-    dst, src = mesh_peers(pairs, mesh)
+def _post(payload, mesh, dsts, src, own: bool) -> Posted:
+    """ONE message per tensor of `payload` to each of `dsts` and one from
+    `src`, in one ``batch_isend_irecv``, in payload order on both sides.
+    Every tensor crosses as a contiguous uint8 view of its bytes and is
+    viewed back on receipt (NCCL has no 16-bit integer type), so uint16
+    codes and bf16 cross bit for bit. With no `src` the rank receives its
+    own tensor (`own`, a gather's fixed point) or zeros (``ppermute``'s);
+    nothing to send or receive posts nothing."""
     ops, recv, sent = [], [], []
     for i, x in enumerate(payload):
-        if dst is not None:
+        if dsts:
             xb = x.contiguous().reshape(-1).view(torch.uint8)
-            ops.append(dist.P2POp(dist.isend, xb, dst, group=mesh.group,
-                                  tag=i))
             sent.append(xb)
-        nb = x.numel() * x.element_size()
+            ops.extend(dist.P2POp(dist.isend, xb, d, group=mesh.group, tag=i)
+                       for d in dsts)
         if src is None:
-            rb = torch.zeros((nb,), dtype=torch.uint8, device=x.device)
-        else:
-            rb = torch.empty((nb,), dtype=torch.uint8, device=x.device)
-            ops.append(dist.P2POp(dist.irecv, rb, src, group=mesh.group,
-                                  tag=i))
+            recv.append(x if own else torch.zeros_like(x))
+            continue
+        rb = torch.empty((x.numel() * x.element_size(),), dtype=torch.uint8,
+                         device=x.device)
+        ops.append(dist.P2POp(dist.irecv, rb, src, group=mesh.group, tag=i))
         recv.append(rb.view(x.dtype).reshape(x.shape))
     works = dist.batch_isend_irecv(ops) if ops else []
     return Posted(works, tuple(recv), tuple(sent))
+
+
+def post_exchange(payload: Sequence[torch.Tensor], mesh, pairs) -> Posted:
+    """Post this rank's share of one exchange of `payload` (a tuple of
+    tensors, the rank's rows) by the static `pairs`: one message per
+    tensor to its destination and one from its source (:func:`_post`).
+    Where the pairs give the rank no source it receives zeros, as
+    ``ppermute`` gives; an all-identity matching posts nothing."""
+    dst, src = mesh_peers(pairs, mesh)
+    return _post(payload, mesh, [] if dst is None else [dst], src, False)
+
+
+def post_gather(payload: Sequence[torch.Tensor], mesh, perm,
+                land=None) -> Posted:
+    """Post this rank's share of the gather ``payload[perm]`` by the host
+    `perm` (:func:`gather_peers`; `land` keeps the messages to the ranks
+    it marks): one message per tensor from ``perm[rank]``, one to each
+    rank that reads this one. A rank that receives nothing gets its own
+    tensor back, ``buf[perm]``'s row at a fixed point."""
+    dsts, src = gather_peers(perm, mesh, land)
+    return _post(payload, mesh, dsts, src, True)
 
 
 def _one_node_a_rank(x: torch.Tensor, mesh) -> None:

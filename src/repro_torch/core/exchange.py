@@ -25,10 +25,12 @@ same transport (``gossip_exact`` / ``gossip_quantized`` and their
 ppermute forms), against which the flat paths are held. With every node in
 one process on one device — one shard — the ppermute transports permute
 locally, as the reference's one-shard branch does. On a node mesh
-(``launch/mesh.py``, one node a rank; ``GossipTransport(mesh=...)``) the
-ppermute transports and their per-leaf oracles exchange point to point
-with the rank's partner (``core/bucket.py``); the gather transport and the
-baselines' collectives do not run there yet (``bucket.NOT_ON_A_MESH``).
+(``launch/mesh.py``, one node a rank; ``GossipTransport(mesh=...)``) every
+transport and its per-leaf oracle exchanges point to point
+(``core/bucket.py``): the ppermute transports by their static pairs, the
+gather transport by the engine's host perm; ``global_mean`` and
+``matrix_mix`` all-gather the ranks' rows and reduce them as on one shard.
+What a mesh does not carry yet is ``bucket.NOT_ON_A_MESH``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.core import bucket as B
@@ -263,6 +266,63 @@ def masked_mean_loss(losses, mask):
         torch.clamp_min(torch.sum(m), 1.0)
 
 
+def global_scalars(mesh, x) -> torch.Tensor:
+    """On a node mesh, every rank's scalar `x` (a 0-d or [1] tensor: the
+    rank's loss), all-gathered -> fp32 [mesh.size], in rank order."""
+    mine = x.reshape(1).to(torch.float32)
+    parts = [torch.empty_like(mine) for _ in range(mesh.size)]
+    dist.all_gather(parts, mine, group=mesh.group)
+    return torch.cat(parts)
+
+
+def own_rows(x, mesh):
+    """The rank's entry ([1]) of a global per-node vector on a node mesh
+    (a mask, a landing mask); the vector itself on one shard (None stays
+    None)."""
+    if mesh is None or x is None:
+        return x
+    return x[mesh.rank:mesh.rank + 1]
+
+
+def rank_inputs(inp: "StepInputs", mesh, n_nodes: int) -> "StepInputs":
+    """The rank's own entries of the global inputs, for its local steps
+    (the inputs themselves on one shard)."""
+    if mesh is None:
+        return inp
+    if len(inp.h_host) != n_nodes:
+        raise ValueError(f"h_counts of {len(inp.h_host)} on a node mesh of "
+                         f"{n_nodes}: the global vector")
+    r = slice(mesh.rank, mesh.rank + 1)
+    return StepInputs(inp.lr, inp.perm, inp.h[r], own_rows(inp.mask, mesh),
+                      inp.h_host[r], inp.perm_host)
+
+
+def matching(tr: "GossipTransport", inp: "StepInputs", n_nodes: int):
+    """-> (the perm the transport takes, the node perm [n], the landing
+    mask [n] (the matching's non-fixed points gated by the participation
+    mask), the landing mask this process lands by). On one shard the
+    transport takes `inp.perm` and lands by the whole mask; on a node mesh
+    it takes the global host perm (under ppermute_pool the pool index
+    broadcast) and the rank lands by its own entry ([1])."""
+    mesh, perm_h = tr.mesh, inp.perm_host
+    if mesh is not None:
+        if perm_h is None or perm_h.shape != (n_nodes,):
+            raise ValueError("on a node mesh the step takes the global "
+                             f"[{n_nodes}] perm on the host (numpy or a CPU "
+                             "tensor)")
+        if tr.base_impl == "ppermute" and not np.array_equal(
+                perm_h, B._perm_from_pairs(n_nodes, tr.static_pairs)):
+            raise ValueError(f"perm {perm_h.tolist()} disagrees with the "
+                             f"transport's static pairs {tr.static_pairs}")
+    node_perm, _ = tr.resolve_perm(inp.perm)
+    matched = node_perm != torch.arange(n_nodes, device=node_perm.device)
+    if inp.mask is not None:
+        matched = matched & inp.mask
+    if mesh is None:
+        return inp.perm, node_perm, matched, matched
+    return perm_h, node_perm, matched, own_rows(matched, mesh)
+
+
 # ---------------------------------------------------------------------------
 # The per-leaf oracles (one exchange per tree leaf)
 # ---------------------------------------------------------------------------
@@ -274,18 +334,31 @@ def _avg(x, xp, matched):
     return torch.where(_rows(matched, x.ndim), out.to(x.dtype), x)
 
 
-def gossip_exact(params, perm, matched):
+def gossip_exact(params, perm, matched, *, mesh=None):
+    """The per-leaf exact gather: each leaf averaged with its perm[i]
+    row, where matched. On a node `mesh` (the rank's leaves, the global
+    host `perm`, the rank's `matched` [1]) each leaf crosses as one
+    message (``bucket.post_gather``)."""
+    if mesh is not None:
+        return _per_leaf_on_mesh(
+            params, lambda p: B.post_gather(p, mesh, perm), matched, None,
+            None, None, None, mesh)
     return tree_map(lambda x: _avg(x, x[perm], matched), params)
 
 
 def gossip_quantized(qcfg: ModularQuantConfig, params, prev, perm, matched,
-                     rng, *, u=None):
+                     rng, *, u=None, mesh=None):
     """The per-leaf lattice exchange: each node encodes each leaf against
     its own comm copy `prev` (every node's leaf blocked on its own), the
     codes and scales move by `perm`, and the receiver decodes against its
     own leaf and averages where matched. `u` lists each leaf's uniforms
     ([n_nodes, nblocks, block], in flatten order); drawn from `rng` leaf
-    by leaf when not given."""
+    by leaf when not given. On a node `mesh` as :func:`gossip_exact`, the
+    codes and scales of each leaf one message each."""
+    if mesh is not None:
+        return _per_leaf_on_mesh(
+            params, lambda p: B.post_gather(p, mesh, perm), matched, qcfg,
+            prev, rng, u, mesh)
     leaves, tdef = tree_flatten(params)
     prev_leaves = tree_leaves(prev)
     out = []
@@ -300,32 +373,46 @@ def gossip_quantized(qcfg: ModularQuantConfig, params, prev, perm, matched,
     return tree_unflatten(tdef, out)
 
 
-def _per_leaf_on_mesh(params, pairs, quant, prev, rng, u, mesh):
-    """The per-leaf oracle's share of one rank of a node mesh (the
-    reference's per-leaf ``shard_map``): one message per leaf (per leaf
-    and wire group when quantized) to and from the rank's partner, one
-    leaf at a time. The uniforms, unless given, come from `rng` itself:
-    the reference splits the same key on every shard, so every rank draws
-    the same ones."""
+def _per_leaf_on_mesh(params, post, matched, quant, prev, rng, u, mesh,
+                      idle: bool = False):
+    """The per-leaf oracle's share of one rank of a node mesh: one message
+    per leaf (per leaf and wire group when quantized) through `post`
+    (payload -> ``bucket.Posted``), one leaf at a time, landing where
+    `matched` ([1]) says; an `idle` rank (no partner) keeps its leaves.
+    The uniforms, unless given, come from `rng` itself, drawn by every
+    rank, idle or not: the reference's per-leaf ``shard_map`` splits the
+    same key on every shard, so every rank draws the same ones."""
     leaves, tdef = tree_flatten(params)
     for x in leaves:
         B._one_node_a_rank(x, mesh)
-    peers = B.mesh_peers(pairs, mesh)
-    matched = B.mesh_landing(mesh, pairs, None, leaves[0].device)
-    if peers == (None, None):
+    if quant is not None and u is None:
+        u = [torch.rand((x.shape[0], -(-x[0].numel() // quant.block),
+                         quant.block), generator=rng, dtype=torch.float32,
+                        device=x.device) for x in leaves]
+    if idle:
         return tree_unflatten(tdef, list(leaves))
     prev_leaves = tree_leaves(prev) if quant is not None else leaves
     out = []
     for i, (x, pv) in enumerate(zip(leaves, prev_leaves)):
         if quant is None:
-            xh, = B.post_exchange((x,), mesh, pairs).wait()
+            xh, = post((x,)).wait()
         else:
-            q, s = encode_modular(quant, x, pv, rng,
-                                  u=None if u is None else u[i], lead=1)
-            qp, sp = B.post_exchange((q, s), mesh, pairs).wait()
+            q, s = encode_modular(quant, x, pv, None, u=u[i], lead=1)
+            qp, sp = post((q, s)).wait()
             xh = decode_modular(quant, qp, sp, x, lead=1)
         out.append(_avg(x, xh, matched))
     return tree_unflatten(tdef, out)
+
+
+def _per_leaf_by_pairs(params, pairs, quant, prev, rng, u, mesh):
+    """The per-leaf ppermute oracle's share of one rank (the reference's
+    per-leaf ``shard_map``): by the static `pairs`, to and from the rank's
+    partner."""
+    return _per_leaf_on_mesh(
+        params, lambda p: B.post_exchange(p, mesh, pairs),
+        B.mesh_landing(mesh, pairs, None, tree_leaves(params)[0].device),
+        quant, prev, rng, u, mesh,
+        idle=B.mesh_peers(pairs, mesh) == (None, None))
 
 
 def gossip_ppermute(params, pairs, quant: Optional[ModularQuantConfig] = None,
@@ -335,7 +422,7 @@ def gossip_ppermute(params, pairs, quant: Optional[ModularQuantConfig] = None,
     the lattice of `quant`; on a node `mesh` the rank's leaves ([1, ...]
     each) cross leaf by leaf to and from its partner."""
     if mesh is not None:
-        return _per_leaf_on_mesh(params, pairs, quant, prev, rng, u, mesh)
+        return _per_leaf_by_pairs(params, pairs, quant, prev, rng, u, mesh)
     x0 = tree_leaves(params)[0]
     perm = B.device_constant(B._perm_from_pairs(x0.shape[0], pairs),
                              x0.device)
@@ -349,8 +436,8 @@ def gossip_ppermute_pool(params, pool, pool_idx, quant=None, prev=None,
     """`gossip_ppermute` by the pool entry `pool_idx` selects (on a node
     `mesh` a host index, ``bucket.pool_pairs``)."""
     if mesh is not None:
-        return _per_leaf_on_mesh(params, B.pool_pairs(pool, pool_idx), quant,
-                                 prev, rng, u, mesh)
+        return _per_leaf_by_pairs(params, B.pool_pairs(pool, pool_idx),
+                                  quant, prev, rng, u, mesh)
     x0 = tree_leaves(params)[0]
     perm = B.pool_perm(pool, pool_idx, x0.device)
     matched = perm != torch.arange(x0.shape[0], device=x0.device)
@@ -384,12 +471,13 @@ class GossipTransport:
     The refusals are the reference's: a codec other than the lattice on a
     per-leaf oracle, a residual codec off ``gather``.
 
-    On a node `mesh` (``launch/mesh.py``; `n_nodes` its size) the
-    ppermute transports and their oracles exchange the rank's node with
-    its partner point to point, and the node perm a method takes is the
-    host array (``ppermute_pool``: the pool index broadcast), by which the
-    messages are posted. ``gather``, ``global_mean`` and ``matrix_mix``
-    raise there, naming their ROADMAP.md item."""
+    On a node `mesh` (``launch/mesh.py``; `n_nodes` its size) every
+    transport and its oracle exchanges the rank's node point to point, and
+    the node perm a method takes is the host array (``ppermute_pool``: the
+    pool index broadcast), by which the messages are posted: the
+    ppermute transports by their static pairs, ``gather`` by the perm
+    itself (any permutation). ``global_mean`` and ``matrix_mix`` take the
+    rank's rows and all-gather them."""
 
     def __init__(self, n_nodes: int, *, impl: str = "gather",
                  quant: Optional[ModularQuantConfig] = None,
@@ -403,9 +491,6 @@ class GossipTransport:
         self.base_impl = impl[:-len("_legacy")] if self.legacy else impl
         if mesh is not None:
             B.check_mesh_nodes(n_nodes, mesh)
-            if self.base_impl == "gather":
-                raise NotImplementedError(f"--gossip-impl {impl}: "
-                                          f"{B.NOT_ON_A_MESH['gather']}")
         self.n_nodes = n_nodes
         self.codec = codec if codec is not None \
             else LatticeCodec(quant or ModularQuantConfig())
@@ -476,6 +561,14 @@ class GossipTransport:
             return self.static_pairs
         return B.pool_pairs(self.matching_pool, perm)
 
+    def mesh_post(self, payload, perm) -> B.Posted:
+        """On a node mesh, post this rank's share of one permute of
+        `payload` by the host `perm`: the gather by the perm itself, the
+        ppermute transports by their static pairs."""
+        if self.base_impl == "gather":
+            return B.post_gather(payload, self.mesh, perm)
+        return B.post_exchange(payload, self.mesh, self.mesh_pairs(perm))
+
     def _wire_permute(self, payload, perm):
         if self.base_impl == "ppermute":
             return B.permute_payload_ppermute(payload, self.static_pairs,
@@ -495,12 +588,11 @@ class GossipTransport:
         before it reads the received tensors. On the CPU, ready is None.
 
         On a node mesh the rank posts its messages to and from its
-        partner here (`perm` the host array) and `ready` is the posted
-        work: the transfer is in flight across whatever the caller
-        launches next, and :func:`land` waits on it."""
+        partners here (`perm` the host array, :meth:`mesh_post`) and
+        `ready` is the posted work: the transfer is in flight across
+        whatever the caller launches next, and :func:`land` waits on it."""
         if self.mesh is not None:
-            posted = B.post_exchange(payload, self.mesh,
-                                     self.mesh_pairs(perm))
+            posted = self.mesh_post(payload, perm)
             return posted.recv, posted
         if perm.device.type != "cuda":
             return self._wire_permute(payload, perm), None
@@ -545,6 +637,10 @@ class GossipTransport:
         uniforms `u` a list, one [n, nblocks, block] tensor a leaf), and
         the ppermute oracles refuse a `mask`, as the reference's do.
 
+        On a node mesh `tree`, `prev`, `prev_buf`, `u` and `residual` are
+        the rank's rows, `perm` and `mask` the global host perm and mask,
+        and `matched` the rank's landing flag ([1]; :func:`matching`).
+
         With an error-feedback codec (``codec.carries_residual``) a
         quantized call takes and returns the buffer-shaped residual: ->
         (mixed tree, new residual); every other call returns the tree."""
@@ -561,7 +657,7 @@ class GossipTransport:
                     B.pack(layout, prev)
         new_residual = None
         codec = self.codec if quantize else None
-        if self.mesh is not None:
+        if self.mesh is not None and self.base_impl != "gather":
             out = B.gossip_flat_ppermute(buf, self.mesh_pairs(perm),
                                          quant=codec, prev_buf=pbuf, rng=rng,
                                          u=u, mask=mask, mesh=self.mesh)
@@ -576,10 +672,11 @@ class GossipTransport:
         elif quantize:
             out, new_residual = B.gossip_flat_coded(
                 self.codec, buf, pbuf, perm, matched, rng,
-                residual=residual, u=u)
+                residual=residual, u=u, mesh=self.mesh)
         else:
             out = B.gossip_flat_exact(buf, perm,
-                                      matched if mask is not None else None)
+                                      matched if mask is not None else None,
+                                      mesh=self.mesh)
         del buf, pbuf
         with record_function("gossip.unpack"):
             mixed = B.unpack(layout, out)
@@ -597,7 +694,7 @@ class GossipTransport:
                              "packed transport")
         lat = self.quant if quantize else None
         with record_function("gossip.legacy"):
-            if self.mesh is not None:
+            if self.mesh is not None and self.base_impl != "gather":
                 return gossip_ppermute(tree, self.mesh_pairs(perm), lat,
                                        prev, rng, u=u, mesh=self.mesh)
             if self.base_impl == "ppermute":
@@ -609,22 +706,24 @@ class GossipTransport:
                                             rng, u=u)
             if quantize:
                 return gossip_quantized(lat, tree, prev, perm, matched, rng,
-                                        u=u)
-            return gossip_exact(tree, perm, matched)
+                                        u=u, mesh=self.mesh)
+            return gossip_exact(tree, perm, matched, mesh=self.mesh)
 
     def global_mean(self, tree, mask=None):
         """(Masked) mean over the node axis, broadcast back to every node —
         LocalSGD's resync and AllReduce's gradient mean. With `mask` the
         mean runs over the participants only and is still broadcast
-        everywhere. A *_legacy oracle takes it leaf by leaf."""
-        self._not_on_a_mesh("global_mean")
+        everywhere. A *_legacy oracle takes it leaf by leaf. On a node
+        mesh (the rank's rows, the global `mask`) the rows are
+        all-gathered and reduced as on one shard, bitwise."""
         if self.legacy:
-            return tree_map(lambda x: _leaf_mean(x, mask), tree)
+            return tree_map(lambda x: self._on_rows(
+                lambda rows: _leaf_mean(rows, mask), x), tree)
         layout = B.build_layout(tree, block=self.codec.block)
         with record_function("gossip.pack"):
             buf = B.pack(layout, tree)
         with record_function("gossip.mean"):
-            out = B.gossip_flat_mean(buf, mask)
+            out = B.gossip_flat_mean(buf, mask, mesh=self.mesh)
         del buf
         with record_function("gossip.unpack"):
             return B.unpack(layout, out)
@@ -632,35 +731,40 @@ class GossipTransport:
     def matrix_mix(self, tree, W):
         """Dense mixing X <- W X (D-PSGD): one [n, n] x [n, n_padded] fp32
         product over the packed buffer (one per leaf for a *_legacy
-        oracle)."""
-        self._not_on_a_mesh("matrix_mix")
+        oracle). On a node mesh (the rank's rows, `W` the replicated
+        [n, n]) the rows are all-gathered, the same product runs, and the
+        rank keeps its row."""
         if self.legacy:
-            return tree_map(lambda x: torch.einsum(
+            return tree_map(lambda x: self._on_rows(lambda rows: torch.einsum(
                 "nm,m...->n...", W.to(torch.float32),
-                x.to(torch.float32)).to(x.dtype), tree)
+                rows.to(torch.float32)).to(x.dtype), x), tree)
         layout = B.build_layout(tree, block=self.codec.block)
         with record_function("gossip.pack"):
             buf = B.pack(layout, tree)
         with record_function("gossip.matrix"):
-            out = B.gossip_flat_matrix(W, buf)
+            out = B.gossip_flat_matrix(W, buf, mesh=self.mesh)
         del buf
         with record_function("gossip.unpack"):
             return B.unpack(layout, out)
 
-    def _not_on_a_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"{what}: "
-                                      f"{B.NOT_ON_A_MESH['gather']}")
+    def _on_rows(self, fn, x):
+        """fn over every node's rows of one leaf: `x` itself on one shard;
+        on a node mesh every rank's row all-gathered, and the rank's row
+        of the result."""
+        if self.mesh is None:
+            return fn(x)
+        r = self.mesh.rank
+        return fn(B.all_gather_rows(x, self.mesh))[r:r + 1].contiguous()
 
     def partner_tree(self, tree, perm):
         """On a node mesh, the partner's `tree` (the rank's leaves,
-        [1, ...] each): packed to one fp32 buffer, ONE message each way,
-        unpacked to the leaf dtypes (exact: every leaf dtype is carried
-        by fp32); zeros where the rank has no partner."""
+        [1, ...] each): packed to one fp32 buffer, ONE message each way
+        (:meth:`mesh_post`), unpacked to the leaf dtypes (exact: every
+        leaf dtype is carried by fp32); zeros where a ppermute pairing
+        gives the rank no partner, its own tree at a gather's fixed
+        point."""
         layout = B.build_layout(tree, block=self.codec.block)
-        recv, = B.permute_payload_ppermute((B.pack(layout, tree),),
-                                           self.mesh_pairs(perm),
-                                           self.n_nodes, mesh=self.mesh)
+        recv, = self.mesh_post((B.pack(layout, tree),), perm).wait()
         return B.unpack(layout, recv)
 
     def payload_num_bytes(self, tree, quantize: bool = False) -> int:

@@ -41,16 +41,17 @@ captured as a CUDA graph (``core/scan.py``).
 
 On a node mesh (``launch/mesh.py``: one node a ``torch.distributed`` rank,
 NCCL on the card, gloo on the CPU; ``swarm_init(mesh=...)`` and
-``make_swarm_step(mesh=...)`` on a ppermute transport) each rank holds its
-own node's state and runs its local steps, its encode and its fused
-decode on its own device; the exchange and the momentum average cross
-point to point to and from its partner, and the metrics are the global
-ones.
+``make_swarm_step(mesh=...)`` on any transport) each rank holds its own
+node's state and runs its local steps, its encode and its fused decode on
+its own device; the exchange and the momentum average cross point to
+point between partners (by the static pairs, or the gather's host perm),
+and the metrics are the global ones.
 
 Elastic membership (a scheduler trace with ``--avail``): a join bin runs
 ``make_join_step`` — the joiner copies its donor's model, one row gather
-on the packed buffer, no batch, no encode — in place of a superstep, and
-``retire_nodes`` retires a permanently left node's codec state.
+on the packed buffer (on a node mesh one message, donor to joiner), no
+batch, no encode — in place of a superstep, and ``retire_nodes`` retires
+a permanently left node's codec state.
 """
 from __future__ import annotations
 
@@ -59,13 +60,13 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.core import bucket as B
 from repro_torch.core.exchange import (
-    GOSSIP_IMPLS, EngineStep, GossipTransport, StepInputs, _avg, as_mask,
-    land, make_local_steps, masked_mean_loss, select, stale_combine,
+    GOSSIP_IMPLS, EngineStep, GossipTransport, _avg, as_mask, global_scalars,
+    land, make_local_steps, masked_mean_loss, matching, own_rows,
+    rank_inputs, select, stale_combine,
 )
 from repro_torch.core.potential import gamma_potential
 from repro_torch.quant.codecs import make_codec
@@ -270,17 +271,18 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
     step is the pipelined steady state and needs a primed state.
 
     On a node `mesh` (``launch/mesh.py``; cfg.n_nodes its size) the
-    transport is a ppermute one built on that mesh (``GossipTransport(...,
-    mesh=mesh)``; gather raises, naming its ROADMAP.md item). The state is
-    the rank's node (``swarm_init(mesh=...)``) and `batch` its node's
-    slice ([1, h_loop_bound, ...]); `perm`, `h_counts` and `mask` stay
-    the global [n] vectors, `perm` on the host, and each rank reads its
-    own entries: its matched flag is ``perm[rank] != rank`` (under
-    ppermute_pool the pool entry's), which must agree with the static
-    pairs. `u` is the rank's own uniforms ([1, n_padded]); drawn, they
-    come from the rank's generator folded from `rng`. The loss and
-    matched_frac come from all-gathered per-node scalars and Γ from
-    all-reduces, so every rank reports the global metrics."""
+    transport is built on that mesh (``GossipTransport(..., mesh=mesh)``;
+    any impl). The state is the rank's node (``swarm_init(mesh=...)``; an
+    error-feedback residual is its row [1, n_padded]) and `batch` its
+    node's slice ([1, h_loop_bound, ...]); `perm`, `h_counts` and `mask`
+    stay the global [n] vectors, `perm` on the host, and each rank reads
+    its own entries: its matched flag is ``perm[rank] != rank`` (under
+    ppermute_pool the pool entry's) gated by ``mask[rank]``; under
+    ppermute the perm must agree with the static pairs. `u` is the rank's
+    own uniforms ([1, n_padded]); drawn, they come from the rank's
+    generator folded from `rng`. The loss comes from all-gathered
+    per-node losses, matched_frac from the global perm and mask, and Γ
+    from all-reduces, so every rank reports the global metrics."""
     tr = transport or GossipTransport(cfg.n_nodes, impl=cfg.gossip_impl,
                                       quant=cfg.quant,
                                       codec=cfg.make_codec(), mesh=mesh)
@@ -303,43 +305,6 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
         tr.check_overlap(cfg.quantize)
     local_steps = make_local_steps(loss_fn, opt_update, cfg.h_loop_bound)
 
-    def matching(inp, device):
-        """-> (the perm the transport takes, node perm, participation
-        mask, landing mask); on a node mesh the host perm and the rank's
-        own landing flag ([1])."""
-        perm_h = inp.perm_host
-        if mesh is not None:
-            if perm_h is None or perm_h.shape != (cfg.n_nodes,):
-                raise ValueError("on a node mesh the step takes the global "
-                                 f"[{cfg.n_nodes}] perm on the host (numpy "
-                                 "or a CPU tensor)")
-            if tr.base_impl == "ppermute" and not np.array_equal(
-                    perm_h, B._perm_from_pairs(cfg.n_nodes,
-                                               tr.static_pairs)):
-                raise ValueError(f"perm {perm_h.tolist()} disagrees with the "
-                                 f"transport's static pairs "
-                                 f"{tr.static_pairs}")
-        node_perm, _ = tr.resolve_perm(inp.perm)
-        matched = node_perm != torch.arange(cfg.n_nodes, device=device)
-        if inp.mask is not None:
-            matched = matched & inp.mask
-        if mesh is None:
-            return inp.perm, node_perm, inp.mask, matched
-        return perm_h, node_perm, inp.mask, \
-            matched[mesh.rank:mesh.rank + 1]
-
-    def local(inp):
-        """The rank's own entries of the global inputs, for its local
-        steps (the inputs themselves on one shard)."""
-        if mesh is None:
-            return inp
-        if len(inp.h_host) != cfg.n_nodes:
-            raise ValueError(f"h_counts of {len(inp.h_host)} on a node mesh "
-                             f"of {cfg.n_nodes}: the global vector")
-        r = slice(mesh.rank, mesh.rank + 1)
-        return StepInputs(inp.lr, inp.perm, inp.h[r], None, inp.h_host[r],
-                          inp.perm_host)
-
     def folded(rng, u):
         """The encode's generator: on a node mesh the rank's own, folded
         from `rng` (unless the uniforms are given)."""
@@ -355,20 +320,10 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             return tree_map(lambda x, p: _avg(x, p, matched), opt, partner)
         return tree_map(lambda x: _avg(x, x[node_perm], matched), opt)
 
-    def global_scalars(losses, matched):
-        """Every rank's (loss, landed) pair, all-gathered -> the global
-        [n] losses and landing mask."""
-        mine = torch.stack([losses.reshape(()).to(torch.float32),
-                            matched.reshape(()).to(torch.float32)])
-        parts = [torch.empty_like(mine) for _ in range(mesh.size)]
-        dist.all_gather(parts, mine, group=mesh.group)
-        g = torch.stack(parts)
-        return g[:, 0], g[:, 1] != 0
-
     def finish(state, params, opt, prev, inflight, residual, losses,
                matched, mask, lr):
         if mesh is not None:
-            losses, matched = global_scalars(losses, matched)
+            losses = global_scalars(mesh, losses)
         metrics = {"loss": masked_mean_loss(losses, mask), "lr": lr,
                    "matched_frac": torch.mean(matched.to(torch.float32))}
         if cfg.track_potential:
@@ -380,10 +335,12 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
     def superstep(state: SwarmState, batch, inp, rng, *, u=None,
                   u_state=None):
         lr = inp.lr
-        device = lr.device
         S = state.params                      # superstep-start models
-        params, opt, losses = local_steps(S, state.opt, batch, local(inp))
-        perm_t, node_perm, mask, matched = matching(inp, device)
+        params, opt, losses = local_steps(S, state.opt, batch,
+                                          rank_inputs(inp, mesh, cfg.n_nodes))
+        perm_t, node_perm, matched_all, matched = matching(tr, inp,
+                                                           cfg.n_nodes)
+        mask = inp.mask
         layout = B.build_layout(S, block=tr.codec.block)
         prev_buf = None
         if cs:
@@ -442,7 +399,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             with record_function("swarm.prev"):
                 new_prev = select(matched, src, state.prev)
         return finish(state, params, opt, new_prev, None, new_residual,
-                      losses, matched, mask, lr)
+                      losses, matched_all, mask, lr)
 
     def pipelined_superstep(state: SwarmState, batch, inp, rng, *, u=None):
         """The steady state of the overlapped pipeline: the in-flight
@@ -455,10 +412,11 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
             raise ValueError("the overlapped superstep needs a primed "
                              "pipeline (pipeline_prologue)")
         lr = inp.lr
-        device = lr.device
         codec = tr.codec
         layout = B.build_layout(state.params, block=codec.block)
-        perm_t, node_perm, mask, matched = matching(inp, device)
+        perm_t, node_perm, matched_all, matched = matching(tr, inp,
+                                                           cfg.n_nodes)
+        mask = inp.mask
 
         # 1. the in-flight payload's permute, before any local compute
         payload = infl["wire"] if cfg.quantize else (infl["sbuf"],)
@@ -467,7 +425,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
 
         # 2. local steps, overlapping the permute
         params, opt, losses = local_steps(state.params, state.opt, batch,
-                                          local(inp))
+                                          rank_inputs(inp, mesh, cfg.n_nodes))
 
         # 3. land: decode + average against the STALE packed model S
         sbuf = infl["sbuf"]
@@ -507,7 +465,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
         else:
             new_infl = {"sbuf": new_buf}
         return finish(state, params, opt, None, new_infl, None, losses,
-                      matched, mask, lr)
+                      matched_all, mask, lr)
 
     return EngineStep(pipelined_superstep if cfg.overlap else superstep,
                       lr_fn, h_max=cfg.h_loop_bound, mesh=mesh)
@@ -518,7 +476,7 @@ _WIRE_PREV = ("join bootstrap re-bases the per-leaf comm copy; the "
               "time (registry)")
 
 
-def make_join_step(cfg: SwarmConfig):
+def make_join_step(cfg: SwarmConfig, *, mesh=None):
     """Join bootstrap of elastic membership: returns `join_step(state,
     perm, join_mask) -> state`.
 
@@ -533,10 +491,17 @@ def make_join_step(cfg: SwarmConfig):
     initialized (the paper averages models only). It takes no batch and
     no generator, and launches neither codec kernel: a join bin is not a
     gossip superstep. Refused in the overlap pipeline (an in-flight
-    payload packed before the join would predate the joiner)."""
+    payload packed before the join would predate the joiner).
+
+    On a node `mesh` (cfg.n_nodes its size) the state is the rank's node,
+    and `perm` and `join_mask` the global host vectors: the donor's packed
+    parameters go to the joiner as ONE message (``bucket.post_gather``
+    restricted to the joiners), and only the joiner lands them."""
     assert not cfg.overlap, \
         "join bootstrap needs the non-pipelined driver (overlap=False): " \
         "an in-flight payload packed before the join would go stale"
+    if mesh is not None:
+        B.check_mesh_nodes(cfg.n_nodes, mesh)
     block = cfg.make_codec().block
 
     def join_step(state: SwarmState, perm, join_mask) -> SwarmState:
@@ -545,10 +510,17 @@ def make_join_step(cfg: SwarmConfig):
             layout = B.build_layout(state.params, block=block)
             buf = B.pack(layout, state.params)
             device = buf.device
-            perm_t = torch.as_tensor(np.asarray(perm), dtype=torch.int64,
-                                     device=device)
-            jm = as_mask(join_mask, device)
-            recv = buf[perm_t]                 # the one payload gather
+            if mesh is None:
+                perm_t = torch.as_tensor(np.asarray(perm), dtype=torch.int64,
+                                         device=device)
+                jm = as_mask(join_mask, device)
+                recv = buf[perm_t]             # the one payload gather
+            else:
+                jm_h = np.asarray(join_mask.cpu() if isinstance(
+                    join_mask, torch.Tensor) else join_mask, bool)
+                recv, = B.post_gather((buf,), mesh, np.asarray(perm),
+                                      land=jm_h).wait()
+                jm = own_rows(torch.as_tensor(jm_h, device=device), mesh)
             new_buf = torch.where(jm[:, None], recv, buf)
             del buf, recv
             params = B.unpack(layout, new_buf)
@@ -565,16 +537,18 @@ def make_join_step(cfg: SwarmConfig):
     return join_step
 
 
-def retire_nodes(state: SwarmState, left_mask) -> SwarmState:
+def retire_nodes(state: SwarmState, left_mask, *, mesh=None) -> SwarmState:
     """Permanent-leave retirement. A left node's lane stays allocated but
     the scheduler never matches it again (its mask rows are False from
     then on), so its parameters, momentum and comm copy freeze in place;
     what is retired here is its error-feedback residual, zeroed so that
     the post-leave state does not depend on when it was saved; a state
-    without a residual comes back as it was."""
+    without a residual comes back as it was. On a node `mesh` the state
+    is the rank's node and the rank reads its entry of the global
+    `left_mask`."""
     if state.residual is None:
         return state
-    lm = as_mask(left_mask, state.residual.device)
+    lm = own_rows(as_mask(left_mask, state.residual.device), mesh)
     residual = torch.where(lm[:, None], 0.0, state.residual)
     return SwarmState(state.params, state.opt, state.prev, state.step,
                       state.inflight, residual)

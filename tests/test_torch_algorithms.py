@@ -537,8 +537,8 @@ def test_transport_payload_bytes_and_impls():
                                                                       q)
     assert tr.impl == tr.base_impl == "gather"
     # every impl of the reference builds from the config on one shard
-    # (payload bytes as the gather's); on a node mesh a rank holds one
-    # node, and gather waits for its ROADMAP item
+    # (payload bytes as the gather's); on a node mesh every impl builds
+    # too, and a rank holds one node
     g = make_graph("complete", N)
     mesh = NodeMesh(0, 2, torch.device("cpu"))
     for impl in ("ppermute", "ppermute_pool", "gather_legacy",
@@ -552,9 +552,11 @@ def test_transport_payload_bytes_and_impls():
         with pytest.raises(ValueError, match="ROADMAP.md Queue A 6"):
             GossipTransport(N, impl=impl, mesh=mesh)
         if impl.startswith("gather"):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md Queue A 3"):
-                GossipTransport(2, impl=impl, mesh=mesh)
+            t = GossipTransport(2, impl=impl, mesh=mesh)
+            assert (t.mesh, t.impl) == (mesh, impl)
+            with pytest.raises(ValueError, match="ROADMAP.md Queue A 6"):
+                validate_run_config("swarm", gossip_impl=impl, n_nodes=N,
+                                    mesh=mesh)
     q4 = ModularQuantConfig(bits=4)
     assert transport_from_config(SwarmConfig(n_nodes=N, quant=q4)) \
         .codec.name == "q4"

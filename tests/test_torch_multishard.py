@@ -830,9 +830,18 @@ def _roadmap_queue_a():
     ("nodes_per_shard", ("more than one node",))])
 def test_refusals_name_their_roadmap_item(what, words):
     """Every refusal names a Queue A item of ROADMAP.md by number, and
-    that item is about what is refused."""
-    m = re.search(r"ROADMAP\.md Queue A (\d+)", TB.NOT_ON_A_MESH[what])
-    item = _roadmap_queue_a()[int(m.group(1))]
+    that item is about what is refused; the gather transport and the
+    baselines' collectives, which a mesh now carries, are refused no more
+    and their item is marked done."""
+    if what == "gather":
+        assert set(TB.NOT_ON_A_MESH) == {"scan", "nodes_per_shard"}
+        item = next(v for v in _roadmap_queue_a().values()
+                    if v.startswith("**gather"))
+        assert "done in PR" in item, item[:200]
+    else:
+        m = re.search(r"ROADMAP\.md Queue A (\d+)",
+                      TB.NOT_ON_A_MESH[what])
+        item = _roadmap_queue_a()[int(m.group(1))]
     for w in words:
         assert w in item, (what, w, item[:200])
 
@@ -840,24 +849,37 @@ def test_refusals_name_their_roadmap_item(what, words):
 def test_refusals_on_a_mesh():
     mesh = _mesh()
     g_pool = [np.arange(N)]
-    # gather and the baselines' collectives
+    # gather and the baselines build on a mesh; what stays refused there is
+    # the chunk driver (Queue A 4) and more than one node a rank (A 6)
     for impl in ("gather", "gather_legacy"):
-        with pytest.raises(NotImplementedError, match="Queue A 3"):
-            TE.GossipTransport(N, impl=impl, mesh=mesh)
+        assert TE.GossipTransport(N, impl=impl, mesh=mesh).mesh is mesh
+        with pytest.raises(ValueError, match="Queue A 6"):
+            TE.GossipTransport(2 * N, impl=impl, mesh=mesh)
+    from repro_torch.core.graph import make_graph
+    extra = {"dpsgd": {"graph": make_graph("complete", N)}}
     for algo in ("allreduce", "localsgd", "dpsgd", "adpsgd", "sgp"):
-        with pytest.raises(NotImplementedError, match="Queue A 3"):
-            validate_run_config(algo, gossip_impl="ppermute", mesh=mesh)
-        with pytest.raises(NotImplementedError, match="Queue A 3"):
-            make_algorithm(algo, loss_fn=None, opt_update=None,
-                           lr_fn=None, n_nodes=N, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        validate_run_config("swarm", mesh=mesh)
+        assert validate_run_config(algo, n_nodes=N, mesh=mesh) is not None
+        with pytest.raises(NotImplementedError, match="Queue A 4"):
+            validate_run_config(algo, n_nodes=N, mesh=mesh, scan_chunk=4)
+        with pytest.raises(ValueError, match="Queue A 6"):
+            validate_run_config(algo, n_nodes=2 * N, mesh=mesh)
+        step = make_algorithm(algo, loss_fn=lambda p, b: 0.0,
+                              opt_update=None, lr_fn=lambda s: LR,
+                              n_nodes=N, mesh=mesh, **extra.get(algo, {}))
+        assert step.mesh is mesh
+        with pytest.raises(NotImplementedError, match="Queue A 4"):
+            make_superstep_scan(step)
+        with pytest.raises(ValueError, match="Queue A 6"):
+            make_algorithm(algo, loss_fn=lambda p, b: 0.0, opt_update=None,
+                           lr_fn=lambda s: LR, n_nodes=2 * N, mesh=mesh,
+                           **extra.get(algo, {}))
+    assert validate_run_config("swarm", n_nodes=N, mesh=mesh) is not None
     tr = TE.GossipTransport(N, impl="ppermute_pool", matching_pool=g_pool,
                             mesh=mesh)
-    for fn in (lambda: tr.global_mean({"w": torch.zeros(1, 3)}),
-               lambda: tr.matrix_mix({"w": torch.zeros(1, 3)},
+    for fn in (lambda: tr.global_mean({"w": torch.zeros(2, 3)}),
+               lambda: tr.matrix_mix({"w": torch.zeros(2, 3)},
                                      torch.eye(N))):
-        with pytest.raises(NotImplementedError, match="Queue A 3"):
+        with pytest.raises(ValueError, match="Queue A 6"):
             fn()
     # --scan-chunk
     with pytest.raises(NotImplementedError, match="Queue A 4"):
