@@ -206,7 +206,12 @@ Phases, each printed on its own line:
     a missed wait on the received tensors; a rank sending to
     ``perm[r]`` instead of to the ``j`` with ``perm[j] == r``, a mean
     over the rank's own row, the wrong row of ``W X``, a missed wait on
-    the gather) failing it;
+    the gather) failing it; and the long run: the mesh's mean model and
+    checkpoint bitwise rank 0's one-card ones on its card, each rank's
+    load its slab, the reduced gather q8 ``--scan-chunk 4`` run (CUDA
+    graphs holding the rank's NCCL work) bitwise its per-step run and a
+    chunked resume bitwise the uninterrupted run, with a save of the
+    rank's row and a graph key without the peers planted to fail;
 29. the node mesh at full width (``multi_shard_full_width``):
     transformer-wmt at full width and depth, one node a GPU, 4
     supersteps each of blocking q8 ``ppermute``, ``ppermute_pool
@@ -223,7 +228,18 @@ Phases, each printed on its own line:
     NCCL time from post to landed (around the all-gather for the mean
     and the mix), wire bytes a node or all-gather bytes a rank, the
     GPUs' link, the overlapped command's ``permute_overlap``, peak
-    memory, Γ and Γ's all-reduce time. With one GPU both print
+    memory, Γ and Γ's all-reduce time. Then ``--scan-chunk 4`` for 8
+    supersteps of gather q8 blocking and of ``ppermute_pool`` overlapped
+    q8 with geometric h, against the same command per step: replay ==
+    eager bitwise on every rank, launches 16/8/8 and Σ_t h_t,rank / 8 /
+    8, graphs and keys, pool bytes, peaks, both superstep times; at the
+    gather command's chunk boundary ``--eval-mean`` (μ bitwise rank 0's
+    one-card μ of the gathered state, the losses within 1e-6) and one
+    mesh checkpoint (bytes, seconds to gather and to write, peaks),
+    reloaded and resumed from bitwise in a new driver, built after the
+    first was closed and the allocator's cache emptied. The ranks run
+    with ``NCCL_GRAPH_REGISTER=0``, as the mesh's chunk driver asks. With
+    one GPU both print
     ``{"phase": "multi_shard", "ran": false, "gpus": 1, "needs": 2}``
     and run nothing: a declared precondition (NCCL refuses two ranks on
     one GPU). The parent builds the kernels before it spawns the ranks,
@@ -3629,7 +3645,17 @@ MS_COMMANDS = {
     "multi_shard_dpsgd": ("dpsgd", "gather", None, "blocking"),
     "multi_shard_adpsgd_q8": ("adpsgd", "gather", "q8", "blocking"),
     "multi_shard_sgp": ("sgp", "gather", None, "blocking"),
+    # --scan-chunk 4 on the mesh (MS_SCAN_STEPS supersteps, two chunks),
+    # run by `_ms_scan_full_width` against the same command per step
+    "multi_shard_gather_q8_scan": ("swarm", "gather", "q8", "blocking"),
+    "multi_shard_pool_overlap_q8_scan": ("swarm", "ppermute_pool", "q8",
+                                         "overlap"),
 }
+MS_SCAN_STEPS, MS_CHUNK = 8, 4
+# the chunked commands' h: fixed H 2, or geometric (mean 2, h_max 8) as
+# the one-card `scan_full_width` overlapped command
+MS_SCAN_H_MODE = {"multi_shard_gather_q8_scan": "fixed",
+                  "multi_shard_pool_overlap_q8_scan": "geometric"}
 # each command's launches of sgd_update / quantize_mod / decode_avg on
 # every rank over MS_STEPS supersteps: one sweep a local step (H 2 for the
 # swarm and Local SGD, 1 for the others), one encode and one decode an
@@ -3646,7 +3672,19 @@ MS_WANT = {name: dict(zip(("sgd_update", "quantize_mod", "decode_avg"), n))
                ("multi_shard_localsgd", (8, 0, 0)),
                ("multi_shard_dpsgd", (4, 0, 0)),
                ("multi_shard_adpsgd_q8", (4, 4, 4)),
-               ("multi_shard_sgp", (4, 0, 0)))}
+               ("multi_shard_sgp", (4, 0, 0)),
+               # over MS_SCAN_STEPS supersteps; under geometric h a rank
+               # sweeps its own h a superstep (None: Σ_t h_t,rank)
+               ("multi_shard_gather_q8_scan", (16, 8, 8)),
+               ("multi_shard_pool_overlap_q8_scan", (None, 8, 8)))}
+
+
+def _ms_want(name: str, hs, rank: int) -> dict:
+    """MS_WANT[name] on `rank`, its sweeps from its h where it has none."""
+    want = dict(MS_WANT[name])
+    if want["sgd_update"] is None:
+        want["sgd_update"] = int(sum(int(h[rank]) for h in hs))
+    return want
 
 
 def _ms_world(n_gpus: int) -> int:
@@ -3697,8 +3735,11 @@ def _ms_spawn(fn, world: int, *args) -> None:
 
 def _ms_mesh(rank: int, world: int, port: int, device: str):
     """A rank's setup: the mesh (NCCL on cuda), the card's fp32 matmuls
-    without TF32, as in `main`."""
+    without TF32, as in `main`; NCCL's registration of captured buffers
+    off before the group starts, as the mesh's chunk driver asks
+    (``core/scan.py``)."""
     import torch
+    os.environ["NCCL_GRAPH_REGISTER"] = "0"
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.launch.mesh import init_node_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3877,6 +3918,314 @@ def _ms_to(x, dev):
     return x.to(dev)
 
 
+class _MsRun:
+    """One run of a mesh command on this rank: its step, state (the rank's
+    node), the run's generator, the presampled (perm, h) rows (or the
+    given `perms`) and its node's batches of the synthetic data, as
+    `_ms_full_width_rank` builds them; per-step and chunked drivers."""
+
+    def __init__(self, cfg, mesh, algo, impl, codec_spec, mode, *,
+                 h_mode="fixed", perms=None, steps=MS_SCAN_STEPS, seed=0,
+                 batch=4, seq=128, h=2):
+        import numpy as np
+        import torch
+        from repro_torch.algorithms import make_algorithm
+        from repro_torch.algorithms.sgp import sgp_init_state
+        from repro_torch.core import bucket as B
+        from repro_torch.core import exchange as E
+        from repro_torch.core.graph import make_graph
+        from repro_torch.core.swarm import SwarmConfig, swarm_init
+        from repro_torch.data import DataConfig, SyntheticLMDataset
+        from repro_torch.launch.train import presample_inputs
+        from repro_torch.models import TransformerLM, init_params
+        from repro_torch.optim import make_optimizer
+        world, dev = mesh.size, mesh.device
+        self.mesh, self.dev, self.batch_size, self.seq = mesh, dev, batch, seq
+        self.scfg = scfg = SwarmConfig(
+            n_nodes=world, H=h if algo in ("swarm", "localsgd") else 1,
+            h_mode=h_mode, quantize=codec_spec is not None,
+            codec=None if codec_spec in (None, "q8") else codec_spec,
+            nonblocking=mode in ("nonblocking", "overlap"),
+            overlap=mode == "overlap", compress_state=mode == "compress",
+            gossip_impl=impl, pool_size=8)
+        graph = make_graph("complete", world)
+        kw = {}
+        if impl.startswith("ppermute_pool"):
+            kw["matching_pool"] = E.make_matching_pool(graph, 8, seed)
+        elif impl.startswith("ppermute"):
+            kw["static_pairs"] = B.pairs_from_perm(
+                E.static_ppermute_matching(graph, seed))
+        self.tr = E.GossipTransport(world, impl=impl, quant=scfg.quant,
+                                    codec=scfg.make_codec(), mesh=mesh, **kw)
+        self.model = TransformerLM(cfg)
+        self.opt = make_optimizer("sgd", lr=0.05, momentum=0.9,
+                                  state_dtype=cfg.opt_state_dtype)
+        akw = dict(loss_fn=self.model.functional_loss,
+                   opt_update=self.opt.update, lr_fn=lambda s: 0.05,
+                   n_nodes=world, transport=self.tr, mesh=mesh)
+        if algo == "swarm":
+            akw["scfg"] = scfg
+        if algo == "localsgd":
+            akw["H"] = h
+        if algo == "dpsgd":
+            akw["graph"] = make_graph("ring", world)
+        if algo in ("adpsgd", "sgp"):
+            akw["quantize"] = scfg.quantize
+        self.step = make_algorithm(algo, **akw)
+        self.gen = torch.Generator(device=dev)
+        self.gen.manual_seed(seed)
+        self.state = swarm_init(self.gen, scfg,
+                                lambda g: init_params(g, cfg, dev),
+                                self.opt.init, mesh=mesh)
+        if algo == "sgp":
+            self.state = sgp_init_state(self.state, world, scfg.quantize,
+                                        mesh=mesh)
+        self.ds = SyntheticLMDataset(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, seed=seed),
+            n_nodes=world)
+        self.perms, self.hs = presample_inputs(
+            scfg, graph, np.random.default_rng(seed), steps, seed=seed)
+        if perms is not None:
+            self.perms = np.asarray(perms)
+        self.chunker = None
+
+    def batch(self, t) -> dict:
+        import torch
+        from repro_torch.data import make_node_batches
+        hb = self.scfg.h_loop_bound
+        nb = make_node_batches(self.ds, t, self.batch_size * hb)
+        r = self.mesh.rank
+        return {k: torch.from_numpy(v[r:r + 1].reshape(
+            1, hb, self.batch_size, self.seq)).to(self.dev)
+            for k, v in nb.items()}
+
+    def _barrier(self) -> None:
+        import torch
+        import torch.distributed as dist
+        dist.all_reduce(torch.zeros((1,), device=self.dev))
+        _sync(self.dev)
+
+    def per_step(self, t0, t1) -> tuple:
+        """Supersteps t0..t1-1 -> (metrics, seconds a superstep: the
+        ranks in step before each, synchronised after)."""
+        ms, secs = [], []
+        for t in range(t0, t1):
+            _ms_progress(self.mesh, f"superstep {t}")
+            b = self.batch(t)
+            self._barrier()
+            t_start = time.perf_counter()
+            self.state, m = self.step(self.state, b, self.perms[t],
+                                      self.hs[t], self.gen)
+            m = {k: float(v) for k, v in m.items()}
+            _sync(self.dev)
+            secs.append(time.perf_counter() - t_start)
+            ms.append(m)
+        return ms, secs
+
+    def chunked(self, t0, t1) -> tuple:
+        """Chunks of MS_CHUNK from t0 to t1 -> (metrics, seconds a chunk:
+        the ranks in step before each, its metrics read after)."""
+        import torch
+        from repro_torch.core.scan import make_superstep_scan
+        if self.chunker is None:
+            self.chunker = make_superstep_scan(self.step)
+        ms, secs = [], []
+        for t in range(t0, t1, MS_CHUNK):
+            _ms_progress(self.mesh, f"chunk at {t}")
+            k = min(MS_CHUNK, t1 - t)
+            bs = [self.batch(s) for s in range(t, t + k)]
+            batch = {n: torch.stack([b[n] for b in bs]) for n in bs[0]}
+            self._barrier()
+            t_start = time.perf_counter()
+            self.state, m = self.chunker(self.state, self.gen, batch,
+                                         self.perms[t:t + k],
+                                         self.hs[t:t + k])
+            m = {n: v.tolist() for n, v in m.items()}
+            secs.append(time.perf_counter() - t_start)
+            ms.extend({n: v[i] for n, v in m.items()} for i in range(k))
+        return ms, secs
+
+    def close(self) -> None:
+        """Release the chunk driver's graphs and pool (every rank calls
+        it, as `SuperstepChunk.close` asks)."""
+        if self.chunker is not None:
+            self.chunker.close()
+            self.chunker = None
+
+    def leaves(self) -> list:
+        """The state's tensors (params, momentum, comm copy, residual, the
+        in-flight payload), cloned."""
+        from repro_torch.core.scan import _state_leaves
+        return [x.clone() for x in _state_leaves(self.state)]
+
+    def ckpt_tree(self) -> dict:
+        """What a resume needs: the codec tree (an overlapped state
+        drained), the momentum and the run's generator state (on the
+        device, a row a rank)."""
+        from repro_torch.core.swarm import (codec_checkpoint_tree,
+                                            pipeline_epilogue)
+        st = pipeline_epilogue(self.scfg, self.state) \
+            if self.scfg.overlap else self.state
+        return {"codec": codec_checkpoint_tree(st), "opt": st.opt,
+                "rng": self.gen.get_state()[None].to(self.dev)}
+
+    def restore(self, tree, t) -> None:
+        from repro_torch.core.swarm import SwarmState, restore_codec_state
+        st = restore_codec_state(self.state, tree["codec"])
+        self.state = SwarmState(st.params, tree["opt"], st.prev, t,
+                                st.inflight, st.residual)
+        self.gen.set_state(tree["rng"][0].cpu())
+
+
+_MS_STACKS: dict = {}
+
+
+def _ms_progress(mesh, what: str) -> None:
+    """A line in this rank's progress file under OUT_DIR; if no line
+    follows within 150 s the rank writes its thread stacks beside it (a
+    stalled run shows where it stood) and exits, which fails the phase
+    and stops the other ranks."""
+    import faulthandler
+    with open(os.path.join(OUT_DIR, f"ms_progress_rank{mesh.rank}.txt"),
+              "a") as f:
+        f.write(f"{time.time():.3f} {what}\n")
+    stacks = _MS_STACKS.get(mesh.rank)
+    if stacks is None:
+        stacks = _MS_STACKS[mesh.rank] = open(os.path.join(
+            OUT_DIR, f"ms_stacks_rank{mesh.rank}.txt"), "w")
+    faulthandler.dump_traceback_later(150, exit=True, file=stacks)
+
+
+def _ms_same(a, b) -> bool:
+    """Two lists of tensors (or trees' leaves) equal bit for bit."""
+    return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+
+
+def _ms_cycle_perms(world: int, steps: int):
+    """Matchings whose partners change every superstep: i <-> i ^ c for c
+    cycling over 1 .. world-1 (world a power of 2)."""
+    import numpy as np
+    return np.stack([np.arange(world) ^ (1 + t % (world - 1))
+                     for t in range(steps)])
+
+
+# the long run's other chunked cases at reduced size: name -> (algorithm,
+# impl, codec, mode, h mode); with the gather q8 run they capture every
+# kind of NCCL work a mesh step posts (P2P by the pool entry and by SGP's
+# shift, per leaf, all-gathers, all-reduces)
+MS_LONG_RUN_CASES = {
+    "pool_overlap_q8_geometric": ("swarm", "ppermute_pool", "q8", "overlap",
+                                  "geometric"),
+    "compress_q8": ("swarm", "gather", "q8", "compress", "fixed"),
+    "ppermute_legacy_exact": ("swarm", "ppermute_legacy", None, "blocking",
+                              "fixed"),
+    "allreduce": ("allreduce", "gather", None, "blocking", "fixed"),
+    "dpsgd": ("dpsgd", "gather", None, "blocking", "fixed"),
+    "sgp_q8": ("sgp", "gather", "q8", "blocking", "fixed"),
+}
+
+
+def _ms_long_run_rank(mesh, cfg, inp, out_dir) -> dict:
+    """The long run's reduced cases on this rank (`multi_shard_reference`):
+    μ of the CPU's node-stacked tree from the rank's rows, rank 0's
+    one-card μ of the whole tree on its card, the mesh save beside rank
+    0's one-card save and a planted save of the rank's row only, the load;
+    then the reduced transformer-wmt gather q8 blocking run under
+    deterministic algorithms, per step and chunked (replay == eager), a
+    chunked resume from a mesh checkpoint at the chunk boundary, a
+    planted chunk whose graph keys lack the peers (partners change every
+    superstep, h does not), and MS_LONG_RUN_CASES chunked against their
+    per-step runs."""
+    import warnings
+    import torch
+    from repro_torch.checkpoint import (load_checkpoint, mean_model_tree,
+                                        save_checkpoint)
+    from repro_torch.core.potential import mean_model
+    from repro_torch.tree import tree_flatten
+    dev, r, world = mesh.device, mesh.rank, mesh.size
+    out = {}
+    rows = _ms_to(_ms_rows(inp["tree"], r), dev)
+    out["mu_tree"] = _ms_to(mean_model_tree(rows, mesh=mesh), "cpu")
+    out["mu_leaf"] = _ms_to(mean_model(rows, mesh=mesh), "cpu")
+    meta = {"nodes": world}
+    if r == 0:
+        full = _ms_to(inp["tree"], dev)
+        out["mu_tree_one"] = _ms_to(mean_model_tree(full), "cpu")
+        out["mu_leaf_one"] = _ms_to(mean_model(full), "cpu")
+        save_checkpoint(os.path.join(out_dir, "long_one"), full, meta)
+        # planted fault: a save that writes only the rank's row
+        save_checkpoint(os.path.join(out_dir, "long_own_row"), rows, meta)
+    path = os.path.join(out_dir, "long_mesh")
+    save_checkpoint(path, rows, meta, mesh=mesh)
+    got = load_checkpoint(path, rows, mesh=mesh)
+    out["load_bitwise"] = _ms_same(tree_flatten(got)[0],
+                                   tree_flatten(rows)[0])
+
+    steps = MS_SCAN_STEPS
+    perms = _ms_cycle_perms(world, steps)
+
+    def run():
+        return _MsRun(cfg, mesh, "swarm", "gather", "q8", "blocking",
+                      perms=perms, steps=steps, seq=16)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            eager = run()
+            ms_e, _ = eager.per_step(0, steps)
+            want = eager.leaves()
+            chk = run()
+            ms_c, _ = chk.chunked(0, steps)
+            out["chunk_bitwise"] = _ms_same(chk.leaves(), want) and \
+                ms_c == ms_e
+            out["graphs"] = [str(k) for k in chk.chunker.graphs]
+            chk.close()
+            first = run()
+            first.chunked(0, MS_CHUNK)
+            path = os.path.join(out_dir, "long_resume")
+            save_checkpoint(path, first.ckpt_tree(), meta, mesh=mesh)
+            # the resume's driver is built after the first one is closed
+            first.close()
+            second = run()
+            second.restore(load_checkpoint(path, second.ckpt_tree(),
+                                           mesh=mesh), MS_CHUNK)
+            ms_r, _ = second.chunked(MS_CHUNK, steps)
+            out["resume_bitwise"] = _ms_same(second.leaves(), want) and \
+                ms_r == ms_e[MS_CHUNK:]
+            second.close()
+            if world >= 4:
+                # planted fault: the graph key without the peers replays
+                # superstep 0's partners
+                fault = run()
+                fault.step.peers_fn = None
+                fault.chunked(0, steps)
+                out["keyless_graphs"] = len(fault.chunker.graphs)
+                out["keyless_differs"] = not _ms_same(fault.leaves(), want)
+                fault.close()
+            # every other kind of NCCL work a chunk captures: chunked ==
+            # per step
+            out["cases"] = {}
+            for name, (algo, impl, codec, mode, h_mode) in \
+                    MS_LONG_RUN_CASES.items():
+                def case():
+                    return _MsRun(cfg, mesh, algo, impl, codec, mode,
+                                  h_mode=h_mode, steps=steps, seq=16)
+                e = case()
+                ms_e, _ = e.per_step(0, steps)
+                c = case()
+                ms_c, _ = c.chunked(0, steps)
+                out["cases"][name] = {
+                    "bitwise": _ms_same(c.leaves(), e.leaves()) and
+                    ms_c == ms_e, "graphs": len(c.chunker.graphs)}
+                c.close()
+                del e, c
+            del eager, chk, first, second
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _sync(dev)
+    return out
+
+
 def _ms_reference_rank(rank, world, port, path, device):
     """A rank of `multi_shard_reference`: every reduced case on its GPU
     from the CPU's inputs (engine supersteps restarted from the CPU's
@@ -3979,6 +4328,8 @@ def _ms_reference_rank(rank, world, port, path, device):
             out["engines"][(codec, mode)] = res
         out["gather"] = _ms_gather_reference_rank(rank, world, mesh, inp,
                                                   inp["gather"])
+        out["long_run"] = _ms_long_run_rank(mesh, cfg, inp,
+                                            os.path.dirname(path))
         _sync(dev)
     finally:
         mesh.close()
@@ -4328,7 +4679,12 @@ def phase_multi_shard_reference(world: int, device: str = "cuda"):
     q8, non-blocking and overlapped q8, each restarted from the CPU's
     state — held to `phase_reference`'s bound, with planted faults (a
     mask ignored, a partner off by one, a missed wait on the received
-    tensors) that must fail it."""
+    tensors) that must fail it; and the long run (`_ms_long_run_rank`):
+    the mesh's mean model and checkpoint bitwise rank 0's one-card ones
+    on its card, each load its slab, the reduced gather q8 chunk ==
+    its per-step run and a chunked resume == the uninterrupted run on
+    every rank, with a save of one row and a graph key without the peers
+    planted to fail."""
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import bucket as B
@@ -4418,9 +4774,81 @@ def phase_multi_shard_reference(world: int, device: str = "cuda"):
     _ms_gather_reference_checks(world, inp["gather"],
                                 [r["gather"] for r in ranks], cases,
                                 bitwise_pairs, faults)
+    _ms_long_run_checks(world, inp, [r["long_run"] for r in ranks], cases,
+                        bitwise_pairs, faults, device)
     log("multi_shard_reference", ranks=world, seconds=time.time() - t0,
         bitwise_card_vs_cpu=bitwise_pairs, cases=cases,
         planted_faults=faults)
+
+
+def _ms_same_files(a: str, b: str) -> bool:
+    """Two checkpoints with the same json and bitwise the same arrays."""
+    import numpy as np
+    with open(a + ".json") as f, open(b + ".json") as g:
+        if json.load(f) != json.load(g):
+            return False
+    with np.load(a + ".npz") as x, np.load(b + ".npz") as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and x[k].shape == y[k].shape and
+            x[k].tobytes() == y[k].tobytes() for k in x.files)
+
+
+def _ms_long_run_checks(world, inp, lr, cases, bitwise_pairs, faults,
+                        device):
+    """The long run's cases of `multi_shard_reference` (`lr`, a rank
+    each): every rank's mesh μ bitwise rank 0's one-card μ on its card
+    (and against the CPU's, reported), the mesh save bitwise rank 0's
+    one-card save, each rank's load its slab, the chunk == the per-step
+    driver and the chunked resume == the uninterrupted run on every rank;
+    the planted save of one row and, on the card (where a chunk replays
+    graphs; the CPU's runs its body eagerly), the keyless chunk must
+    fail."""
+    from repro_torch.checkpoint import mean_model_tree
+    from repro_torch.tree import tree_flatten
+
+    def leaves(t):
+        return tree_flatten(t)[0]
+    for form in ("tree", "leaf"):
+        ok = all(_ms_same(leaves(x[f"mu_{form}"]),
+                          leaves(lr[0][f"mu_{form}_one"])) for x in lr)
+        bitwise_pairs[f"long_run_mean_model_{form}_mesh_vs_one_card"] = ok
+        check(ok, f"multi_shard_reference: mesh μ ({form}) != the one-card "
+              "μ on the card")
+    cases["long_run_mean_model_card_vs_cpu"] = {"max_abs": max(
+        float((a - b).abs().max()) for a, b in zip(
+            leaves(lr[0]["mu_tree_one"]), leaves(mean_model_tree(
+                inp["tree"]))))}
+    same = _ms_same_files(os.path.join(MS_DIR, "long_mesh"),
+                          os.path.join(MS_DIR, "long_one"))
+    bitwise_pairs["long_run_mesh_save_vs_one_card"] = same
+    check(same, "multi_shard_reference: the mesh save != rank 0's one-card "
+          "save")
+    own = _ms_same_files(os.path.join(MS_DIR, "long_own_row"),
+                         os.path.join(MS_DIR, "long_one"))
+    faults["save_own_row"] = {"fails": not own}
+    check(not own, "multi_shard_reference: planted fault save_own_row "
+          "passes")
+    for what in ("load_bitwise", "chunk_bitwise", "resume_bitwise"):
+        got = [x[what] for x in lr]
+        bitwise_pairs[f"long_run_{what}"] = got
+        check(all(got), f"multi_shard_reference: {what} {got}")
+    for name in MS_LONG_RUN_CASES:
+        got = [x["cases"][name]["bitwise"] for x in lr]
+        bitwise_pairs[f"long_run_chunk_{name}"] = got
+        cases[f"long_run_graphs_{name}"] = [x["cases"][name]["graphs"]
+                                            for x in lr]
+        check(all(got), f"multi_shard_reference: chunked {name} != per "
+              f"step {got}")
+    cases["long_run_graphs"] = [x["graphs"] for x in lr]
+    if world >= 4:
+        got = [x["keyless_differs"] for x in lr]
+        faults["graph_key_without_peers"] = {
+            "fails": got, "graphs": [x["keyless_graphs"] for x in lr]}
+        check(all(got) or device != "cuda", "multi_shard_reference: planted "
+              f"fault graph_key_without_peers replays bitwise {got}")
+    else:
+        faults["graph_key_without_peers"] = {
+            "ran": False, "why": f"{world} ranks have one matching"}
 
 
 def _ms_gather_reference_checks(world, g, gr, cases, bitwise_pairs, faults):
@@ -4536,28 +4964,17 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
     import torch.distributed as dist
     mesh = _ms_mesh(rank, world, port, device)
     dev = mesh.device
-    from repro_torch.algorithms import make_algorithm
-    from repro_torch.algorithms.sgp import sgp_init_state
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import bucket as B
     from repro_torch.core import exchange as E
-    from repro_torch.core.graph import make_graph
     from repro_torch.core.potential import gamma_potential
-    from repro_torch.core.swarm import SwarmConfig, swarm_init
-    from repro_torch.data import DataConfig, SyntheticLMDataset
-    from repro_torch.data import make_node_batches
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.profile import summarize
-    from repro_torch.launch.train import presample_inputs
-    from repro_torch.models import TransformerLM, init_params
-    from repro_torch.optim import make_optimizer
     from repro_torch.quant.codecs import LatticeCodec
 
     cfg = get_config("transformer-wmt") if cfg_name is None else \
         reduced(get_config("transformer-wmt"), n_layers=2, d_model=64)
-    model = TransformerLM(cfg)
-    graph = make_graph("complete", world)
-    batch, seq, h = 4, 128 if cfg_name is None else 16, 2
+    batch, seq = 4, 128 if cfg_name is None else 16
 
     def gather(x):
         """Every rank's `x` (one node's rows), stacked in rank order."""
@@ -4572,51 +4989,13 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
     results = {}
     events = _Events(dev)
     for name, (algo, impl, codec_spec, mode) in MS_COMMANDS.items():
-        seed = 0
-        quantize = codec_spec is not None
-        scfg = SwarmConfig(n_nodes=world,
-                           H=h if algo in ("swarm", "localsgd") else 1,
-                           quantize=quantize,
-                           codec=None if codec_spec in (None, "q8")
-                           else codec_spec,
-                           nonblocking=mode in ("nonblocking", "overlap"),
-                           overlap=mode == "overlap",
-                           compress_state=mode == "compress",
-                           gossip_impl=impl, pool_size=8)
-        kw = {}
-        if impl.startswith("ppermute_pool"):
-            kw["matching_pool"] = E.make_matching_pool(graph, 8, seed)
-        elif impl.startswith("ppermute"):
-            kw["static_pairs"] = B.pairs_from_perm(
-                E.static_ppermute_matching(graph, seed))
-        tr = E.GossipTransport(world, impl=impl, quant=scfg.quant,
-                               codec=scfg.make_codec(), mesh=mesh, **kw)
-        opt = make_optimizer("sgd", lr=0.05, momentum=0.9,
-                             state_dtype=cfg.opt_state_dtype)
-        akw = dict(loss_fn=model.functional_loss, opt_update=opt.update,
-                   lr_fn=lambda s: 0.05, n_nodes=world, transport=tr,
-                   mesh=mesh)
-        if algo == "swarm":
-            akw["scfg"] = scfg
-        if algo == "localsgd":
-            akw["H"] = h
-        if algo == "dpsgd":
-            akw["graph"] = make_graph("ring", world)
-        if algo in ("adpsgd", "sgp"):
-            akw["quantize"] = quantize
-        step = make_algorithm(algo, **akw)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        state = swarm_init(gen, scfg, lambda g: init_params(g, cfg, dev),
-                           opt.init, mesh=mesh)
-        if algo == "sgp":
-            state = sgp_init_state(state, world, quantize, mesh=mesh)
-        ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
-                                           seq_len=seq, seed=seed),
-                                n_nodes=world)
-        perms, hs = presample_inputs(scfg, graph,
-                                     np.random.default_rng(seed), MS_STEPS,
-                                     seed=seed)
+        if name in MS_SCAN_H_MODE:
+            continue              # chunked: `_ms_scan_full_width`
+        _ms_progress(mesh, name)
+        run = _MsRun(cfg, mesh, algo, impl, codec_spec, mode,
+                     steps=MS_STEPS, batch=batch, seq=seq)
+        tr, step, gen, state = run.tr, run.step, run.gen, run.state
+        perms, hs, quantize = run.perms, run.hs, codec_spec is not None
         ugen = torch.Generator(device=dev)
         ugen.manual_seed(1000 + rank)
         n_pad = B.build_layout(state.params).n_padded
@@ -4785,10 +5164,7 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
         try:
             reset_launch_counts()
             for t in range(MS_STEPS):
-                nb = make_node_batches(ds, t, batch * scfg.h_loop_bound)
-                bt = {k: torch.from_numpy(v[rank:rank + 1].reshape(
-                    1, scfg.h_loop_bound, batch, seq)).to(dev)
-                    for k, v in nb.items()}
+                bt = run.batch(t)
                 u = torch.rand((1, n_pad), generator=ugen, device=dev) \
                     if quantize else None
                 extra = {"u_state": torch.rand(
@@ -4851,7 +5227,7 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
             rec["sum_w"] = float(gather(state.params["w"]).sum())
         results[name] = rec
         last = state.params["model"] if algo == "sgp" else state.params
-        del state, step, tr, sent
+        del state, step, tr, sent, run
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     # Γ on the mesh: one all-reduce of the packed buffer, one of a scalar
@@ -4871,11 +5247,185 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
     results["gamma_ms"] = g_ms
     results["allreduce_ms"] = ar_ms
     results["allreduce_bytes"] = buf.numel() * buf.element_size()
+    del last, buf
+    results.update(_ms_scan_full_width(mesh, cfg, out_dir, batch, seq))
     mesh.close()
     with open(os.path.join(out_dir, f"full_width_rank{rank}.json"), "w") as f:
         json.dump(results, f)
 
 
+
+
+def _ms_scan_full_width(mesh, cfg, out_dir, batch, seq) -> dict:
+    """This rank's chunked commands (MS_SCAN_H_MODE) at full width, under
+    deterministic algorithms: each per step, then chunked
+    (MS_SCAN_STEPS supersteps in chunks of MS_CHUNK) from the same state,
+    launch counters at 0 before the chunked run; the state and every
+    superstep's metrics compared bitwise. The gather command's chunk
+    boundary also evaluates the mean model (through the graphs' pool) and
+    writes a mesh checkpoint of what a resume needs, which a fresh run
+    reloads and resumes from in a new driver, built after the first is
+    closed and the allocator's cache emptied. -> {name: record}."""
+    import gc
+    import warnings
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    dev, rank = mesh.device, mesh.rank
+    on_card = dev.type == "cuda"
+
+    def fresh():
+        gc.collect()
+        _sync(dev)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for name, h_mode in MS_SCAN_H_MODE.items():
+                algo, impl, codec_spec, mode = MS_COMMANDS[name]
+
+                def run():
+                    return _MsRun(cfg, mesh, algo, impl, codec_spec, mode,
+                                  h_mode=h_mode, batch=batch, seq=seq)
+                fresh()
+                _ms_progress(mesh, f"{name} eager")
+                eager = run()
+                ms_e, secs_e = eager.per_step(0, MS_SCAN_STEPS)
+                want = eager.leaves()
+                del eager
+                fresh()
+                _ms_progress(mesh, f"{name} chunk 0")
+                chk = run()
+                rec = {"hs": chk.hs.tolist()}
+                reset_launch_counts()
+                ms_c, secs_c = chk.chunked(0, MS_CHUNK)
+                loaded = None
+                if name == "multi_shard_gather_q8_scan":
+                    counts = dict(LAUNCHES)
+                    rec["checkpoint"], loaded = _ms_scan_checkpoint(
+                        chk, out_dir, batch, seq)
+                    LAUNCHES.update(counts)
+                _ms_progress(mesh, f"{name} chunk 1")
+                m2, s2 = chk.chunked(MS_CHUNK, MS_SCAN_STEPS)
+                ms_c, secs_c = ms_c + m2, secs_c + s2
+                rec.update(
+                    launches=dict(LAUNCHES),
+                    want=_ms_want(name, chk.hs, rank),
+                    state_bitwise=_ms_same(chk.leaves(), want),
+                    metrics_bitwise=ms_c == ms_e,
+                    losses=[m["loss"] for m in ms_c],
+                    superstep_s_eager=secs_e, chunk_s=secs_c,
+                    graphs=len(chk.chunker.graphs),
+                    keys=[str(k) for k in chk.chunker.graphs],
+                    pool_bytes_after_capture={
+                        str(k): v
+                        for k, v in chk.chunker.pool_bytes.items()},
+                    pool_reserved_bytes=chk.chunker.pool_reserved())
+                if on_card:
+                    rec.update(peak_bytes=torch.cuda.max_memory_allocated(
+                        dev), peak_reserved_bytes=torch.cuda
+                        .max_memory_reserved(dev))
+                final = chk.leaves() if loaded is not None else None
+                chk.close()
+                if loaded is not None:
+                    # a new driver resumes from what the boundary's
+                    # checkpoint reloaded
+                    fresh()
+                    _ms_progress(mesh, f"{name} resume")
+                    res = run()
+                    res.restore(loaded, MS_CHUNK)
+                    del loaded
+                    ms_r, _ = res.chunked(MS_CHUNK, MS_SCAN_STEPS)
+                    rec["checkpoint"]["resume_bitwise"] = _ms_same(
+                        res.leaves(), final) and ms_r == ms_c[MS_CHUNK:]
+                    res.close()
+                    del res, final
+                del chk, want
+                out[name] = rec
+        _ms_progress(mesh, "scan commands done")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _sync(dev)
+    return out
+
+
+def _ms_scan_checkpoint(run, out_dir, batch, seq) -> dict:
+    """At the chunk boundary of the chunked gather command: --eval-mean
+    on the mesh through the graphs' pool (rank 0 also evaluates the
+    gathered state on its one card: μ bitwise, the losses within 1e-6),
+    then one mesh checkpoint of what a resume needs (bytes, seconds to
+    gather and to write, each rank's peak), reloaded bitwise and deleted;
+    -> (its record, the reloaded tree)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import (load_checkpoint, mean_model_tree,
+                                        save_checkpoint)
+    from repro_torch.core import bucket as B
+    from repro_torch.core.swarm import make_mean_model_eval
+    from repro_torch.data import make_node_batches
+    from repro_torch.tree import tree_flatten, tree_map
+    mesh, dev, rank = run.mesh, run.dev, run.mesh.rank
+    on_card = dev.type == "cuda"
+    rec = {}
+    nb = make_node_batches(run.ds, MS_CHUNK - 1, batch)
+    eb = {k: torch.from_numpy(v[0].reshape(-1, seq)).to(dev)
+          for k, v in nb.items()}
+    loss = run.model.functional_loss
+    _ms_progress(mesh, "checkpoint eval-mean")
+    with run.chunker.borrow_pool():
+        params = run.state.params
+        got = make_mean_model_eval(loss, mesh=mesh)(params, eb)
+        rec["eval_mean"] = {k: float(v) for k, v in got.items()}
+        mu = mean_model_tree(params, mesh=mesh)
+        stacked = tree_map(lambda x: B.all_gather_slab(x, mesh), params)
+        if rank == 0:
+            one = make_mean_model_eval(loss)(stacked, eb)
+            rec["eval_mean_one_card"] = {k: float(v) for k, v in one.items()}
+            rec["mu_bitwise_one_card"] = _ms_same(
+                tree_flatten(mu)[0], tree_flatten(mean_model_tree(stacked))[0])
+            rec["eval_within_1e-6"] = all(
+                abs(rec["eval_mean"][k] - rec["eval_mean_one_card"][k])
+                <= 1e-6 for k in got)
+            rec["loss_mean_model_bitwise"] = \
+                rec["eval_mean"]["loss_mean_model"] == \
+                rec["eval_mean_one_card"]["loss_mean_model"]
+            del one
+        del got, mu, stacked, params
+    _sync(dev)
+    tree = run.ckpt_tree()
+    path = os.path.join(out_dir, "scan_ckpt", "step_000004")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    _ms_progress(mesh, "checkpoint save")
+    dist.barrier(group=mesh.group)
+    t0 = time.perf_counter()
+    times = {}
+    save_checkpoint(path, tree, {"nodes": mesh.size, "step": MS_CHUNK},
+                    mesh=mesh, times=times)
+    rec["save_s"] = time.perf_counter() - t0
+    rec.update(times)
+    if on_card:
+        rec["peak_above_state_bytes"] = \
+            torch.cuda.max_memory_allocated(dev) - base
+    if rank == 0:
+        rec["bytes_written"] = os.path.getsize(path + ".npz") + \
+            os.path.getsize(path + ".json")
+    _ms_progress(mesh, "checkpoint reload")
+    t0 = time.perf_counter()
+    got = load_checkpoint(path, tree, mesh=mesh)
+    rec["load_s"] = time.perf_counter() - t0
+    rec["reload_bitwise"] = _ms_same(tree_flatten(got, tuples=True)[0],
+                                     tree_flatten(tree, tuples=True)[0])
+    del tree
+    dist.barrier(group=mesh.group)
+    if rank == 0:
+        for f in (path + ".npz", path + ".json"):
+            os.remove(f)
+    return rec, got
 
 
 def _link_type(world: int) -> dict:
@@ -4922,8 +5472,15 @@ def phase_multi_shard_full_width(world: int, device: str = "cuda",
     the all-gather), wire bytes per node or all-gather bytes per rank,
     ``permute_overlap`` (overlapped command, rank 0's trace of its 3rd
     superstep), peak memory and launches per rank, and Γ, then Γ's and
-    an all-reduce's time at the model's size, and the GPUs' link;
-    -> {path: rank 0's launches}."""
+    an all-reduce's time at the model's size, and the GPUs' link. The
+    chunked commands (MS_SCAN_H_MODE: gather q8 blocking and
+    ``ppermute_pool`` overlapped q8 with geometric h, ``--scan-chunk 4``,
+    MS_SCAN_STEPS supersteps) run against the same command per step
+    (`_ms_scan_full_width`, `_ms_scan_checks`): replay == eager bitwise
+    on every rank, launches, graphs and keys, pool bytes and peaks, the
+    eager and chunked superstep times, and at the gather command's chunk
+    boundary the mean model and one mesh checkpoint, reloaded and resumed
+    from bitwise; -> {path: rank 0's launches}."""
     os.makedirs(MS_DIR, exist_ok=True)
     t0 = time.time()
     _ms_spawn(_ms_full_width_rank, world, cfg_name, MS_DIR, device)
@@ -4933,6 +5490,8 @@ def phase_multi_shard_full_width(world: int, device: str = "cuda",
             ranks.append(json.load(f))
     out, by_path = {}, {}
     for name in MS_COMMANDS:
+        if name in MS_SCAN_H_MODE:
+            continue
         per = [r[name] for r in ranks]
         r0 = per[0]
         losses = [p["losses"] for p in per]
@@ -4977,11 +5536,63 @@ def phase_multi_shard_full_width(world: int, device: str = "cuda",
                 "profile_idle_share": r0["profile"]["idle_share"]}
                if "profile" in r0 else {})}
         by_path[name] = r0["launches"]
+    for name in MS_SCAN_H_MODE:
+        out[name] = _ms_scan_checks(name, [r[name] for r in ranks], device)
+        by_path[name] = ranks[0][name]["launches"]
     log("multi_shard_full_width", ranks=world, seconds=time.time() - t0,
         link=_link_type(world) if device == "cuda" else None,
         gamma_ms=ranks[0]["gamma_ms"], allreduce_ms=ranks[0]["allreduce_ms"],
         allreduce_bytes=ranks[0]["allreduce_bytes"], **out)
     return by_path
+
+
+def _ms_scan_checks(name, per, device) -> dict:
+    """A chunked command's records (`per`, a rank each): replay == eager
+    bitwise (state and every superstep's metrics) and the launches
+    MS_WANT names on every rank, finite losses, the same on every rank;
+    at the gather command's boundary the mean model and the checkpoint
+    (reload and resume bitwise, μ bitwise rank 0's one-card μ, the
+    losses within 1e-6 of its one-card evaluation). -> the printed
+    record: each rank's eager superstep median (steps 2..) against the
+    second chunk's time a superstep, graphs and keys, pool bytes, peaks."""
+    for r, p in enumerate(per):
+        check(p["state_bitwise"] and p["metrics_bitwise"],
+              f"{name}: rank {r} replay != eager (state "
+              f"{p['state_bitwise']}, metrics {p['metrics_bitwise']})")
+        if device == "cuda":
+            check(p["launches"] == p["want"],
+                  f"{name}: rank {r} launches {p['launches']} != "
+                  f"{p['want']}")
+    losses = [p["losses"] for p in per]
+    check(all(math.isfinite(x) for x in losses[0]) and
+          all(x == losses[0] for x in losses),
+          f"{name}: losses not finite or not the same on every rank")
+    eager = [statistics.median(p["superstep_s_eager"][1:]) for p in per]
+    chunked = [p["chunk_s"][1] / MS_CHUNK for p in per]
+    rec = {"superstep_median_s_eager_by_rank": eager,
+           "superstep_s_chunked_by_rank": chunked,
+           "chunked_over_eager_rank0": chunked[0] / eager[0],
+           "superstep_s_eager_by_rank": [p["superstep_s_eager"]
+                                         for p in per],
+           "chunk_s_by_rank": [p["chunk_s"] for p in per],
+           **{k: [p.get(k) for p in per] for k in (
+               "launches", "want", "graphs", "keys",
+               "pool_bytes_after_capture", "pool_reserved_bytes",
+               "peak_bytes", "peak_reserved_bytes")},
+           "hs": per[0]["hs"], "losses": losses[0],
+           "replay_equals_eager": [p["state_bitwise"] and
+                                   p["metrics_bitwise"] for p in per]}
+    if "checkpoint" in per[0]:
+        ck = [p["checkpoint"] for p in per]
+        check(all(c["reload_bitwise"] and c["resume_bitwise"] for c in ck),
+              f"{name}: checkpoint reload / resume not bitwise {ck}")
+        check(ck[0]["mu_bitwise_one_card"] and ck[0]["eval_within_1e-6"]
+              and ck[0]["loss_mean_model_bitwise"],
+              f"{name}: --eval-mean on the mesh != one card {ck[0]}")
+        check(all(c["eval_mean"] == ck[0]["eval_mean"] for c in ck),
+              f"{name}: --eval-mean differs between ranks")
+        rec["checkpoint"] = ck
+    return rec
 
 
 def phase_multi_shard() -> dict:
@@ -5038,7 +5649,7 @@ def main(argv=None) -> int:
     build.build_all()
     log("build", seconds=time.time() - t0,
         libraries=[str(build.library_path(n)) for n in build.KERNELS])
-    if args.only == "multi_shard":
+    if args.only is not None:
         phase_multi_shard()
         print(smi[0], flush=True)
         print(json.dumps({"ok": True, "device": {

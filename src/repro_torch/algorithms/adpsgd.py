@@ -78,4 +78,5 @@ def make_step(loss_fn, opt_update, lr_fn, n_nodes,
                 metrics_of(params, losses, lr, track_potential, mask,
                            mesh=mesh, matched_frac=torch.mean(
                                matched_all.to(torch.float32))))
-    return EngineStep(step, lr_fn, mesh=mesh)
+    return EngineStep(step, lr_fn, mesh=mesh,
+                      peers_fn=None if mesh is None else tr.mesh_route)

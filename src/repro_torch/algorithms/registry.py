@@ -11,8 +11,8 @@ n_nodes=..., ...)`` and returns a superstep with the uniform signature
 each algorithm supports. `validate_run_config` raises wherever the
 reference's raises; on one shard nowhere else. On a node mesh
 (``launch/mesh.py``; ``make_algorithm(name, mesh=...)`` builds any
-algorithm there) it also refuses what the mesh does not carry yet —
-``--scan-chunk`` and more than one node a rank — each naming its
+algorithm there, and ``--scan-chunk`` chunks it) it also refuses what
+the mesh does not carry yet — more than one node a rank — naming its
 ROADMAP.md item (``core/bucket.py`` NOT_ON_A_MESH).
 """
 from __future__ import annotations
@@ -153,9 +153,9 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     ``--topology``, ``--codec`` and ``--compress-state`` included). There
     is no environment default: None means gather, the q8 lattice, no
     topology, no availability profile. On a node `mesh` it also raises,
-    naming the ROADMAP.md item, for ``--scan-chunk`` (NotImplementedError)
-    and for `n_nodes` other than the mesh's size (ValueError: one node a
-    rank). Returns the AlgoCaps row otherwise."""
+    naming the ROADMAP.md item, for `n_nodes` other than the mesh's size
+    (ValueError: one node a rank); `--scan-chunk` (`scan_chunk`) runs
+    there as on one shard. Returns the AlgoCaps row otherwise."""
     if algo not in CAPABILITIES:
         raise ValueError(f"unknown algorithm {algo!r}; known: "
                          f"{sorted(CAPABILITIES)}")
@@ -171,9 +171,8 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     gossip_impl = gossip_impl or "gather"
     base = gossip_impl[:-len("_legacy")] \
         if gossip_impl.endswith("_legacy") else gossip_impl
+    del scan_chunk              # every chunk size runs on a mesh too
     if mesh is not None:
-        if scan_chunk:
-            raise NotImplementedError(NOT_ON_A_MESH["scan"])
         if n_nodes is not None and n_nodes != mesh.size:
             raise ValueError(f"n_nodes={n_nodes} on a node mesh of "
                              f"{mesh.size} ranks: "

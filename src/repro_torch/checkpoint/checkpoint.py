@@ -12,15 +12,26 @@ loads in the other.
   dicts and tuples (a compressed comm copy is a wire tuple);
   neither package's loader reads it (the caller's `like` gives the
   structure).
+
+On a node mesh (``launch/mesh.py``: one node a rank, its leaves
+``[1, ...]``, a compressed comm copy's wire rows ``[rows_per_node,
+...]``) every rank calls each function with `mesh=`: a save gathers every
+leaf along dim 0 in rank order to rank 0, which writes the one-shard file
+of the whole swarm; a load gives each rank its slab of it; the mean model
+is the whole swarm's, bitwise the one-shard mean of the gathered rows.
 """
 from __future__ import annotations
 
 import json
 import os
+import struct
+import time
+import zipfile
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import (
     TUPLE, keystr, tree_flatten, tree_key_paths, tree_unflatten,
@@ -76,9 +87,40 @@ def _to_numpy(t: torch.Tensor):
     return t.numpy(), name
 
 
-def save_checkpoint(path: str, tree: Any, metadata: dict | None = None):
+def save_checkpoint(path: str, tree: Any, metadata: dict | None = None,
+                    mesh=None, times: dict | None = None):
     """Write `tree` (nested dicts of tensors or arrays) to path.npz and
-    path.json."""
+    path.json.
+
+    On a node `mesh` every rank calls it with its own slab of the swarm's
+    tree (tensor leaves on its device, the same leading size on every
+    rank): each leaf is gathered along dim 0 in rank order to rank 0 only
+    (``bucket.gather_slab``, one leaf at a time), rank 0 writes the
+    one-shard file of the gathered tree with its `metadata`, and every
+    rank returns once the file is written. A `times` dict is filled with
+    the seconds this rank spent gathering (its copies to the host in) and
+    writing (``gather_s``, ``write_s``)."""
+    if mesh is not None:
+        from repro_torch.core import bucket as B
+        t0 = time.perf_counter()
+        leaves, treedef = tree_flatten(tree, tuples=True)
+        gathered = []
+        for v in leaves:
+            if not isinstance(v, torch.Tensor):
+                raise TypeError(f"a node mesh saves tensor leaves, got "
+                                f"{type(v).__name__}")
+            g = B.gather_slab(v, mesh)
+            gathered.append(None if g is None else g.cpu())
+            del g
+        t1 = time.perf_counter()
+        if mesh.rank == 0:
+            save_checkpoint(path, tree_unflatten(treedef, gathered),
+                            metadata)
+        del gathered
+        if times is not None:
+            times.update(gather_s=t1 - t0, write_s=time.perf_counter() - t1)
+        dist.barrier(group=mesh.group)
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     leaves, treedef = tree_flatten(tree, tuples=True)
     arrays, dtypes = {}, {}
@@ -98,24 +140,72 @@ def save_checkpoint(path: str, tree: Any, metadata: dict | None = None):
         json.dump(meta, f, indent=1)
 
 
-def load_checkpoint(path: str, like: Any) -> Any:
+def _read_rows(npz: str, name: str, rank: int, size: int):
+    """Rank `rank`'s share of leaf `name` (its dim 0 cut in `size` equal
+    slabs) -> (the leaf's stored shape, the slab), reading only the
+    slab's bytes: an ``np.savez`` member is stored uncompressed, so its
+    rows lie at a fixed offset in the file."""
+    with zipfile.ZipFile(npz) as zf:
+        info = zf.getinfo(name + ".npy")
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise ValueError(f"{npz}: {name} is compressed; a node mesh reads "
+                         "the slabs of np.savez's stored members")
+    with open(npz, "rb") as f:
+        f.seek(info.header_offset)
+        local = f.read(30)                 # the zip local file header
+        n_name, n_extra = struct.unpack("<HH", local[26:30])
+        f.seek(info.header_offset + 30 + n_name + n_extra)
+        version = np.lib.format.read_magic(f)
+        shape, fortran, dtype = (np.lib.format.read_array_header_1_0(f)
+                                 if version == (1, 0) else
+                                 np.lib.format.read_array_header_2_0(f))
+        if fortran:
+            raise ValueError(f"{npz}: {name} is stored in Fortran order")
+        if not shape or shape[0] % size:
+            return shape, None             # the caller's shape check raises
+        k = shape[0] // size
+        row = dtype.itemsize * int(np.prod(shape[1:], dtype=np.int64))
+        f.seek(rank * k * row, os.SEEK_CUR)
+        slab = np.fromfile(f, dtype=dtype, count=k * row // dtype.itemsize)
+    return shape, slab.reshape((k,) + tuple(shape[1:]))
+
+
+def _tensor(arr) -> torch.Tensor:
+    if arr.dtype == np.uint16:             # through an int16 view
+        return torch.from_numpy(np.array(arr).view(np.int16)) \
+            .view(torch.uint16)
+    return torch.from_numpy(np.array(arr))
+
+
+def load_checkpoint(path: str, like: Any, mesh=None) -> Any:
     """Restore into the structure of `like` (a tree of tensors): each leaf
     shape-checked, cast to its `like` leaf's dtype and placed on its
-    device."""
+    device. On a node `mesh` `like` is the rank's slab: each stored leaf
+    must hold ``mesh.size`` of them along dim 0, and the rank reads its
+    own, only its bytes."""
     leaves_like, treedef = tree_flatten(like, tuples=True)
     restored = []
+    if mesh is not None:
+        for i, ref in enumerate(leaves_like):
+            if ref.dim() == 0:
+                raise ValueError(f"leaf {i}: a node mesh loads slabs along "
+                                 "dim 0, not 0-d leaves")
+            want = (mesh.size * ref.shape[0],) + tuple(ref.shape[1:])
+            shape, slab = _read_rows(path + ".npz", f"leaf_{i}", mesh.rank,
+                                     mesh.size)
+            if tuple(shape) != want:
+                raise ValueError(f"leaf {i}: shape {shape} != {want}")
+            restored.append(_tensor(slab).to(device=ref.device,
+                                             dtype=ref.dtype))
+        return tree_unflatten(treedef, restored)
     with np.load(path + ".npz") as data:
         for i, ref in enumerate(leaves_like):
             arr = data[f"leaf_{i}"]
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {i}: shape {arr.shape} != "
                                  f"{tuple(ref.shape)}")
-            if arr.dtype == np.uint16:     # through an int16 view
-                t = torch.from_numpy(np.array(arr).view(np.int16)) \
-                    .view(torch.uint16)
-            else:
-                t = torch.from_numpy(np.array(arr))
-            restored.append(t.to(device=ref.device, dtype=ref.dtype))
+            restored.append(_tensor(arr).to(device=ref.device,
+                                            dtype=ref.dtype))
     return tree_unflatten(treedef, restored)
 
 
@@ -124,14 +214,20 @@ def load_metadata(path: str) -> dict:
         return json.load(f)["metadata"]
 
 
-def mean_model_tree(params_stacked):
+def mean_model_tree(params_stacked, mesh=None):
     """Node-stacked params -> the swarm's average model μ as a single-model
     tree: pack to the flat [n_nodes, n_padded] fp32 buffer, mean over the
     node axis, unpack through a single-node layout (original leaf
-    dtypes)."""
+    dtypes). On a node `mesh` (the rank's [1, ...] leaves) the ranks'
+    packed rows are all-gathered first, so every rank gets the whole
+    swarm's μ, bitwise the one-shard μ of the gathered rows (a ring
+    all-reduce sums in an order that changes with its chunking and would
+    not be)."""
     from repro_torch.core import bucket as B
     layout = B.build_layout(params_stacked)
     buf = B.pack(layout, params_stacked)
+    if mesh is not None:
+        buf = B.all_gather_rows(buf, mesh)
     leaves, treedef = tree_flatten(params_stacked)
     probe = tree_unflatten(treedef, [torch.empty(x.shape[1:], dtype=x.dtype,
                                                  device="meta")

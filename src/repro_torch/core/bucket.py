@@ -310,17 +310,53 @@ def gossip_flat_coded(codec: WireCodec, buf, prev_buf, perm, matched, rng,
     return out, new_residual
 
 
-def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The rank's row `x` ([1, ...]) -> every rank's, stacked in rank
-    order ([mesh.size, ...]): ONE all-gather of its bytes (a uint8 view,
-    as :func:`post_exchange` sends them, so every dtype crosses bit for
-    bit) into one buffer."""
-    _one_node_a_rank(x, mesh)
-    xb = x.contiguous().reshape(-1).view(torch.uint8)
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """`x`'s bytes as one contiguous uint8 vector (q9..q16 codes and bf16
+    cross a collective bit for bit; NCCL has no 16-bit integer type)."""
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _from_bytes(b: torch.Tensor, like: torch.Tensor, n: int) -> torch.Tensor:
+    """`n` ranks' slabs of `like`'s shape, as uint8 rows `b` ([n, bytes]),
+    viewed back and stacked along dim 0 in rank order."""
+    return b.view(like.dtype).reshape((n * like.shape[0],) +
+                                      tuple(like.shape[1:]))
+
+
+def all_gather_slab(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's leading-axis slab `x` ([k, ...], the same k on every
+    rank) -> every rank's, concatenated along dim 0 in rank order
+    ([mesh.size * k, ...]): ONE all-gather of its bytes into one buffer.
+    A node-contiguous slab (one node's rows of a wire tuple, say) lands
+    in the one-shard layout."""
+    if x.dim() == 0:
+        raise ValueError("a 0-d tensor has no leading axis to gather along")
+    xb = _as_bytes(x)
     out = torch.empty((mesh.size, xb.numel()), dtype=torch.uint8,
                       device=x.device)
     dist.all_gather(list(out.unbind(0)), xb, group=mesh.group)
-    return out.view(x.dtype).reshape((mesh.size,) + tuple(x.shape[1:]))
+    return _from_bytes(out, x, mesh.size)
+
+
+def gather_slab(x: torch.Tensor, mesh, dst: int = 0):
+    """:func:`all_gather_slab` to rank `dst` only (``dist.gather``): that
+    rank gets every rank's slab concatenated in rank order, the others
+    None, so they never hold the others' copies."""
+    if x.dim() == 0:
+        raise ValueError("a 0-d tensor has no leading axis to gather along")
+    xb = _as_bytes(x)
+    out = torch.empty((mesh.size, xb.numel()), dtype=torch.uint8,
+                      device=x.device) if mesh.rank == dst else None
+    dist.gather(xb, None if out is None else list(out.unbind(0)), dst=dst,
+                group=mesh.group)
+    return None if out is None else _from_bytes(out, x, mesh.size)
+
+
+def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's row `x` ([1, ...]) -> every rank's, stacked in rank
+    order ([mesh.size, ...]): :func:`all_gather_slab` of one node."""
+    _one_node_a_rank(x, mesh)
+    return all_gather_slab(x, mesh)
 
 
 def gossip_flat_mean(buf, mask=None, *, mesh=None):
@@ -388,8 +424,6 @@ def gossip_flat_quantized(qcfg, buf, prev_buf, perm, matched, rng, *,
 #: What a node mesh does not carry yet, each refusal naming the ROADMAP.md
 #: item that carries it.
 NOT_ON_A_MESH = {
-    "scan": ("--scan-chunk on a node mesh (NCCL inside CUDA graphs) waits "
-             "for ROADMAP.md Queue A 4"),
     "nodes_per_shard": ("a node mesh holds one node a rank; more than one "
                         "node a shard waits for ROADMAP.md Queue A 6"),
 }
@@ -524,7 +558,7 @@ def _post(payload, mesh, dsts, src, own: bool) -> Posted:
     ops, recv, sent = [], [], []
     for i, x in enumerate(payload):
         if dsts:
-            xb = x.contiguous().reshape(-1).view(torch.uint8)
+            xb = _as_bytes(x)
             sent.append(xb)
             ops.extend(dist.P2POp(dist.isend, xb, d, group=mesh.group, tag=i)
                        for d in dsts)

@@ -122,7 +122,10 @@ class StepInputs:
 
     @classmethod
     def static(cls, n_nodes: int, device, masked: bool):
-        """Zero-filled buffers a CUDA graph is captured against."""
+        """Zero-filled buffers a CUDA graph is captured against; the chunk
+        driver refills them and sets the host values (`h_host`, and on a
+        node mesh `perm_host`, by which the rank posts) before each
+        superstep."""
         def z(dt):
             return torch.zeros((n_nodes,), dtype=dt, device=device)
         return cls(torch.zeros((), dtype=torch.float32, device=device),
@@ -143,25 +146,36 @@ class EngineStep:
     host work that depends on their values, so it can be captured as a
     CUDA graph; calling the step the uniform way, ``step(state, batch,
     perm, h_counts, rng, mask=None, **kw)``, stages host inputs into a
-    fresh StepInputs first. `graph_key(state, h_host)` names the host
-    values `run`'s control flow depends on (the local-step signature for
-    the steps that take h, anything algorithm-specific from `key_fn`):
-    one captured graph serves every superstep with the same key. `mesh` is
-    the node mesh the step runs on (None: one shard)."""
+    fresh StepInputs first. `graph_key(state, h_host, perm_host)` names
+    the host values `run`'s control flow depends on (the local-step
+    signature for the steps that take h — on a node mesh of the rank's
+    own count —, anything algorithm-specific from `key_fn`, and on a node
+    mesh the peers `peers_fn` gives for the host perm — a captured graph
+    posts to fixed ranks): one captured graph
+    serves every superstep with the same key. `mesh` is the node mesh the
+    step runs on (None: one shard)."""
 
     def __init__(self, run, lr_fn, *, h_max: Optional[int] = None,
-                 key_fn=None, mesh=None):
+                 key_fn=None, mesh=None, peers_fn=None):
         self.run = run
         self.lr_fn = lr_fn
         self.h_max = h_max          # None: the step ignores h
         self.key_fn = key_fn
         self.mesh = mesh
+        # host perm -> the ranks this rank posts to and from (a step that
+        # posts by the perm on a node mesh), else None
+        self.peers_fn = peers_fn
 
-    def graph_key(self, state, h_host) -> tuple:
+    def graph_key(self, state, h_host, perm_host=None) -> tuple:
+        if self.mesh is not None:
+            # a rank's local steps read its own count (`rank_inputs`)
+            h_host = h_host[self.mesh.rank:self.mesh.rank + 1]
         key = () if self.h_max is None else \
             local_signature(h_host, self.h_max)
         if self.key_fn is not None:
             key += (self.key_fn(state),)
+        if self.peers_fn is not None:
+            key += (self.peers_fn(perm_host),)
         return key
 
     def __call__(self, state, batch, perm, h_counts, rng, mask=None, **kw):
@@ -560,6 +574,18 @@ class GossipTransport:
         if self.base_impl == "ppermute":
             return self.static_pairs
         return B.pool_pairs(self.matching_pool, perm)
+
+    def mesh_route(self, perm) -> tuple:
+        """On a node mesh, ((dsts...), src): the ranks this rank sends to
+        and receives from when it posts by the host `perm` — the same
+        functions the posting calls (``bucket.gather_peers`` for gather,
+        ``bucket.mesh_peers`` of the static pairs or the pool entry for
+        the ppermute transports); a chunk keys its graphs by it."""
+        if self.base_impl == "gather":
+            dsts, src = B.gather_peers(perm, self.mesh)
+            return tuple(dsts), src
+        dst, src = B.mesh_peers(self.mesh_pairs(perm), self.mesh)
+        return (() if dst is None else (dst,)), src
 
     def mesh_post(self, payload, perm) -> B.Posted:
         """On a node mesh, post this rank's share of one permute of

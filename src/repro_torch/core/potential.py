@@ -10,10 +10,17 @@ from repro_torch.core import bucket as B
 from repro_torch.tree import tree_leaves, tree_map
 
 
-def mean_model(params_stacked):
-    """μ_t: the fp32 mean over the leading node axis of every leaf."""
-    return tree_map(lambda x: torch.mean(x.to(torch.float32), dim=0),
-                    params_stacked)
+def mean_model(params_stacked, mesh=None):
+    """μ_t: the fp32 mean over the leading node axis of every leaf. On a
+    node `mesh` (the rank's [1, ...] leaves) each leaf's rows are
+    all-gathered first (its bytes, so every dtype crosses bit for bit):
+    every rank gets the whole swarm's μ, bitwise the one-shard mean of the
+    gathered rows."""
+    def mu(x):
+        if mesh is not None:
+            x = B.all_gather_rows(x, mesh)
+        return torch.mean(x.to(torch.float32), dim=0)
+    return tree_map(mu, params_stacked)
 
 
 def gamma_potential(params_stacked, mesh=None) -> torch.Tensor:

@@ -468,7 +468,8 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                       matched_all, mask, lr)
 
     return EngineStep(pipelined_superstep if cfg.overlap else superstep,
-                      lr_fn, h_max=cfg.h_loop_bound, mesh=mesh)
+                      lr_fn, h_max=cfg.h_loop_bound, mesh=mesh,
+                      peers_fn=None if mesh is None else tr.mesh_route)
 
 
 _WIRE_PREV = ("join bootstrap re-bases the per-leaf comm copy; the "
@@ -554,20 +555,28 @@ def retire_nodes(state: SwarmState, left_mask, *, mesh=None) -> SwarmState:
                       state.inflight, residual)
 
 
-def make_mean_model_eval(loss_fn: Callable):
+def make_mean_model_eval(loss_fn: Callable, mesh=None):
     """The swarm's true average model μ against the per-node models (the
     paper's §5 check). μ comes from ``checkpoint.mean_model_tree``, the
     one mean-model path. -> evaluate(params_stacked, batch_single) ->
-    {loss_mean_model, loss_node_mean, loss_node_worst} (0-d tensors)."""
+    {loss_mean_model, loss_node_mean, loss_node_worst} (0-d tensors).
+
+    On a node `mesh` (the rank's [1, ...] params, every rank the same
+    batch) μ is the whole swarm's (``mean_model_tree(mesh=)``) and the
+    node losses are every rank's, all-gathered
+    (``exchange.global_scalars``), so every rank reports the global
+    three."""
     from repro_torch.checkpoint import mean_model_tree
     node_losses = torch.func.vmap(loss_fn, in_dims=(0, None))
 
     @torch.no_grad()
     def evaluate(params_stacked, batch_single):
-        mu = mean_model_tree(params_stacked)
+        mu = mean_model_tree(params_stacked, mesh=mesh)
         loss_mu = loss_fn(mu, batch_single)
         del mu
         losses = node_losses(params_stacked, batch_single)
+        if mesh is not None:
+            losses = global_scalars(mesh, losses)
         return {"loss_mean_model": loss_mu,
                 "loss_node_mean": torch.mean(losses),
                 "loss_node_worst": torch.max(losses)}

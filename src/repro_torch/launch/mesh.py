@@ -18,6 +18,8 @@ state and starts nothing.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import hashlib
 import os
 from dataclasses import dataclass
@@ -25,6 +27,10 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
+
+# who folds while a chunk driver runs a superstep on the card
+# (`NodeMesh.folding`): an object with fold(rng) -> Generator, or None
+_FOLDER = contextvars.ContextVar("repro_torch_mesh_folder", default=None)
 
 
 @dataclass(frozen=True)
@@ -37,20 +43,44 @@ class NodeMesh:
     device: torch.device
     group: Optional[Any] = None
 
+    def fold_seed(self, rng: torch.Generator) -> int:
+        """The seed of this rank's fold of `rng` as it stands: a hash of
+        its state (read on the host) and the rank."""
+        state = rng.get_state().numpy().tobytes()
+        digest = hashlib.sha256(state + self.rank.to_bytes(8, "little"))
+        return int.from_bytes(digest.digest()[:8], "little") >> 1
+
+    @staticmethod
+    def move_on(rng: torch.Generator) -> None:
+        """The one draw by which a fold moves the run's generator on."""
+        torch.empty((1,), device=rng.device).uniform_(generator=rng)
+
     def fold_generator(self, rng: torch.Generator) -> torch.Generator:
         """This rank's generator for one encode, made from the run's
         generator `rng` and the rank (the counterpart of
-        ``jax.random.fold_in(key, axis_index)``): seeded from `rng`'s
-        state and the rank, after which `rng` moves on by one draw, the
-        same on every rank. Reads the state on the host: no device
-        sync."""
-        state = rng.get_state().numpy().tobytes()
-        digest = hashlib.sha256(state + self.rank.to_bytes(8, "little"))
-        seed = int.from_bytes(digest.digest()[:8], "little") >> 1
-        torch.empty((1,), device=rng.device).uniform_(generator=rng)
+        ``jax.random.fold_in(key, axis_index)``): seeded by `fold_seed`,
+        after which `rng` moves on by one draw, the same on every rank.
+        Reads the state on the host: no device sync. Inside `folding`
+        the folder given there folds instead, to the same draws."""
+        folder = _FOLDER.get()
+        if folder is not None:
+            return folder.fold(rng)
+        seed = self.fold_seed(rng)
+        self.move_on(rng)
         g = torch.Generator(device=rng.device)
         g.manual_seed(seed)
         return g
+
+    @contextlib.contextmanager
+    def folding(self, folder):
+        """A context in which `fold_generator` hands each fold to
+        ``folder.fold(rng)`` (the chunk driver's replayable folds,
+        ``core/scan.py`` ``GraphFolds``)."""
+        token = _FOLDER.set(folder)
+        try:
+            yield folder
+        finally:
+            _FOLDER.reset(token)
 
     def close(self) -> None:
         """Tear down the process group (every rank calls it)."""

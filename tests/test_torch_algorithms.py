@@ -30,7 +30,9 @@ participation masks, against the JAX package on the CPU.
   minus what the port does not carry yet).
 """
 import functools
+import re
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -685,8 +687,9 @@ def test_validate_accepts_the_reference_set_minus_unported(algo,
 def test_validate_names_the_roadmap_item(kw, item, monkeypatch):
     """The pool transport, which the port refused until it was ported, is
     accepted where JAX accepts it (also under the scheduler's flags) with
-    the same capability row; what the port still does not carry on a
-    node mesh — the chunk driver (NCCL inside CUDA graphs), more than one
+    the same capability row; the chunk driver on a node mesh (NCCL inside
+    CUDA graphs) is accepted now and its ROADMAP item is marked done;
+    what the port still does not carry on a node mesh — more than one
     node a shard — is refused with the ROADMAP item it waits for."""
     for var in ("REPRO_DEFAULT_GOSSIP_IMPL", "REPRO_CODEC", "REPRO_TOPOLOGY",
                 "REPRO_AVAIL_PROFILE"):
@@ -695,10 +698,16 @@ def test_validate_names_the_roadmap_item(kw, item, monkeypatch):
     got = validate_run_config("swarm", n_nodes=8, **kw)
     assert (got.transports, got.modes) == (want.transports, want.modes)
     pool = [np.arange(8)]
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        validate_run_config("swarm", n_nodes=8, scan_chunk=4,
-                            mesh=NodeMesh(0, 8, torch.device("cpu")), **kw)
-    assert item in str(e.value)
+    assert validate_run_config("swarm", n_nodes=8, scan_chunk=4,
+                               mesh=NodeMesh(0, 8, torch.device("cpu")),
+                               **kw) is not None
+    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    queue_a = roadmap[roadmap.index("### Queue A"):roadmap.index(
+        "### Queue B")]
+    heads = [m.group(1) for m in re.finditer(r"^\d+\. \*\*(.*?)\*\*",
+                                             queue_a, re.S | re.M)
+             if item in m.group(1)]
+    assert heads and all("done in PR" in h for h in heads), heads
     with pytest.raises(ValueError, match="ROADMAP.md Queue A 6"):
         GossipTransport(8, impl=kw["gossip_impl"], matching_pool=pool,
                         mesh=NodeMesh(0, 2, torch.device("cpu")))

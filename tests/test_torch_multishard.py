@@ -831,12 +831,16 @@ def _roadmap_queue_a():
 def test_refusals_name_their_roadmap_item(what, words):
     """Every refusal names a Queue A item of ROADMAP.md by number, and
     that item is about what is refused; the gather transport and the
-    baselines' collectives, which a mesh now carries, are refused no more
-    and their item is marked done."""
+    baselines' collectives, and the chunk driver, which a mesh now
+    carries, are refused no more and their items are marked done."""
     if what == "gather":
-        assert set(TB.NOT_ON_A_MESH) == {"scan", "nodes_per_shard"}
+        assert set(TB.NOT_ON_A_MESH) == {"nodes_per_shard"}
         item = next(v for v in _roadmap_queue_a().values()
                     if v.startswith("**gather"))
+        assert "done in PR" in item, item[:200]
+    elif what == "scan":
+        assert "scan" not in TB.NOT_ON_A_MESH
+        item = _roadmap_queue_a()[4]
         assert "done in PR" in item, item[:200]
     else:
         m = re.search(r"ROADMAP\.md Queue A (\d+)",
@@ -849,8 +853,8 @@ def test_refusals_name_their_roadmap_item(what, words):
 def test_refusals_on_a_mesh():
     mesh = _mesh()
     g_pool = [np.arange(N)]
-    # gather and the baselines build on a mesh; what stays refused there is
-    # the chunk driver (Queue A 4) and more than one node a rank (A 6)
+    # gather, the baselines and their chunk drivers build on a mesh; what
+    # stays refused there is more than one node a rank (A 6)
     for impl in ("gather", "gather_legacy"):
         assert TE.GossipTransport(N, impl=impl, mesh=mesh).mesh is mesh
         with pytest.raises(ValueError, match="Queue A 6"):
@@ -859,16 +863,15 @@ def test_refusals_on_a_mesh():
     extra = {"dpsgd": {"graph": make_graph("complete", N)}}
     for algo in ("allreduce", "localsgd", "dpsgd", "adpsgd", "sgp"):
         assert validate_run_config(algo, n_nodes=N, mesh=mesh) is not None
-        with pytest.raises(NotImplementedError, match="Queue A 4"):
-            validate_run_config(algo, n_nodes=N, mesh=mesh, scan_chunk=4)
+        assert validate_run_config(algo, n_nodes=N, mesh=mesh,
+                                   scan_chunk=4) is not None
         with pytest.raises(ValueError, match="Queue A 6"):
             validate_run_config(algo, n_nodes=2 * N, mesh=mesh)
         step = make_algorithm(algo, loss_fn=lambda p, b: 0.0,
                               opt_update=None, lr_fn=lambda s: LR,
                               n_nodes=N, mesh=mesh, **extra.get(algo, {}))
         assert step.mesh is mesh
-        with pytest.raises(NotImplementedError, match="Queue A 4"):
-            make_superstep_scan(step)
+        assert make_superstep_scan(step).step is step
         with pytest.raises(ValueError, match="Queue A 6"):
             make_algorithm(algo, loss_fn=lambda p, b: 0.0, opt_update=None,
                            lr_fn=lambda s: LR, n_nodes=2 * N, mesh=mesh,
@@ -881,17 +884,15 @@ def test_refusals_on_a_mesh():
                                      torch.eye(N))):
         with pytest.raises(ValueError, match="Queue A 6"):
             fn()
-    # --scan-chunk
-    with pytest.raises(NotImplementedError, match="Queue A 4"):
-        validate_run_config("swarm", gossip_impl="ppermute", mesh=mesh,
-                            scan_chunk=4)
+    # --scan-chunk builds on a mesh
+    assert validate_run_config("swarm", gossip_impl="ppermute", mesh=mesh,
+                               scan_chunk=4) is not None
     step = make_swarm_step(SwarmConfig(n_nodes=N, gossip_impl="ppermute"),
                            None, None, lambda s: LR,
                            transport=TE.GossipTransport(
                                N, impl="ppermute", static_pairs=PAIRS,
                                mesh=mesh))
-    with pytest.raises(NotImplementedError, match="Queue A 4"):
-        make_superstep_scan(step)
+    assert make_superstep_scan(step).step is step
     # a residual codec is refused off gather already (the reference's)
     with pytest.raises(ValueError, match="error-feedback"):
         validate_run_config("swarm", gossip_impl="ppermute", quantize=True,

@@ -1246,9 +1246,9 @@ def test_planted_faults_fail(ref, ranks, fault):
 
 
 def test_what_a_mesh_still_refuses():
-    """What a mesh does not carry yet: the chunk driver and more than one
-    node a rank; nothing else."""
-    assert set(TB.NOT_ON_A_MESH) == {"scan", "nodes_per_shard"}
+    """What a mesh does not carry yet: more than one node a rank; nothing
+    else (the chunk driver runs there)."""
+    assert set(TB.NOT_ON_A_MESH) == {"nodes_per_shard"}
     mesh = NodeMesh(0, N, torch.device("cpu"))
     with pytest.raises(ValueError, match="Queue A 6"):
         make_join_step(SwarmConfig(n_nodes=2 * N), mesh=mesh)

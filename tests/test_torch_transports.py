@@ -756,13 +756,12 @@ def test_refusals_are_the_reference():
         TE.GossipTransport(N, impl="allgather")
     with pytest.raises(ValueError, match="gossip_impl"):
         SwarmConfig(n_nodes=N, gossip_impl="allgather")
-    # on a node mesh: gather builds there too, the chunk driver waits for
-    # its ROADMAP item, and a rank holds one node — no fallback to the
-    # one-shard path
+    # on a node mesh: gather and the chunk driver build there too, and a
+    # rank holds one node — no fallback to the one-shard path
     mesh = NodeMesh(0, 2, torch.device("cpu"))
     assert TE.GossipTransport(2, mesh=mesh).mesh is mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        validate_run_config("swarm", n_nodes=2, mesh=mesh, scan_chunk=4)
+    assert validate_run_config("swarm", n_nodes=2, mesh=mesh,
+                               scan_chunk=4) is not None
     for fn in (lambda: TE.GossipTransport(N, impl="ppermute",
                                           static_pairs=[(0, 1)], mesh=mesh),
                lambda: TB.gossip_flat_ppermute(torch.zeros(N, 256),
