@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # one H100; exits non-zero on any failure
     python3 chip_smoke.py --only multi_shard   # the node mesh's phases
                                                # alone (2 or more GPUs)
+    python3 chip_smoke.py --only dryrun        # the dry run against the
+                                               # peaks it predicts
 
 Phases, each printed on its own line:
 
@@ -243,7 +245,16 @@ Phases, each printed on its own line:
     ``{"phase": "multi_shard", "ran": false, "gpus": 1, "needs": 2}``
     and run nothing: a declared precondition (NCCL refuses two ranks on
     one GPU). The parent builds the kernels before it spawns the ranks,
-    which load them.
+    which load them. A clean gather q8 run of 2 supersteps on every rank
+    is held to the dry run of ``--nodes <ranks>`` (as in 30);
+30. the dry run (``dryrun``, after phase 22; alone with ``--only
+    dryrun``): ``repro_torch.launch.dryrun`` traces `main_path`'s
+    command, `scan_full_width`'s overlapped geometric one and phase 22's
+    decode step on fake CUDA and fake CPU tensors, one process each: the
+    counted fields equal, the card holding at most DRYRUN_TOUCH_BYTES
+    during a trace and 0 B after, and each predicted peak within
+    DRYRUN_BOUND of what its phase measured (a training command's peak
+    allocated; the decode step's allocation above its start).
 
 The card's line is printed again before the kernels' JSON record, which
 is the line before the last; the last line is
@@ -280,6 +291,9 @@ def check(cond, msg):
 
 
 PHASE_LOG = os.path.join(OUT_DIR, "chip_smoke_phases.jsonl")
+# what the phases the dry run predicts measured: name -> bytes allocated
+# above the phase's start at its peak (`phase_dryrun`)
+MEASURED_PEAKS: dict = {}
 
 
 def log(phase, **kw):
@@ -747,6 +761,7 @@ def phase_main_path():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     reset_launch_counts()
     B.WRAPS = {}
     try:
@@ -771,7 +786,9 @@ def phase_main_path():
     log("main_path", records=hist, launches=counts,
         first_superstep_s=walls[0], superstep_s=steady,
         superstep_median_s=statistics.median(steady),
-        max_memory_allocated_bytes=peak, q8_wraps=wraps)
+        max_memory_allocated_bytes=peak, start_allocated_bytes=start,
+        q8_wraps=wraps)
+    MEASURED_PEAKS["main_path"] = peak - start
     return counts, hist
 
 
@@ -1218,6 +1235,7 @@ def phase_baselines_full_width():
         argv = base + flags
         args = train.build_parser().parse_args(argv)
         _fresh_memory()
+        start = torch.cuda.memory_allocated()
         tr = train.build(args)
         reset_launch_counts()
         t0 = time.time()
@@ -2549,6 +2567,7 @@ def phase_scan_full_width(main_records):
         args = train.build_parser().parse_args(
             argv + ["--out", os.path.join(OUT_DIR, f"chip_smoke_{name}.json")])
         _fresh_memory()
+        start = torch.cuda.memory_allocated()
         tr = train.build(args)
         reset_launch_counts()
         t0 = time.time()
@@ -2583,8 +2602,10 @@ def phase_scan_full_width(main_records):
                          second_chunk_superstep_s=(ends[1] - ends[0]) / 4,
                          first_chunk_s=ends[0],
                          max_memory_allocated_bytes=peak,
+                         start_allocated_bytes=start,
                          max_memory_reserved_bytes=torch.cuda
                          .max_memory_reserved(), run_s=run_s)
+        MEASURED_PEAKS[name] = peak - start
         by_path[name] = counts
         del tr
     walls = [h["wall_s"] for h in main_records]
@@ -2593,6 +2614,130 @@ def phase_scan_full_width(main_records):
     _fresh_memory()
     log("scan_full_width", **out)
     return by_path
+
+
+# -- the dry run: the measured commands traced on fake tensors --
+
+# name (a key of MEASURED_PEAKS) -> the flags of ``repro_torch.launch.
+# dryrun`` for the same command: `main_path`'s blocking q8 driver and
+# `scan_full_width`'s overlapped geometric one (8 transformer-wmt nodes
+# on one card, a node's local step 4 x 128 tokens), and the decode step
+# of `_profile_decode_step` (8 lanes over a 520-row cache)
+DRYRUN_COMMANDS = {
+    "main_path": ["--shape", "train_4k", "--nodes-per-gpu", "8", "--batch",
+                  "4", "--seq", "128", "--quantize"],
+    "scan_overlap_q8_geometric": ["--shape", "train_4k", "--nodes-per-gpu",
+                                  "8", "--batch", "4", "--seq", "128",
+                                  "--h-mode", "geometric", "--h-max", "8",
+                                  "--quantize", "--overlap"],
+    "serve_decode_transformer-wmt": ["--shape", "decode_32k",
+                                     "--nodes-per-gpu", "1", "--batch", "8",
+                                     "--seq", "520"],
+}
+# the fields a trace counts, equal on every device
+DRYRUN_COUNTED = ("flops_per_dev", "argument_bytes", "temp_bytes",
+                  "peak_bytes", "coll_bytes_per_dev", "coll_raw",
+                  "wire_bytes_per_node", "h_traced")
+# measured / predicted: a training command's peak allocated against the
+# trace's peak; the decode step's allocation above its start against the
+# trace's temp_bytes (its arguments are live before it starts). The trace
+# leaves out only the allocator's rounding of a block up to 512 B and
+# cuBLAS's workspaces (two of 32 MiB at the card's first matmuls):
+# 1.0016 / 1.00002 / 1.000005 in the first measurement on the card
+DRYRUN_BOUND = (0.995, 1.01)
+
+
+# the most a dry run on fake CUDA tensors may hold on the card at once:
+# torch's fake mode probes the CUDA context with a one-element tensor and
+# moves host constants for real, one 512 B allocator block each, freed at
+# once (512 or 1024 B at the peak in the runs measured: one or two
+# blocks); the step holds nothing
+DRYRUN_TOUCH_BYTES = 4096
+
+
+def _fake_touch_ok(rec) -> bool:
+    return rec["device_allocated_after_bytes"] == 0 and \
+        rec["device_allocated_bytes"] <= DRYRUN_TOUCH_BYTES
+
+
+def _dryrun_jobs(commands: dict, devices) -> dict:
+    """Run ``repro_torch.launch.dryrun`` for every (command, device), all
+    at once, one process each; -> {(name, device): record}."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = os.path.join(OUT_DIR, "dryrun")
+    procs = {}
+    for name, flags in commands.items():
+        for dev in devices:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", "transformer-wmt", "--device", dev, "--out",
+                   out, "--tag", dev] + flags
+            procs[name, dev] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env)
+    records = {}
+    for key, p in procs.items():
+        stdout, stderr = p.communicate(timeout=900)
+        check(p.returncode == 0, f"dry run {key} failed:\n{stderr[-3000:]}")
+        records[key] = json.loads(stdout.splitlines()[0])
+    return records
+
+
+def _measure_decode_step():
+    """`serve_full_width`'s decode step alone (transformer-wmt at full
+    width, 8 lanes over 512 prefilled rows), for ``--only dryrun``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("transformer-wmt")
+    _fresh_memory()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         "cuda")
+    log("decode_step", arch=cfg.name, **_profile_decode_step(cfg, params))
+    del params
+    _fresh_memory()
+
+
+def phase_dryrun():
+    """Each command of DRYRUN_COMMANDS traced by the dry run on fake CUDA
+    tensors and on fake CPU tensors: every counted field equal, no device
+    memory allocated; each predicted peak beside what its phase measured
+    (MEASURED_PEAKS), the ratio within DRYRUN_BOUND."""
+    import torch
+    records = _dryrun_jobs(DRYRUN_COMMANDS, ("cuda", "cpu"))
+    out = {}
+    for name in DRYRUN_COMMANDS:
+        cuda, cpu = records[name, "cuda"], records[name, "cpu"]
+        differ = [k for k in DRYRUN_COUNTED if cuda.get(k) != cpu.get(k)]
+        check(not differ, f"dry run {name}: cuda and cpu records differ in "
+              f"{differ}")
+        check(_fake_touch_ok(cuda), f"dry run {name} allocated "
+              f"{cuda['device_allocated_bytes']} B on the card at its peak, "
+              f"{cuda['device_allocated_after_bytes']} B at its end")
+        decode = cuda["kind"] == "decode"
+        predicted = cuda["temp_bytes"] if decode else cuda["peak_bytes"]
+        measured = MEASURED_PEAKS[name]
+        ratio = measured / predicted
+        out[name] = dict(
+            predicted_bytes=predicted, measured_bytes=measured,
+            measured_over_predicted=ratio,
+            compared="allocated above the step's start vs the trace's "
+            "temp_bytes" if decode else "peak allocated vs the trace's "
+            "peak_bytes",
+            record={k: cuda[k] for k in (
+                "argument_bytes", "temp_bytes", "peak_bytes",
+                "device_allocated_bytes", "device_allocated_after_bytes",
+                "flops_per_dev", "flops_analytic_per_dev",
+                "model_flops_per_dev", "compute_s", "memory_s",
+                "bottleneck", "fits", "t_trace_s", "wire_bytes_per_node")})
+    log("dryrun", card=torch.cuda.get_device_name(0), bound=DRYRUN_BOUND,
+        total_memory_bytes=torch.cuda.get_device_properties(0).total_memory,
+        **out)
+    for name, r in out.items():
+        lo, hi = DRYRUN_BOUND
+        check(lo <= r["measured_over_predicted"] <= hi,
+              f"dry run {name}: measured {r['measured_bytes']} over "
+              f"predicted {r['predicted_bytes']} = "
+              f"{r['measured_over_predicted']:.4f} outside {DRYRUN_BOUND}")
 
 
 # -- serving: the model's inference modes, the engine, checkpoints --
@@ -2821,6 +2966,14 @@ def _profile_decode_step(cfg, params, batch: int = 8, plen: int = 512):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    # one step unprofiled: what it allocates above the params, cache and
+    # token it is given (and whatever else is live)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    logits, cache = decode_step(params, cache, tok)
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - start
+    MEASURED_PEAKS[f"serve_decode_{cfg.name}"] = above
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         logits, cache = decode_step(params, cache, tok)
@@ -2831,8 +2984,9 @@ def _profile_decode_step(cfg, params, batch: int = 8, plen: int = 512):
         prof.export_chrome_trace(path)
         with open(path) as f:
             s = summarize(json.load(f), wall_ms, top=5)
-    return {k: s[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
-                              "n_kernels", "top_kernels")}
+    return {**{k: s[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                 "n_kernels", "top_kernels")},
+            "allocated_above_start_bytes": above}
 
 
 def _serve_engine_run(cfg, params, prompts, *, swap=None, slots=8,
@@ -5248,12 +5402,39 @@ def _ms_full_width_rank(rank, world, port, cfg_name, out_dir, device):
     results["allreduce_ms"] = ar_ms
     results["allreduce_bytes"] = buf.numel() * buf.element_size()
     del last, buf
+    results["clean_gather_q8"] = _ms_clean_peak(mesh, cfg, batch, seq)
     results.update(_ms_scan_full_width(mesh, cfg, out_dir, batch, seq))
     mesh.close()
     with open(os.path.join(out_dir, f"full_width_rank{rank}.json"), "w") as f:
         json.dump(results, f)
 
 
+
+
+def _ms_clean_peak(mesh, cfg, batch, seq) -> dict:
+    """`multi_shard_gather_q8` (blocking gather q8) for 2 supersteps with
+    no check hooked in: the rank's peak allocated above what was live
+    before it was built (None off the card), which the dry run's
+    ``--nodes`` trace predicts (`phase_multi_shard_full_width`)."""
+    import gc
+    import torch
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    gc.collect()
+    _sync(dev)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev) if cuda else 0
+    run = _MsRun(cfg, mesh, "swarm", "gather", "q8", "blocking", steps=2,
+                 batch=batch, seq=seq)
+    run.per_step(0, 2)
+    _sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - start if cuda else None
+    del run
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"peak_above_start_bytes": peak}
 
 
 def _ms_scan_full_width(mesh, cfg, out_dir, batch, seq) -> dict:
@@ -5539,11 +5720,45 @@ def phase_multi_shard_full_width(world: int, device: str = "cuda",
     for name in MS_SCAN_H_MODE:
         out[name] = _ms_scan_checks(name, [r[name] for r in ranks], device)
         by_path[name] = ranks[0][name]["launches"]
+    if device == "cuda" and cfg_name is None:
+        out["dryrun"] = _ms_dryrun(
+            world, [r["clean_gather_q8"]["peak_above_start_bytes"]
+                    for r in ranks])
     log("multi_shard_full_width", ranks=world, seconds=time.time() - t0,
         link=_link_type(world) if device == "cuda" else None,
         gamma_ms=ranks[0]["gamma_ms"], allreduce_ms=ranks[0]["allreduce_ms"],
         allreduce_bytes=ranks[0]["allreduce_bytes"], **out)
     return by_path
+
+
+def _ms_dryrun(world: int, measured: list) -> dict:
+    """The dry run of the clean gather q8 command on a node mesh of
+    `world` GPUs (``--nodes``: rank 0's step, the other ranks torch's fake
+    process group) on fake CUDA and CPU tensors: the counted fields equal,
+    no device memory, and each rank's measured peak above its start
+    (`_ms_clean_peak`) within DRYRUN_BOUND of the predicted peak."""
+    flags = ["--shape", "train_4k", "--nodes", str(world), "--batch", "4",
+             "--seq", "128", "--quantize"]
+    recs = _dryrun_jobs({"multi_shard_gather_q8": flags}, ("cuda", "cpu"))
+    cuda, cpu = (recs["multi_shard_gather_q8", d] for d in ("cuda", "cpu"))
+    differ = [k for k in DRYRUN_COUNTED if cuda.get(k) != cpu.get(k)]
+    check(not differ, f"mesh dry run: cuda and cpu records differ in "
+          f"{differ}")
+    check(_fake_touch_ok(cuda), f"mesh dry run allocated "
+          f"{cuda['device_allocated_bytes']} B at its peak, "
+          f"{cuda['device_allocated_after_bytes']} B at its end")
+    ratios = [m / cuda["peak_bytes"] for m in measured]
+    lo, hi = DRYRUN_BOUND
+    check(all(lo <= r <= hi for r in ratios),
+          f"mesh dry run: measured over predicted {ratios} outside "
+          f"{DRYRUN_BOUND}")
+    return {"predicted_bytes": cuda["peak_bytes"],
+            "measured_bytes_by_rank": measured,
+            "measured_over_predicted_by_rank": ratios,
+            "argument_bytes": cuda["argument_bytes"],
+            "coll_raw": cuda["coll_raw"],
+            "wire_bytes_per_node": cuda["wire_bytes_per_node"],
+            "t_trace_s": cuda["t_trace_s"]}
 
 
 def _ms_scan_checks(name, per, device) -> dict:
@@ -5613,10 +5828,13 @@ def phase_multi_shard() -> dict:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
-    ap.add_argument("--only", choices=["multi_shard"], default=None,
+    ap.add_argument("--only", choices=["multi_shard", "dryrun"],
+                    default=None,
                     help="run only these phases (multi_shard: the node "
                          "mesh's two phases, for a host with 2 or more "
-                         "GPUs); default: every phase")
+                         "GPUs; dryrun: the phases whose peaks the dry run "
+                         "predicts, then the dry run); default: every "
+                         "phase")
     args = ap.parse_args(argv)
     # expandable segments, set before the allocator starts, as the port's
     # entry points set them (launch/train.py `use_expandable_segments`):
@@ -5650,7 +5868,13 @@ def main(argv=None) -> int:
     log("build", seconds=time.time() - t0,
         libraries=[str(build.library_path(n)) for n in build.KERNELS])
     if args.only is not None:
-        phase_multi_shard()
+        if args.only == "multi_shard":
+            phase_multi_shard()
+        else:
+            _, main_records = phase_main_path()
+            phase_scan_full_width(main_records)
+            _measure_decode_step()
+            phase_dryrun()
         print(smi[0], flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5679,6 +5903,7 @@ def main(argv=None) -> int:
     scan = phase_scan_full_width(main_records)
     phase_serve_reference()
     serving = phase_serve_full_width()
+    phase_dryrun()
     serving.update(phase_serve_checkpoint())
     serving.update(phase_serve_follow())
     phase_zoo_reference()

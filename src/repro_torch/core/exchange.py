@@ -827,7 +827,8 @@ def _leaf_mean(x, mask):
     return mu.to(x.dtype).expand(x.shape).contiguous()
 
 
-def transport_from_config(scfg, graph=None, seed: int = 0) -> GossipTransport:
+def transport_from_config(scfg, graph=None, seed: int = 0,
+                          mesh=None) -> GossipTransport:
     """The driver's one transport for every algorithm: `scfg.gossip_impl`
     on the codec of `scfg.codec` (the lattice family seeded by
     `scfg.quant`). ``ppermute`` bakes in the static matching of `graph`
@@ -835,7 +836,8 @@ def transport_from_config(scfg, graph=None, seed: int = 0) -> GossipTransport:
     feeds the engine too); ``ppermute_pool`` the `scfg.pool_size`
     matchings of `make_matching_pool(graph, K, seed)`, or under a
     two-tier `scfg.topology` its intra matchings followed by the
-    inter-group perms (``HierTopology.matching_pool``)."""
+    inter-group perms (``HierTopology.matching_pool``). On a node `mesh`
+    the transport is the mesh's (``GossipTransport(..., mesh=)``)."""
     impl = scfg.gossip_impl
     base = impl[:-len("_legacy")] if impl.endswith("_legacy") else impl
     quant = getattr(scfg, "quant", None)
@@ -853,4 +855,4 @@ def transport_from_config(scfg, graph=None, seed: int = 0) -> GossipTransport:
             kw["matching_pool"] = make_matching_pool(graph, K=K, seed=seed)
     return GossipTransport(scfg.n_nodes, impl=impl, quant=quant,
                            codec=make_codec(getattr(scfg, "codec", None),
-                                            quant), **kw)
+                                            quant), mesh=mesh, **kw)

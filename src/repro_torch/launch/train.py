@@ -442,6 +442,7 @@ class Trainer:
     clocks: Optional[S.PoissonClocks] = None
     join: Optional[Callable] = None       # --avail: the join bootstrap
     chunker: Optional[Callable] = None    # --scan-chunk: the chunk driver
+    mesh: object = None       # a node mesh (launch/mesh.py): this rank's node
 
     @property
     def h_max(self) -> int:
@@ -463,7 +464,8 @@ class Trainer:
         """Retire the nodes whose permanent leave takes effect before bin
         t (t = n_steps: after the last bin)."""
         if self.churn and self.schedule.retire[t].any():
-            self.state = retire_nodes(self.state, self.schedule.retire[t])
+            self.state = retire_nodes(self.state, self.schedule.retire[t],
+                                      mesh=self.mesh)
 
     def join_bin(self, t: int) -> dict:
         """Run the exclusive join bin t: the joiner bootstraps from its
@@ -477,12 +479,19 @@ class Trainer:
         """Superstep t's batch as numpy [nodes, h_max * batch, seq]."""
         return make_node_batches(self.ds, t, self.args.batch * self.h_max)
 
-    def batch(self, t: int, nb: Optional[dict] = None) -> dict:
-        """Superstep t's batch on the device: [nodes, h_max, batch, seq]."""
+    def node_rows(self, v: np.ndarray) -> np.ndarray:
+        """A numpy batch of every node -> [nodes, h_max, batch, seq], or on
+        a node mesh the rank's row, [1, h_max, batch, seq]."""
         a = self.args
+        v = v.reshape(a.nodes, self.h_max, a.batch, a.seq)
+        return v if self.mesh is None else \
+            v[self.mesh.rank:self.mesh.rank + 1]
+
+    def batch(self, t: int, nb: Optional[dict] = None) -> dict:
+        """Superstep t's batch on the device: [nodes, h_max, batch, seq]
+        (a node mesh: the rank's row)."""
         nb = self.node_batches(t) if nb is None else nb
-        return {k: torch.from_numpy(v.reshape(a.nodes, self.h_max, a.batch,
-                                              a.seq)).to(self.device)
+        return {k: torch.from_numpy(self.node_rows(v)).to(self.device)
                 for k, v in nb.items()}
 
     def superstep(self, t: int, nb: Optional[dict] = None) -> dict:
@@ -495,13 +504,12 @@ class Trainer:
     def chunk(self, t: int, n: int, nbs: list) -> dict:
         """Supersteps t .. t+n-1 as one chunk (``core/scan.py``) from their
         numpy batches `nbs`; -> the metrics, numpy [n] each (read once)."""
-        a = self.args
         if self.chunker is None:
             self.chunker = make_superstep_scan(
                 self.step, with_mask=self.masks is not None)
         batch = {k: torch.from_numpy(np.stack(
-            [nb[k].reshape(a.nodes, self.h_max, a.batch, a.seq)
-             for nb in nbs])).to(self.device) for k in nbs[0]}
+            [self.node_rows(nb[k]) for nb in nbs])).to(self.device)
+            for k in nbs[0]}
         masks = None if self.masks is None else self.masks[t:t + n]
         self.state, ms = self.chunker(self.state, self.enc_gen, batch,
                                       self.perms[t:t + n], self.hs[t:t + n],
@@ -547,18 +555,22 @@ class Trainer:
             # tuple), so a reader needs the flag to build its template
             meta["codec"] = {"spec": a.codec or "q8", "state": sorted(tree),
                              "compress_state": bool(self.scfg.compress_state)}
-            save_checkpoint(path, tree, meta)
+            save_checkpoint(path, tree, meta, mesh=self.mesh)
         else:
-            save_checkpoint(path, ck_state.params, meta)
+            save_checkpoint(path, ck_state.params, meta, mesh=self.mesh)
 
 
-def build(args, cfg=None) -> Trainer:
+def build(args, cfg=None, mesh=None) -> Trainer:
     """The trainer the flags describe; `cfg`, when given, is the model
     config in place of the one --arch / --reduced name. One construction
     path for every algorithm: the capability matrix validates the flags,
     one transport is built, and the step comes from `make_algorithm`.
     Under --rate-profile the run's (perm, h, mask) rows are the binned
-    schedule's, and the trace's ``{"sched": ...}`` line is printed."""
+    schedule's, and the trace's ``{"sched": ...}`` line is printed. On a
+    node `mesh` (``launch/mesh.py``, library only: --nodes its size, each
+    rank calls this with the same flags) the transport, step, state, join,
+    retirement, mean-model evaluation and checkpoints are the mesh's, and
+    each rank holds and feeds its own node."""
     caps = validate_run_config(args.algo, gossip_impl=args.gossip_impl,
                                quantize=args.quantize,
                                nonblocking=args.nonblocking,
@@ -567,7 +579,7 @@ def build(args, cfg=None) -> Trainer:
                                codec=args.codec, avail=args.avail,
                                topology=args.topology,
                                compress_state=args.compress_state,
-                               n_nodes=args.nodes)
+                               n_nodes=args.nodes, mesh=mesh)
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)
@@ -598,7 +610,8 @@ def build(args, cfg=None) -> Trainer:
     model = TransformerLM(cfg)
     kw = dict(loss_fn=model.functional_loss, opt_update=opt.update,
               lr_fn=lambda s: args.lr, n_nodes=args.nodes,
-              transport=transport_from_config(scfg, graph, args.seed))
+              transport=transport_from_config(scfg, graph, args.seed,
+                                              mesh=mesh), mesh=mesh)
     if args.algo == "swarm":
         kw["scfg"] = scfg
     else:
@@ -614,9 +627,9 @@ def build(args, cfg=None) -> Trainer:
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     state = swarm_init(gen, scfg, lambda g: init_params(g, cfg, device),
-                       opt.init)
+                       opt.init, mesh=mesh)
     if args.algo == "sgp":
-        state = sgp_init_state(state, args.nodes, args.quantize)
+        state = sgp_init_state(state, args.nodes, args.quantize, mesh=mesh)
     enc_gen = torch.Generator(device=device)
     enc_gen.manual_seed(args.seed + 1)
     sched = {}
@@ -628,7 +641,7 @@ def build(args, cfg=None) -> Trainer:
         sched = dict(masks=masks, schedule=schedule, trace=trace,
                      clocks=clocks)
         if schedule.kinds is not None:
-            sched["join"] = make_join_step(scfg)
+            sched["join"] = make_join_step(scfg, mesh=mesh)
         print(json.dumps({"sched": {
             "profile": args.rate_profile, "n_events": trace.n_events,
             "n_supersteps": schedule.n_supersteps,
@@ -641,10 +654,10 @@ def build(args, cfg=None) -> Trainer:
             caps.uses_matching, topo=parse_topology(args.topology,
                                                     args.nodes),
             seed=args.seed)
-    evaluate = make_mean_model_eval(model.functional_loss) \
+    evaluate = make_mean_model_eval(model.functional_loss, mesh=mesh) \
         if args.eval_mean else None
     return Trainer(args, device, cfg, caps, scfg, step, state, ds, perms, hs,
-                   enc_gen, evaluate, graph, **sched)
+                   enc_gen, evaluate, graph, mesh=mesh, **sched)
 
 
 def check_args(ap: argparse.ArgumentParser, args) -> None:
