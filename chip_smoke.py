@@ -35,6 +35,11 @@ Phases, each printed on its own line:
    finite losses and exactly 8 / 4 / 4 launches of sgd_update /
    quantize_mod / decode_avg, and prints the superstep time, peak
    device memory and the q8 decodes beyond the lattice's reach;
+   then ``remat``: the same command with the config's ``remat`` on (each
+   of the 12 blocks recomputed in the backward pass, the default at full
+   size) against off, bitwise under deterministic algorithms (losses and
+   parameters after one superstep), and 4 supersteps a run in turns (on,
+   off, off, on) for the superstep times and peaks, launches 8 / 4 / 4;
 6. one exact-mode superstep, in which quantize_mod and decode_avg must not
    launch;
 7. overlap exact: the overlapped exact run equals the non-blocking exact
@@ -125,9 +130,11 @@ Phases, each printed on its own line:
     overlapped geometric q8 whose graphs replay out of capture order,
     top-k non-blocking, a masked lognormal schedule and the five
     baselines; 6 supersteps of transformer-wmt cut to 2 layers at full
-    width, bf16, deterministic algorithms), with equal launch counts, and
-    what the captures leave in the graphs' shared pool traced to the
-    cuBLAS workspaces;
+    width, bf16, deterministic algorithms, remat off; the blocking and
+    geometric cases again with remat on, the recompute inside the
+    captured backward pass), with equal launch counts, and what the
+    captures leave in the graphs' shared pool traced to the cuBLAS
+    workspaces;
 20. ``--scan-chunk 4`` at full width, 8 supersteps: the blocking q8
     command (its supersteps 0-3 bitwise `main_path`'s records of the same
     call, beside that run's per-step median) and the overlapped geometric
@@ -246,7 +253,13 @@ Phases, each printed on its own line:
     and run nothing: a declared precondition (NCCL refuses two ranks on
     one GPU). The parent builds the kernels before it spawns the ranks,
     which load them. A clean gather q8 run of 2 supersteps on every rank
-    is held to the dry run of ``--nodes <ranks>`` (as in 30);
+    is held to the dry run of ``--nodes <ranks>`` (as in 30). Then
+    ``multi_shard_train_4k``: an olmo-1b ``train_4k`` node a GPU at full
+    width and depth (the reference's `single` node batch, 8 x 4096 tokens
+    a local step, H 2, blocking gather q8, remat on; only the node count
+    is cut, 16 to the ranks), 2 supersteps: finite losses equal on every
+    rank, launches 4 / 2 / 2 a rank, each rank's peak above its start
+    within DRYRUN_BOUND of ``dryrun --nodes <ranks> --batch 8``;
 30. the dry run (``dryrun``, after phase 22; alone with ``--only
     dryrun``): ``repro_torch.launch.dryrun`` traces `main_path`'s
     command, `scan_full_width`'s overlapped geometric one and phase 22's
@@ -749,6 +762,10 @@ def _read_wraps() -> dict:
     return {k: int(v) for k, v in B.WRAPS.items()}
 
 
+MAIN_PATH_ARGV = ["--arch", "transformer-wmt", "--nodes", "8", "--H", "2",
+                  "--quantize"]
+
+
 def phase_main_path():
     """The blocking main path (see the module docstring), with the q8
     wrap counter on (it adds a check of every matched row to each
@@ -765,10 +782,9 @@ def phase_main_path():
     reset_launch_counts()
     B.WRAPS = {}
     try:
-        hist = train.main(["--arch", "transformer-wmt", "--nodes", "8",
-                           "--H", "2", "--steps", "4", "--quantize",
-                           "--log-every", "1", "--out",
-                           os.path.join(OUT_DIR, "chip_smoke_train_q8.json")])
+        hist = train.main(MAIN_PATH_ARGV + [
+            "--steps", "4", "--log-every", "1", "--out",
+            os.path.join(OUT_DIR, "chip_smoke_train_q8.json")])
         wraps = _read_wraps()
     finally:
         B.WRAPS = None
@@ -790,6 +806,105 @@ def phase_main_path():
         q8_wraps=wraps)
     MEASURED_PEAKS["main_path"] = peak - start
     return counts, hist
+
+
+def _remat_runs(steps: int, snapshot: bool, order=(True, False)) -> list:
+    """`main_path`'s command for `steps` supersteps through
+    ``train.build``, one run for each ``remat`` of `order` (the
+    reference's per-block recompute in the backward pass, on by default
+    at full size); -> [(remat, {its losses, superstep seconds, peak
+    allocated above its start, launches and, with `snapshot`, the
+    parameters after its first superstep})]."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    args = train.build_parser().parse_args(
+        MAIN_PATH_ARGV + ["--steps", str(steps)])
+    out = []
+    for remat in order:
+        cfg = dataclasses.replace(get_config("transformer-wmt"), remat=remat)
+        _fresh_memory()
+        start = torch.cuda.memory_allocated()
+        tr = train.build(args, cfg)
+        reset_launch_counts()
+        losses, secs, params = [], [], None
+        for t in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(tr.superstep(t)["loss"]))
+            secs.append(time.perf_counter() - t0)
+            if snapshot and t == 0:
+                params = [x.clone() for x in tree_leaves(tr.state.params)]
+        torch.cuda.synchronize()
+        out.append((remat, dict(
+            losses=losses, superstep_s=secs, launches=dict(LAUNCHES),
+            peak_above_start_bytes=torch.cuda.max_memory_allocated() -
+            start, params=params)))
+        del tr
+    _fresh_memory()
+    return out
+
+
+def phase_remat():
+    """``cfg.remat`` on against off on `main_path`'s command at full width
+    and depth (8 nodes of transformer-wmt, bf16, blocking q8): with remat
+    the backward pass recomputes each of the 12 blocks from its input.
+    Under PyTorch's deterministic algorithms (the cuBLAS workspace pinned
+    in `main`) the losses and parameters after one superstep must be
+    bitwise equal, and so must the losses of the next two. Then 4
+    supersteps a run in the default algorithms, as `main_path` runs, in
+    turns (on, off, off, on): the superstep times (steady: supersteps 1-3
+    of both runs) and the peaks allocated above the start, every run with
+    launches 8 / 4 / 4. -> {path: launches}."""
+    import warnings
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            det = dict(_remat_runs(3, snapshot=True))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    on, off = det[True], det[False]
+    pairs = list(zip(on.pop("params"), off.pop("params")))
+    params_equal = all(same_bits(a, b) for a, b in pairs)
+    max_abs = max(float((a.float() - b.float()).abs().max())
+                  for a, b in pairs)
+    del pairs, det
+    timed = _remat_runs(4, snapshot=False, order=(True, False, False, True))
+    rec = {}
+    for key, remat in (("on", True), ("off", False)):
+        runs = [r for m, r in timed if m == remat]
+        for r in runs:
+            del r["params"]
+        rec[key] = {"runs": runs, "superstep_median_s": statistics.median(
+            x for r in runs for x in r["superstep_s"][1:]),
+            "peak_above_start_bytes": max(r["peak_above_start_bytes"]
+                                          for r in runs)}
+    log("remat", deterministic={"on": on, "off": off,
+                                "params_bitwise": params_equal,
+                                "max_abs_diff": max_abs,
+                                "losses_bitwise": on["losses"] ==
+                                off["losses"]},
+        **rec, median_on_over_off=rec["on"]["superstep_median_s"] /
+        rec["off"]["superstep_median_s"],
+        peak_on_over_off=rec["on"]["peak_above_start_bytes"] /
+        rec["off"]["peak_above_start_bytes"])
+    check(params_equal and on["losses"] == off["losses"],
+          f"remat on != off on the card: params bitwise {params_equal}, "
+          f"losses {on['losses']} vs {off['losses']}")
+    want = {"sgd_update": 8, "quantize_mod": 4, "decode_avg": 4}
+    for key, r in rec.items():
+        for run in r["runs"]:
+            check(all(math.isfinite(x) for x in run["losses"]),
+                  f"remat {key}: non-finite losses {run['losses']}")
+            check(run["launches"] == want,
+                  f"remat {key}: launches {run['launches']} != {want}")
+    return {f"remat_{key}": r["runs"][0]["launches"]
+            for key, r in rec.items()}
 
 
 def phase_exact():
@@ -2401,6 +2516,11 @@ SCAN_CASES = (
 )
 
 
+# the cases run again with ``remat`` on (each block recomputed in the
+# captured superstep's backward pass), as `<name>_remat`
+SCAN_REMAT_CASES = ("blocking_q8", "geometric_overlap_q8")
+
+
 def _in_capture_order(keys) -> bool:
     """Whether a run's graph keys repeat the order of their first
     appearance (the order a shared pool is documented as safe for)."""
@@ -2508,24 +2628,30 @@ def phase_scan_bitwise():
     captures leave in the graphs' shared pool is traced to its allocation
     site: only the cuBLAS workspaces `core/scan.py` allows (none once an
     earlier driver of the process made them on the shared capture
-    stream)."""
+    stream). The cases run with ``remat`` off, and those of
+    SCAN_REMAT_CASES again with it on."""
     import dataclasses
     import warnings
     import torch
     from repro_torch.configs import get_config
     base = ["--arch", "transformer-wmt", "--nodes", "8", "--steps", "6",
             "--batch", "2", "--seq", "64", "--h-max", "4"]
-    cfg = dataclasses.replace(get_config("transformer-wmt"), n_layers=2)
+    cfg = dataclasses.replace(get_config("transformer-wmt"), n_layers=2,
+                              remat=False)
     out = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "dtype": cfg.dtype}
+    cases = [(name, flags, cfg) for name, flags in SCAN_CASES] + \
+        [(f"{name}_remat", flags, dataclasses.replace(cfg, remat=True))
+         for name, flags in SCAN_CASES if name in SCAN_REMAT_CASES]
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            for name, flags in SCAN_CASES:
+            for name, flags, c in cases:
                 out[name] = _replay_vs_eager(
-                    name, base + flags, cfg,
+                    name, base + flags, c,
                     traced=name == "geometric_overlap_q8")
+                out[name]["remat"] = c.remat
     finally:
         torch.use_deterministic_algorithms(False)
     _fresh_memory()
@@ -2660,20 +2786,29 @@ def _fake_touch_ok(rec) -> bool:
         rec["device_allocated_bytes"] <= DRYRUN_TOUCH_BYTES
 
 
-def _dryrun_jobs(commands: dict, devices) -> dict:
-    """Run ``repro_torch.launch.dryrun`` for every (command, device), all
-    at once, one process each; -> {(name, device): record}."""
+def _dryrun_start(commands: dict, devices,
+                  arch: str = "transformer-wmt") -> dict:
+    """Start ``repro_torch.launch.dryrun`` of `arch` for every (command,
+    device), all at once, one process each; -> the processes."""
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     out = os.path.join(OUT_DIR, "dryrun")
     procs = {}
     for name, flags in commands.items():
         for dev in devices:
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", "transformer-wmt", "--device", dev, "--out",
-                   out, "--tag", dev] + flags
+                   "--arch", arch, "--device", dev, "--out", out, "--tag",
+                   dev] + flags
             procs[name, dev] = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True, env=env)
+    return procs
+
+
+def _dryrun_jobs(commands: dict, devices, procs=None) -> dict:
+    """Run ``repro_torch.launch.dryrun`` for every (command, device), all
+    at once, one process each (or wait for `procs`, which
+    `_dryrun_start` started); -> {(name, device): record}."""
+    procs = procs or _dryrun_start(commands, devices)
     records = {}
     for key, p in procs.items():
         stdout, stderr = p.communicate(timeout=900)
@@ -3444,14 +3579,14 @@ def _route_choices(cfg, params, tokens):
     return seen
 
 
-def _loss_without_aux(cfg, params, batch):
-    """The planted fault of zoo_reference: the router's aux loss dropped."""
-    from repro_torch.models import forward
+def _loss_without_aux(cfg, params, hidden, aux, targets):
+    """The planted fault of zoo_reference: the router's aux loss dropped
+    (in place of ``models/transformer.py`` ``train_loss``, which every
+    training loss ends in)."""
     from repro_torch.models.layers import chunked_softmax_xent
-    hidden, _, _ = forward(cfg, params, batch["tokens"])
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return chunked_softmax_xent(hidden, table, batch["targets"],
-                                softcap=cfg.logit_softcap)
+    return chunked_softmax_xent(hidden[:, -targets.shape[1]:], table,
+                                targets, softcap=cfg.logit_softcap)
 
 
 def phase_zoo_reference():
@@ -3512,7 +3647,7 @@ def phase_zoo_reference():
             if fault is None:
                 got, m = run(state, 0, inputs)
             else:
-                with _planted((tf, "loss_fn", fault)):
+                with _planted((tf, "train_loss", fault)):
                     got, m = run(state, 0, inputs)
             r = _readings(got.params, want.params, codec.scales[-1], perm)
             r["loss_card"], r["loss_cpu"] = float(m["loss"]), \
@@ -5761,6 +5896,133 @@ def _ms_dryrun(world: int, measured: list) -> dict:
             "t_trace_s": cuda["t_trace_s"]}
 
 
+# a train_4k node on a node mesh of the ranks, one node a GPU: the
+# reference's `single` node batch, b_local = 256 // (16 nodes x H 2) = 8
+# sequences of 4096 a local step, blocking gather q8, with the arch's
+# remat (on); only the node count is cut, from 16 to the ranks. olmo-1b:
+# its `single` dry run with remat fits one H100 (PERF.md §6)
+MS_TRAIN_4K_ARCH = "olmo-1b"
+MS_TRAIN_4K_STEPS = 2
+
+
+def _ms_train_4k_cfg(cfg_name):
+    """(config, batch, seq) of `multi_shard_train_4k` (`cfg_name`
+    "reduced": a small stand-in with remat on, for a CPU rehearsal)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(MS_TRAIN_4K_ARCH)
+    if cfg_name is None:
+        return cfg, 8, 4096
+    return dataclasses.replace(reduced(cfg, n_layers=2, d_model=64),
+                               remat=True), 2, 32
+
+
+def _ms_train_4k_rank(rank, world, port, cfg_name, out_dir, device):
+    """A rank of `multi_shard_train_4k`: its node's MS_TRAIN_4K_STEPS
+    supersteps of blocking gather q8 with no check hooked in; writes its
+    losses, superstep times, launches and peak allocated above what was
+    live before the run was built."""
+    import gc
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    mesh = _ms_mesh(rank, world, port, device)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    cfg, batch, seq = _ms_train_4k_cfg(cfg_name)
+    _ms_progress(mesh, "train_4k build")
+    gc.collect()
+    _sync(dev)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev) if cuda else 0
+    reset_launch_counts()
+    run = _MsRun(cfg, mesh, "swarm", "gather", "q8", "blocking",
+                 steps=MS_TRAIN_4K_STEPS, batch=batch, seq=seq)
+    ms, secs = run.per_step(0, MS_TRAIN_4K_STEPS)
+    _sync(dev)
+    rec = {"losses": [m["loss"] for m in ms], "superstep_s": secs,
+           "launches": dict(LAUNCHES), "start_bytes": start,
+           "peak_above_start_bytes": torch.cuda.max_memory_allocated(dev)
+           - start if cuda else None, "remat": cfg.remat,
+           "params_per_node": cfg.n_params()}
+    del run
+    mesh.close()
+    with open(os.path.join(out_dir, f"train_4k_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_multi_shard_train_4k(world: int, device: str = "cuda",
+                               cfg_name=None) -> dict:
+    """`multi_shard_train_4k`: a train_4k node of MS_TRAIN_4K_ARCH at full
+    width and depth on each of `world` ranks (one node a GPU, the
+    reference's `single` node batch of 8 x 4096 tokens a local step, H 2,
+    blocking gather q8, remat on), MS_TRAIN_4K_STEPS supersteps: finite
+    losses, the same on every rank, launches 2 / 1 / 1 a superstep on
+    every rank, and each rank's peak allocated above its start within
+    DRYRUN_BOUND of ``repro_torch.launch.dryrun --nodes <world> --batch 8``
+    (traced on fake CUDA and CPU tensors while the ranks run: the counted
+    fields equal). -> {path: rank 0's launches}."""
+    cfg, batch, seq = _ms_train_4k_cfg(cfg_name)
+    cuda = device == "cuda" and cfg_name is None
+    flags = ["--shape", "train_4k", "--nodes", str(world), "--batch",
+             str(batch), "--seq", str(seq), "--quantize"]
+    procs = _dryrun_start({"multi_shard_train_4k": flags}, ("cuda", "cpu"),
+                          arch=MS_TRAIN_4K_ARCH) if cuda else None
+    os.makedirs(MS_DIR, exist_ok=True)
+    t0 = time.time()
+    _ms_spawn(_ms_train_4k_rank, world, cfg_name, MS_DIR, device)
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(MS_DIR, f"train_4k_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    seconds = time.time() - t0
+    losses = [p["losses"] for p in ranks]
+    check(all(math.isfinite(x) for x in losses[0]) and
+          all(x == losses[0] for x in losses),
+          f"train_4k: losses not finite or not the same on every rank "
+          f"{losses}")
+    want = {"sgd_update": 2 * MS_TRAIN_4K_STEPS,
+            "quantize_mod": MS_TRAIN_4K_STEPS,
+            "decode_avg": MS_TRAIN_4K_STEPS}
+    if device == "cuda":
+        for r, p in enumerate(ranks):
+            check(p["launches"] == want, f"train_4k: rank {r} launches "
+                  f"{p['launches']} != {want}")
+    out = {"arch": cfg.name, "batch_per_node": batch, "seq": seq,
+           "H": 2, "remat": cfg.remat, "nodes": world,
+           "params_per_node": ranks[0]["params_per_node"],
+           "losses": losses[0], "seconds": seconds,
+           **{k: [p[k] for p in ranks] for k in (
+               "superstep_s", "peak_above_start_bytes", "start_bytes",
+               "launches")}}
+    if cuda:
+        recs = _dryrun_jobs(None, None, procs)
+        rc, rp = (recs["multi_shard_train_4k", d] for d in ("cuda", "cpu"))
+        differ = [k for k in DRYRUN_COUNTED if rc.get(k) != rp.get(k)]
+        check(not differ, f"train_4k dry run: cuda and cpu records differ "
+              f"in {differ}")
+        check(_fake_touch_ok(rc), f"train_4k dry run allocated "
+              f"{rc['device_allocated_bytes']} B at its peak, "
+              f"{rc['device_allocated_after_bytes']} B at its end")
+        ratios = [p["peak_above_start_bytes"] / rc["peak_bytes"]
+                  for p in ranks]
+        out["dryrun"] = {
+            "predicted_bytes": rc["peak_bytes"],
+            "measured_over_predicted_by_rank": ratios,
+            **{k: rc[k] for k in ("remat", "argument_bytes", "temp_bytes",
+                                  "fits", "flops_per_dev",
+                                  "flops_analytic_per_dev", "compute_s",
+                                  "memory_s", "bottleneck", "t_trace_s")}}
+    log("multi_shard_train_4k", **out)
+    if cuda:
+        lo, hi = DRYRUN_BOUND
+        check(all(lo <= r <= hi for r in ratios),
+              f"train_4k: measured over predicted {ratios} outside "
+              f"{DRYRUN_BOUND}")
+    return {"multi_shard_train_4k": ranks[0]["launches"]}
+
+
 def _ms_scan_checks(name, per, device) -> dict:
     """A chunked command's records (`per`, a rank each): replay == eager
     bitwise (state and every superstep's metrics) and the launches
@@ -5822,7 +6084,9 @@ def phase_multi_shard() -> dict:
     # rank 0 shares GPU 0 with this process: hand back its cached blocks
     _fresh_memory()
     phase_multi_shard_reference(world)
-    return phase_multi_shard_full_width(world)
+    by_path = phase_multi_shard_full_width(world)
+    by_path.update(phase_multi_shard_train_4k(world))
+    return by_path
 
 
 def main(argv=None) -> int:
@@ -5884,6 +6148,7 @@ def main(argv=None) -> int:
     records = phase_kernels()
     phase_reference()
     blocking, main_records = phase_main_path()
+    remat = phase_remat()
     phase_exact()
     phase_overlap_exact()
     counts = phase_full_width()
@@ -5914,6 +6179,8 @@ def main(argv=None) -> int:
                 "replaces": TPU_KERNELS[n], "launches": counts[n],
                 "launches_by_path": {"overlap_q8_geometric": counts[n],
                                      "blocking_q8": blocking[n],
+                                     **{p: c[n] for p, c in
+                                        remat.items()},
                                      **{p: c[n] for p, c in
                                         baselines.items()},
                                      **{p: c[n] for p, c in

@@ -82,7 +82,7 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     frontend: Optional[FrontendConfig] = None
     dtype: str = "bfloat16"
-    remat: bool = True              # no effect in the port (eager autograd)
+    remat: bool = True              # recompute each full block in backward
     subquadratic: bool = False
     big_model: bool = False
     opt_state_dtype: str = "float32"

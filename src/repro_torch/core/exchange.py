@@ -185,10 +185,20 @@ class EngineStep:
         return self.run(state, batch, inp, rng, **kw)
 
 
+def node_losses_of(loss_fn):
+    """The node-stacked form of a per-node loss: the model's own when
+    `loss_fn` is a model's ``functional_loss`` (``TransformerLM.
+    functional_node_losses``, which recomputes each block in the backward
+    pass under ``cfg.remat``), else ``torch.func.vmap(loss_fn)``."""
+    own = getattr(getattr(loss_fn, "__self__", None),
+                  "functional_node_losses", None)
+    return own if own is not None else torch.func.vmap(loss_fn)
+
+
 def node_grads_fn(loss_fn):
     """(params, batch) -> (grads, losses) for node-stacked params and
-    batches: every node's loss in one ``torch.func.vmap`` over the node
-    axis (the reference vmaps the same way), then ONE reverse pass for
+    batches: every node's loss at once over the node axis
+    (:func:`node_losses_of`; the reference vmaps), then ONE reverse pass for
     the gradient of the losses' sum — each node's parameters reach only
     its own loss, so a node's gradient is its loss's. The pass runs with
     create_graph off and frees each saved activation as it goes. (Inside
@@ -197,7 +207,7 @@ def node_grads_fn(loss_fn):
     lives as long as the gradients' wrappers, which the autograd engine's
     device thread lets go of when it next runs — on the card the next
     allocations sometimes found those ~7 GB still held.)"""
-    node_losses = torch.func.vmap(loss_fn)
+    node_losses = node_losses_of(loss_fn)
 
     def grads_and_losses(params, batch):
         leaves, treedef = tree_flatten(params)

@@ -187,6 +187,16 @@ def train_argv(arch: str, n_nodes: int, H: int, batch: int, seq: int,
                                    ("--overlap", overlap)) if on]
 
 
+def lone_node_graph():
+    """The interaction graph of one node, which every graph builder
+    refuses (an isolated node): no edge, so its matching is the identity
+    and the node exchanges with itself, as the reference's dry run builds
+    a one-node step (``static_pairs = [(0, 0)]``)."""
+    import numpy as np
+    from repro_torch.core.graph import Graph
+    return Graph("lone", 1, np.zeros((0, 2), np.int32), 0, 0.0)
+
+
 def trace_train(cfg, argv: list, mesh=None) -> dict:
     """One superstep of ``launch/train.py`` ``build`` (on `mesh` when
     given) under the fake mode; -> the counts."""
@@ -195,11 +205,12 @@ def trace_train(cfg, argv: list, mesh=None) -> dict:
     from repro_torch.core.scan import _state_leaves
     from repro_torch.launch import train
     args = train.build_parser().parse_args(argv)
+    graph = lone_node_graph() if args.nodes == 1 else None
     counter = TraceCounter()
     constants = dict(B._CONSTANTS)
     try:
         with fake_mode():
-            tr = train.build(args, cfg, mesh=mesh)
+            tr = train.build(args, cfg, mesh=mesh, graph=graph)
             state = _state_leaves(tr.state)
             arg_bytes = counter.hold(state)
             # one node's gossip send: the codec's declared layout
@@ -295,11 +306,11 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
         with world as mesh:
             counts = trace_train(cfg, argv, mesh)
         g_shape = InputShape(shape.name, seq, b * n_nodes * H, "train")
-        an_flops = A.train_flops(cfg, g_shape, H=H, remat=False) / n_dev
+        an_flops = A.train_flops(cfg, g_shape, H=H, remat=cfg.remat) / n_dev
         an_bytes = A.train_bytes_full(cfg, g_shape, n_nodes, H=H,
-                                      remat=False) / n_dev
+                                      remat=cfg.remat) / n_dev
         mf = model_flops(cfg, g_shape, "train") / n_dev
-        rec.update(gossip=gossip_impl, quantize=quantize,
+        rec.update(remat=cfg.remat, gossip=gossip_impl, quantize=quantize,
                    nonblocking=nonblocking or overlap, overlap=overlap, H=H,
                    h_mode=h_mode, h_traced=counts["h"],
                    batch_per_node=b)

@@ -560,9 +560,10 @@ class Trainer:
             save_checkpoint(path, ck_state.params, meta, mesh=self.mesh)
 
 
-def build(args, cfg=None, mesh=None) -> Trainer:
+def build(args, cfg=None, mesh=None, graph=None) -> Trainer:
     """The trainer the flags describe; `cfg`, when given, is the model
-    config in place of the one --arch / --reduced name. One construction
+    config in place of the one --arch / --reduced name, and `graph` the
+    interaction graph in place of --graph's. One construction
     path for every algorithm: the capability matrix validates the flags,
     one transport is built, and the step comes from `make_algorithm`.
     Under --rate-profile the run's (perm, h, mask) rows are the binned
@@ -589,7 +590,7 @@ def build(args, cfg=None, mesh=None) -> Trainer:
                                        seq_len=args.seq, seed=args.seed,
                                        non_iid_alpha=args.non_iid),
                             n_nodes=args.nodes)
-    graph = make_graph(args.graph, args.nodes)
+    graph = graph or make_graph(args.graph, args.nodes)
     opt = make_optimizer("sgd", lr=args.lr, momentum=0.9,
                          state_dtype=cfg.opt_state_dtype)
     sched_on = args.rate_profile != "none"

@@ -15,6 +15,7 @@ Entry points:
   param_template(cfg) / init_params(gen, cfg, device)
   forward(cfg, params, tokens, mode=...)     train / prefill / decode / chunk
   loss_fn(cfg, params, batch)                chunked CE + router aux loss
+  node_losses(cfg, params, batch)            every node's loss_fn (remat)
   init_cache(cfg, batch, cache_size, device=...)   KV / ring / SSM cache tree
   logits_head(cfg, params, hidden)           fp32 logits
 
@@ -32,6 +33,7 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -340,6 +342,19 @@ def _unbind_blocks(tree):
 # ---------------------------------------------------------------------------
 
 
+def _embed(cfg, params, tokens, prefix_embeds=None):
+    """Scaled token embeddings [B,S,D], after the projected prefix when
+    `prefix_embeds` is given."""
+    dtype = getattr(torch, cfg.dtype)
+    x = params["embed"][tokens.to(torch.int64)].to(dtype)
+    # a device fill, not a host copy: a CUDA graph capture runs this
+    x = x * torch.full((), cfg.d_model ** 0.5, dtype=dtype, device=x.device)
+    if prefix_embeds is not None:
+        pref = mm_lib.project_prefix(params["frontend"], prefix_embeds, dtype)
+        x = torch.cat([pref, x], dim=1)
+    return x
+
+
 def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
             n_valid=None, pools=None, prefix_embeds=None,
             moe_per_lane: bool = False):
@@ -368,13 +383,8 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
     tokens on its own, with the capacity of its S tokens (the serving
     engine's steps, as the reference's engine vmaps a batch-1 forward
     over its slots); otherwise the call's B*S tokens share the capacity."""
-    dtype = getattr(torch, cfg.dtype)
-    x = params["embed"][tokens.to(torch.int64)].to(dtype)
-    # a device fill, not a host copy: a CUDA graph capture runs this
-    x = x * torch.full((), cfg.d_model ** 0.5, dtype=dtype, device=x.device)
-    if prefix_embeds is not None and mode in ("train", "prefill"):
-        pref = mm_lib.project_prefix(params["frontend"], prefix_embeds, dtype)
-        x = torch.cat([pref, x], dim=1)
+    x = _embed(cfg, params, tokens, prefix_embeds
+               if mode in ("train", "prefill") else None)
     B, S = x.shape[0], x.shape[1]
     clen = pages = None
     if mode in ("decode", "chunk"):
@@ -433,19 +443,79 @@ def logits_head(cfg, params, hidden):
     return logits
 
 
+def train_loss(cfg, params, hidden, aux, targets):
+    """hidden [B,S',D] after the final norm, the router's aux loss and
+    targets [B,S] -> mean chunked CE over the text positions +
+    router_aux_coef * aux."""
+    S = targets.shape[1]
+    hidden = hidden[:, -S:]   # drop the frontend prefix positions
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    ce = chunked_softmax_xent(hidden, table, targets,
+                              softcap=cfg.logit_softcap)
+    if cfg.moe is None:
+        return ce
+    return ce + cfg.moe.router_aux_coef * aux
+
+
 def loss_fn(cfg, params, batch):
     """batch: tokens [B,S], targets [B,S], optional prefix_embeds -> mean
     chunked CE over the text positions + router_aux_coef * aux."""
     hidden, _, aux = forward(cfg, params, batch["tokens"],
                              prefix_embeds=batch.get("prefix_embeds"))
-    S = batch["targets"].shape[1]
-    hidden = hidden[:, -S:]   # drop the frontend prefix positions
-    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    ce = chunked_softmax_xent(hidden, table, batch["targets"],
-                              softcap=cfg.logit_softcap)
-    if cfg.moe is None:
-        return ce
-    return ce + cfg.moe.router_aux_coef * aux
+    return train_loss(cfg, params, hidden, aux, batch["targets"])
+
+
+def node_losses(cfg, params, batch):
+    """Every node's :func:`loss_fn` for node-stacked `params` and `batch`
+    (leaves [n_nodes, ...]) -> [n_nodes], as ``vmap(loss_fn)`` gives it,
+    with the scanned blocks taken out of the node vmap: the embedding,
+    then each block vmapped across the nodes, then the tail, final norm
+    and CE vmapped per node. Every operation sees the operands it sees
+    under ``vmap(loss_fn)``, so with ``cfg.remat`` off the losses and
+    their gradients are bitwise ``vmap(loss_fn)``'s.
+
+    With ``cfg.remat`` on (the reference's ``jax.checkpoint(scan_body)``
+    in training), each block runs under a non-reentrant
+    ``torch.utils.checkpoint``: the backward pass recomputes it from its
+    input, and its internals are not kept. The embedding, tail and CE
+    are not recomputed, as in the reference. The checkpoint wraps the
+    vmapped block: one inside the vmap is refused (a tensor escapes the
+    transform). The model draws no random numbers in training, so no RNG
+    state is saved (``get_rng_state`` cannot run under a CUDA-graph
+    capture); the recompute is the same operations on the same inputs,
+    so remat on is bitwise remat off."""
+    vmap = torch.func.vmap
+    x = vmap(lambda p, b: _embed(cfg, p, b["tokens"],
+                                 b.get("prefix_embeds")))(params, batch)
+    B, S = x.shape[1], x.shape[2]
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.n_full_blocks:
+        def block(bp, xb):
+            xb, _, a = _apply_block(cfg, cfg.pattern, bp, xb, positions)
+            return (xb,) if a is None else (xb, a)
+        run = vmap(block)
+        # one unbind per stacked leaf, as `_unbind_blocks` under the vmap
+        parts = tree_map(lambda a: a.unbind(1), params["blocks"])
+        for b in range(cfg.n_full_blocks):
+            bp = tree_map(lambda t: t[b], parts)
+            out = checkpoint(run, bp, x, use_reentrant=False,
+                             preserve_rng_state=False) if cfg.remat \
+                else run(bp, x)
+            x = out[0]
+            if len(out) > 1:
+                aux = aux + out[1]
+
+    def head(p, xh, a, b):
+        if cfg.tail_pattern:
+            xh, _, at = _apply_block(cfg, cfg.tail_pattern, p["tail"], xh,
+                                     positions)
+            if at is not None:
+                a = a + at
+        xh = apply_norm(cfg, p["final_norm"], xh)
+        return train_loss(cfg, p, xh, a, b["targets"])
+    return vmap(head, in_dims=(0, 0, 0 if aux.dim() else None, 0))(
+        params, x, aux, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -493,4 +563,13 @@ class TransformerLM(nn.Module):
         flat = dict(zip(tree_paths(params), tree_leaves(params)))
         return torch.func.functional_call(
             self, flat, (batch["tokens"], batch["targets"]))
+
+    def functional_node_losses(self, params, batch):
+        """Every node's :meth:`functional_loss` for node-stacked `params`
+        and `batch` -> [n_nodes] (:func:`node_losses`: each block
+        recomputed in the backward pass under ``cfg.remat``). The
+        training paths take their gradients through it
+        (``core/exchange.py`` ``node_grads_fn``)."""
+        return node_losses(self.cfg, params, {"tokens": batch["tokens"],
+                                              "targets": batch["targets"]})
 
