@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # one H100; exits non-zero on any failure
     python3 chip_smoke.py --only multi_shard   # the node mesh's phases
-                                               # alone (2 or more GPUs)
+                                               # alone (2 or more GPUs;
+                                               # the model axis on 4)
     python3 chip_smoke.py --only dryrun        # the dry run against the
                                                # peaks it predicts
 
@@ -259,7 +260,28 @@ Phases, each printed on its own line:
     a local step, H 2, blocking gather q8, remat on; only the node count
     is cut, 16 to the ranks), 2 supersteps: finite losses equal on every
     rank, launches 4 / 2 / 2 a rank, each rank's peak above its start
-    within DRYRUN_BOUND of ``dryrun --nodes <ranks> --batch 8``;
+    within DRYRUN_BOUND of ``dryrun --nodes <ranks> --batch 8``. Then, on
+    4 or more GPUs, ``tensor_parallel``: the model axis, 2 nodes x 2 GPUs
+    (``init_node_mesh(..., model_parallel=2)``; with fewer GPUs the
+    declared ``{"phase": "tensor_parallel", "ran": false, ...}`` line).
+    First a reduced card-vs-CPU check: gemma3-4b and paligemma-3b's loss
+    and gradients on each GPU's slices within 1e-5 of the CPU's one-GPU
+    port, a whole leaf's gradient bitwise equal on a node's GPUs, with the
+    MLP's row-parallel all-reduce dropped and a whole kv weight's gradient
+    sum dropped planted to fail; 2 supersteps of gather exact (within
+    2e-5 of the CPU's one-GPU 2-node run), gather q8 and ppermute q8 on
+    the 2 x 2 mesh, whole leaves bitwise equal and every q8 encode bitwise
+    the plain encode of the rank's own buffer. Then gemma3-4b ``train_4k``
+    at full width and depth as 2 nodes x 2 GPUs (only the node count is
+    cut, 16 to 2; the reference's `single` node batch, 8 x 4096 tokens a
+    local step, where ``dryrun --nodes 2 --model-parallel 2 --batch 8``
+    predicts it fits, else `multi`'s 4), H 2, blocking gather q8, remat
+    on, 2 supersteps: finite losses the same on every rank, launches
+    4 / 2 / 2 a rank, the model group's all-reduces (count, bytes, time),
+    each rank's peak above its start within DRYRUN_BOUND of the
+    prediction, whole leaves bitwise equal on each node's GPUs. With
+    ``--only multi_shard`` phase 3 runs first and the kernels' line
+    follows, its launches the ``tensor_parallel`` run's;
 30. the dry run (``dryrun``, after phase 22; alone with ``--only
     dryrun``): ``repro_torch.launch.dryrun`` traces `main_path`'s
     command, `scan_full_width`'s overlapped geometric one and phase 22's
@@ -3579,7 +3601,7 @@ def _route_choices(cfg, params, tokens):
     return seen
 
 
-def _loss_without_aux(cfg, params, hidden, aux, targets):
+def _loss_without_aux(cfg, params, hidden, aux, targets, tp=None):
     """The planted fault of zoo_reference: the router's aux loss dropped
     (in place of ``models/transformer.py`` ``train_loss``, which every
     training loss ends in)."""
@@ -4022,11 +4044,12 @@ def _ms_spawn(fn, world: int, *args) -> None:
              join=True)
 
 
-def _ms_mesh(rank: int, world: int, port: int, device: str):
-    """A rank's setup: the mesh (NCCL on cuda), the card's fp32 matmuls
-    without TF32, as in `main`; NCCL's registration of captured buffers
-    off before the group starts, as the mesh's chunk driver asks
-    (``core/scan.py``)."""
+def _ms_mesh(rank: int, world: int, port: int, device: str,
+             model_parallel: int = 1):
+    """A rank's setup: the mesh (NCCL on cuda; `model_parallel` GPUs a
+    node), the card's fp32 matmuls without TF32, as in `main`; NCCL's
+    registration of captured buffers off before the group starts, as the
+    mesh's chunk driver asks (``core/scan.py``)."""
     import torch
     os.environ["NCCL_GRAPH_REGISTER"] = "0"
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -4034,7 +4057,8 @@ def _ms_mesh(rank: int, world: int, port: int, device: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return init_node_mesh(device, rank=rank, world_size=world,
-                          init_method=f"tcp://localhost:{port}")
+                          init_method=f"tcp://localhost:{port}",
+                          model_parallel=model_parallel)
 
 
 def _sync(dev) -> None:
@@ -4375,13 +4399,14 @@ def _ms_progress(mesh, what: str) -> None:
     stalled run shows where it stood) and exits, which fails the phase
     and stops the other ranks."""
     import faulthandler
-    with open(os.path.join(OUT_DIR, f"ms_progress_rank{mesh.rank}.txt"),
+    r = mesh.world_rank
+    with open(os.path.join(OUT_DIR, f"ms_progress_rank{r}.txt"),
               "a") as f:
         f.write(f"{time.time():.3f} {what}\n")
-    stacks = _MS_STACKS.get(mesh.rank)
+    stacks = _MS_STACKS.get(r)
     if stacks is None:
-        stacks = _MS_STACKS[mesh.rank] = open(os.path.join(
-            OUT_DIR, f"ms_stacks_rank{mesh.rank}.txt"), "w")
+        stacks = _MS_STACKS[r] = open(os.path.join(
+            OUT_DIR, f"ms_stacks_rank{r}.txt"), "w")
     faulthandler.dump_traceback_later(150, exit=True, file=stacks)
 
 
@@ -6072,6 +6097,441 @@ def _ms_scan_checks(name, per, device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The model axis: a node split over K GPUs (tensor_parallel)
+# ---------------------------------------------------------------------------
+
+# 2 nodes of TP_K GPUs each on 4 GPUs (launch/mesh.py model_parallel)
+TP_K = 2
+TP_NODES = 2
+TP_ARCH = "gemma3-4b"
+TP_STEPS = 2
+# a local step's batch: the reference's `multi` node batch (256 // (32
+# nodes x H 2) = 4 sequences of 4096). Its `single` batch of 8 does not
+# fit: the dry run at --model-parallel 2 --quantize predicts 87,940,234,303
+# B a GPU (q8's comm copy included) against the H100's 79.18 GiB
+TP_BATCH = 4
+# the reduced card-vs-CPU cases: gemma3-4b (sliding window, QK-norm, kv
+# heads split with the q heads) with the MLP's row-parallel all-reduce
+# dropped as its planted fault; paligemma-3b (one kv head: wk / wv whole
+# on both GPUs) with the kv weights' gradient sum dropped
+TP_REDUCED = {"gemma3-4b": "mlp_reduce_dropped",
+              "paligemma-3b": "kv_grad_sum_dropped"}
+TP_SWARM = {"gather_exact": ("gather", False), "gather_q8": ("gather", True),
+            "ppermute_q8": ("ppermute", True)}
+# card vs CPU at fp32, relative to a leaf's scale above 1 (the model
+# tests' bound); the exact supersteps the codecs' 2e-5
+TP_ATOL, TP_STEP_ATOL = 1e-5, 2e-5
+TP_DIR = os.path.join(ROOT, "build", "chip_smoke_tensor_parallel")
+
+
+def _tp_reduced(arch):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(reduced(get_config(arch), n_layers=2,
+                                       d_model=64), remat=True)
+
+
+def _tp_mlp_without_reduce(cfg, p, x, tp=None):
+    """Planted fault: the MLP's output left as each GPU's partial sum."""
+    import torch
+    from repro_torch.models import layers as L
+    x = L.copy_to_model(x, tp)
+    h = torch.matmul(x, p["w_up"])
+    h = L.activation(cfg, torch.matmul(x, p["w_gate"])) * h \
+        if cfg.gated_mlp else L.activation(cfg, h)
+    return torch.matmul(h, p["w_down"])
+
+
+def _tp_kv_without_sum(cfg, p, tp):
+    """Planted fault: a whole kv weight's columns taken without the sum of
+    its partial gradients over the node's GPUs."""
+    hd = cfg.resolved_head_dim
+    if tp is None or p["wk"].shape[-1] != cfg.n_kv_heads * hd:
+        return p["wk"], p["wv"]
+    nh = cfg.n_heads // tp.size
+    lo = (tp.index * nh) // (cfg.n_heads // cfg.n_kv_heads)
+    return tuple(p[k][..., lo * hd:(lo + 1) * hd] for k in ("wk", "wv"))
+
+
+class _TpPlant:
+    """A context planting `fault` in ``models/transformer.py`` (None:
+    nothing)."""
+
+    def __init__(self, fault):
+        from repro_torch.models import transformer as T
+        self.T, self.fault = T, fault
+        self.name, self.fn = {
+            "mlp_reduce_dropped": ("apply_mlp", _tp_mlp_without_reduce),
+            "kv_grad_sum_dropped": ("_local_kv", _tp_kv_without_sum),
+            None: (None, None)}[fault]
+
+    def __enter__(self):
+        if self.name:
+            self.saved = getattr(self.T, self.name)
+            setattr(self.T, self.name, self.fn)
+
+    def __exit__(self, *exc):
+        if self.name:
+            setattr(self.T, self.name, self.saved)
+
+
+def _tp_grads(cfg, params, batch, tp):
+    """(losses, gradient leaves) through the engine's ``node_grads_fn``."""
+    from repro_torch.core.exchange import node_grads_fn
+    from repro_torch.models import TransformerLM
+    from repro_torch.tree import tree_leaves
+    g, losses = node_grads_fn(TransformerLM(cfg, tp=tp).functional_loss)(
+        params, batch)
+    return losses, tree_leaves(g)
+
+
+def _tp_err(got, want) -> float:
+    """The largest |got - want| over the leaves, each over its leaf's
+    scale above 1 (on the CPU)."""
+    return max(float((g.detach().cpu().double() - w.double()).abs().max()) /
+               max(1.0, float(w.abs().max())) for g, w in zip(got, want))
+
+
+def _tp_whole_same(leaves, split, mesh) -> bool:
+    """Every whole leaf (split None) bitwise the same on the node's GPUs."""
+    from repro_torch.core import bucket as B
+    for x, d in zip(leaves, split):
+        if d is None:
+            every = B.all_gather_model(x.detach().unsqueeze(0), mesh, 0)
+            if not all(same_bits(every[0], y) for y in every[1:]):
+                return False
+    return True
+
+
+def _tp_argv(impl, q8, batch, seq, steps, device, arch=TP_ARCH):
+    argv = ["--arch", arch, "--nodes", str(TP_NODES), "--H", "2",
+            "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+            "--device", device, "--gossip-impl", impl, "--seed", "0"]
+    return argv + (["--quantize"] if q8 else [])
+
+
+def _tp_reference_rank(rank, world, port, out_dir, device):
+    """A rank of the reduced card-vs-CPU check: each TP_REDUCED model's
+    loss and gradients on the rank's GPU (its slices) against the CPU's
+    one-GPU port on the same weights, with and without the case's planted
+    fault; then 2 supersteps of each TP_SWARM command on the 2 x 2 mesh
+    against the CPU's one-GPU 2-node run of its flags (exact), and the q8
+    encodes the kernel ran bitwise its plain version."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref as R
+    from repro_torch.launch import train
+    from repro_torch.models import param_split
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import shard_params
+    from repro_torch.quant.codecs import LatticeCodec
+    from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                                  tree_unflatten)
+    mesh = _ms_mesh(rank, world, port, device, TP_K)
+    dev = mesh.device
+    rec = {"node": mesh.rank, "index": mesh.model_index}
+    for arch, fault in TP_REDUCED.items():
+        _ms_progress(mesh, f"tp reference {arch}")
+        cfg = _tp_reduced(arch)
+        split = tree_leaves(param_split(cfg, TP_K))
+        whole = tree_map(lambda x: x[None], init_params(
+            torch.Generator().manual_seed(0), cfg, "cpu"))
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, 4, 64)).astype(np.int32))
+            for k in ("tokens", "targets")}
+        l_cpu, g_cpu = _tp_grads(cfg, whole, batch, None)
+        want = tree_leaves(shard_params(
+            tree_unflatten(tree_flatten(whole)[1], g_cpu), cfg, TP_K,
+            mesh.model_index, stacked=True))
+        mine = tree_map(lambda x: x.to(dev), shard_params(
+            whole, cfg, TP_K, mesh.model_index, stacked=True))
+        bdev = {k: v.to(dev) for k, v in batch.items()}
+        for f in (None, fault):
+            with _TpPlant(f):
+                loss, g = _tp_grads(cfg, mine, bdev, mesh.model_shard)
+            rec[f"{arch}/{f or 'clean'}"] = {
+                "loss_err": abs(float(loss[0]) - float(l_cpu[0])) /
+                max(1.0, abs(float(l_cpu[0]))),
+                "grad_err": _tp_err(g, want),
+                "whole_same": _tp_whole_same(g, split, mesh)}
+            del g
+    cfg = _tp_reduced(TP_ARCH)
+    split = tree_leaves(param_split(cfg, TP_K))
+    enc = []
+    encode0 = LatticeCodec.encode
+
+    def encode(codec, buf, prev_buf, rng, **kw):
+        state = rng.get_state().clone()
+        wire = encode0(codec, buf, prev_buf, rng, **kw)
+        g = torch.Generator(device=buf.device)
+        g.set_state(state)
+        u = torch.rand(buf.shape, generator=g, dtype=torch.float32,
+                       device=buf.device)
+        qc = codec.quant
+        q, s = R.quantize_mod(buf.reshape(-1, qc.block),
+                              prev_buf.reshape(-1, qc.block),
+                              u.reshape(-1, qc.block), safety=qc.safety,
+                              min_scale=qc.min_scale, bits=qc.bits)
+        enc.append(same_bits(q.reshape(wire[0].shape), wire[0]) and
+                   same_bits(s.reshape(wire[1].shape), wire[1]))
+        return wire
+    for name, (impl, q8) in TP_SWARM.items():
+        _ms_progress(mesh, f"tp reference {name}")
+        argv = _tp_argv(impl, q8, 2, 64, 2, "cpu")
+        one = train.build(train.build_parser().parse_args(argv), cfg)
+        args = train.build_parser().parse_args(
+            _tp_argv(impl, q8, 2, 64, 2, device))
+        LatticeCodec.encode = encode
+        try:
+            tr = train.build(args, cfg, mesh=mesh)
+            # the card's generator draws other weights: start from the
+            # CPU's, this rank's slices of its node
+            tr.state = dataclasses.replace(tr.state, **{
+                k: tree_map(lambda x: x.to(dev), shard_params(
+                    tree_map(lambda x: x[mesh.rank:mesh.rank + 1], v), cfg,
+                    TP_K, mesh.model_index, stacked=True))
+                for k, v in (("params", one.state.params),
+                             ("prev", one.state.prev)) if v is not None})
+            errs, same, losses = [], [], []
+            for t in range(2):
+                m = tr.superstep(t)
+                one.superstep(t)
+                mine = tree_leaves(tr.state.params)
+                want = tree_leaves(shard_params(
+                    tree_map(lambda x: x[mesh.rank:mesh.rank + 1],
+                             one.state.params), cfg, TP_K, mesh.model_index,
+                    stacked=True))
+                errs.append(_tp_err(mine, want))
+                same.append(_tp_whole_same(mine, split, mesh))
+                losses.append(float(m["loss"]))
+        finally:
+            LatticeCodec.encode = encode0
+        rec[name] = {"errs": errs, "whole_same": same, "losses": losses,
+                     "encodes_bitwise": list(enc)}
+        enc.clear()
+        del tr, one
+    mesh.close()
+    with open(os.path.join(out_dir, f"tp_reference_rank{rank}.json"),
+              "w") as f:
+        json.dump(rec, f)
+
+
+def _tp_full_cfg(cfg_name):
+    """The full-width config (`cfg_name` "reduced": a small stand-in with
+    remat on, for a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+    if cfg_name is None:
+        return get_config(TP_ARCH)
+    return _tp_reduced(TP_ARCH)
+
+
+def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
+                  device):
+    """A rank of the full-width run: its slices of its node of TP_ARCH,
+    TP_STEPS supersteps of blocking gather q8 through ``launch/train.py``
+    ``build(args, cfg, mesh=)``; writes its losses, superstep times,
+    launches, peak allocated above what was live before the run was built,
+    the model group's all-reduces (count, bytes, time on the current
+    stream) and whether its whole leaves match the node's other GPU."""
+    import gc
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_leaves
+    mesh = _ms_mesh(rank, world, port, device, TP_K)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    cfg = _tp_full_cfg(cfg_name)
+    _ms_progress(mesh, "tp full width build")
+    gc.collect()
+    _sync(dev)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev) if cuda else 0
+    reset_launch_counts()
+    args = train.build_parser().parse_args(
+        _tp_argv("gather", True, batch, seq, TP_STEPS, device))
+    tr = train.build(args, cfg, mesh=mesh)
+    events = []
+    reduce0 = L._all_reduce
+
+    def timed(x, group, op=L.dist.ReduceOp.SUM):
+        if not cuda:
+            return reduce0(x, group, op)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        y = reduce0(x, group, op)
+        b.record()
+        events.append((a, b))
+        return y
+    L._all_reduce, L.COLLECTIVES = timed, {}
+    losses, secs, ar_ms = [], [], []
+    try:
+        for t in range(TP_STEPS):
+            _ms_progress(mesh, f"tp superstep {t}")
+            L.dist.barrier()
+            _sync(dev)
+            t0 = time.perf_counter()
+            m = tr.superstep(t)
+            losses.append(float(m["loss"]))
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+            ar_ms.append(sum(a.elapsed_time(b) for a, b in events))
+            events.clear()
+        coll = dict(L.COLLECTIVES)
+    finally:
+        L._all_reduce, L.COLLECTIVES = reduce0, None
+    peak = torch.cuda.max_memory_allocated(dev) - start if cuda else None
+    launches = dict(LAUNCHES)
+    from repro_torch.models import param_split
+    same = _tp_whole_same(tree_leaves(tr.state.params),
+                          tree_leaves(param_split(cfg, TP_K)), mesh)
+    rec = {"node": mesh.rank, "index": mesh.model_index, "losses": losses,
+           "superstep_s": secs, "allreduce_ms": ar_ms,
+           "allreduce_calls": coll.get("calls", 0) // TP_STEPS,
+           "allreduce_bytes": coll.get("bytes", 0) // TP_STEPS,
+           "launches": launches, "start_bytes": start,
+           "peak_above_start_bytes": peak, "whole_same": same,
+           "params_per_gpu": sum(x.numel() for x in
+                                 tree_leaves(tr.state.params))}
+    del tr
+    mesh.close()
+    with open(os.path.join(out_dir, f"tp_full_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _tp_read(prefix, world) -> list:
+    out = []
+    for r in range(world):
+        with open(os.path.join(TP_DIR, f"{prefix}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _tp_dryrun_flags(batch, seq):
+    return ["--shape", "train_4k", "--nodes", str(TP_NODES),
+            "--model-parallel", str(TP_K), "--batch", str(batch), "--seq",
+            str(seq), "--quantize"]
+
+
+def phase_tensor_parallel(world: int, device: str = "cuda",
+                          cfg_name=None) -> dict:
+    """`tensor_parallel` on 4 GPUs, 2 nodes x TP_K: the reduced card-vs-CPU
+    check (`_tp_reference_rank`: losses and gradients within TP_ATOL of the
+    CPU's one-GPU port, whole leaves' gradients bitwise equal on a node's
+    GPUs, each planted fault failing; the 2 x 2 exact supersteps within
+    TP_STEP_ATOL of the CPU's one-GPU run, q8 whole leaves equal and its
+    encodes bitwise the plain encode), then TP_ARCH `train_4k` at full
+    width and depth (`_tp_full_rank`) at TP_BATCH, traced by the dry run
+    at --model-parallel 2 on fake CUDA and CPU tensors (the counted fields
+    equal): finite losses, the same on every rank; launches 2 / 1 / 1 a
+    superstep on every rank; each rank's peak above its start within
+    DRYRUN_BOUND of the prediction; whole leaves bitwise equal on each
+    node's GPUs. -> {path: rank 0's launches}."""
+    os.makedirs(TP_DIR, exist_ok=True)
+    cuda = device == "cuda" and cfg_name is None
+    t0 = time.time()
+    seq = 4096 if cfg_name is None else 64
+    procs = _dryrun_start({"tp": _tp_dryrun_flags(TP_BATCH, seq)},
+                          ("cuda", "cpu"), arch=TP_ARCH) if cuda else None
+    _ms_spawn(_tp_reference_rank, world, TP_DIR, device)
+    ref = _tp_read("tp_reference", world)
+    placed = [(p["node"], p["index"]) for p in ref]
+    check(placed == [divmod(r, TP_K) for r in range(world)],
+          f"tensor_parallel: ranks placed {placed}")
+    for r, p in enumerate(ref):
+        for arch, fault in TP_REDUCED.items():
+            c, f = p[f"{arch}/clean"], p[f"{arch}/{fault}"]
+            check(c["loss_err"] <= TP_ATOL and c["grad_err"] <= TP_ATOL and
+                  c["whole_same"], f"tensor_parallel: rank {r} {arch} {c}")
+            check(not (f["loss_err"] <= TP_ATOL and f["grad_err"] <= TP_ATOL
+                       and f["whole_same"]),
+                  f"tensor_parallel: planted fault {fault} passed {f}")
+        for name, (impl, q8) in TP_SWARM.items():
+            c = p[name]
+            check(all(c["whole_same"]) and all(math.isfinite(x)
+                                               for x in c["losses"]),
+                  f"tensor_parallel: rank {r} {name} {c}")
+            if q8:
+                check(c["encodes_bitwise"] and all(c["encodes_bitwise"]),
+                      f"tensor_parallel: rank {r} {name} encodes "
+                      f"{c['encodes_bitwise']}")
+            else:
+                check(max(c["errs"]) <= TP_STEP_ATOL,
+                      f"tensor_parallel: rank {r} {name} card vs CPU "
+                      f"{c['errs']}")
+    reference = {"seconds": time.time() - t0, **{
+        k: [p[k] for p in ref] for k in ref[0] if k not in ("node",
+                                                            "index")}}
+    batch, dry = TP_BATCH, None
+    if cuda:
+        recs = _dryrun_jobs(None, None, procs)
+        _tp_check_dry(recs["tp", "cuda"], recs["tp", "cpu"])
+        dry = recs["tp", "cuda"]
+        check(dry["fits"], f"tensor_parallel: batch {batch} predicted at "
+              f"{dry['peak_bytes']} B a GPU, beyond one H100")
+    elif cfg_name is not None:
+        batch = 2
+    t1 = time.time()
+    _ms_spawn(_tp_full_rank, world, cfg_name, batch, seq, TP_DIR, device)
+    full = _tp_read("tp_full", world)
+    losses = [p["losses"] for p in full]
+    check(all(math.isfinite(x) for x in losses[0]) and
+          all(x == losses[0] for x in losses),
+          f"tensor_parallel: losses not finite or not the same on every "
+          f"rank {losses}")
+    check(all(p["whole_same"] for p in full),
+          "tensor_parallel: whole leaves differ across a node's GPUs")
+    want = {"sgd_update": 2 * TP_STEPS, "quantize_mod": TP_STEPS,
+            "decode_avg": TP_STEPS}
+    if device == "cuda":
+        for r, p in enumerate(full):
+            check(p["launches"] == want, f"tensor_parallel: rank {r} "
+                  f"launches {p['launches']} != {want}")
+    out = {"arch": TP_ARCH if cfg_name is None else f"{TP_ARCH} (reduced)",
+           "nodes": TP_NODES, "model_parallel": TP_K,
+           "batch_per_node": batch, "seq": seq, "H": 2,
+           "remat": _tp_full_cfg(cfg_name).remat, "reference": reference,
+           "full_width_seconds": time.time() - t1, "losses": losses[0],
+           **{k: [p[k] for p in full] for k in (
+               "superstep_s", "allreduce_ms", "allreduce_calls",
+               "allreduce_bytes", "peak_above_start_bytes", "start_bytes",
+               "params_per_gpu", "launches")}}
+    if dry is not None:
+        ratios = [p["peak_above_start_bytes"] / dry["peak_bytes"]
+                  for p in full]
+        out["dryrun"] = {
+            "predicted_bytes": dry["peak_bytes"],
+            "measured_over_predicted_by_rank": ratios,
+            **{k: dry[k] for k in (
+                "fits", "argument_bytes", "temp_bytes", "flops_per_dev",
+                "coll_raw", "model_allreduce_bytes_per_dev",
+                "model_allreduce_calls", "wire_bytes_per_node", "compute_s",
+                "memory_s", "collective_s", "bottleneck", "t_trace_s")}}
+    log("tensor_parallel", ranks=world, **out)
+    if dry is not None:
+        lo, hi = DRYRUN_BOUND
+        check(all(lo <= r <= hi for r in ratios),
+              f"tensor_parallel: measured over predicted {ratios} outside "
+              f"{DRYRUN_BOUND}")
+    return {"tensor_parallel": full[0]["launches"]}
+
+
+def _tp_check_dry(cuda_rec, cpu_rec) -> None:
+    differ = [k for k in DRYRUN_COUNTED if cuda_rec.get(k) != cpu_rec.get(k)]
+    check(not differ, f"tensor_parallel dry run: cuda and cpu records "
+          f"differ in {differ}")
+    check(_fake_touch_ok(cuda_rec), f"tensor_parallel dry run allocated "
+          f"{cuda_rec['device_allocated_bytes']} B at its peak, "
+          f"{cuda_rec['device_allocated_after_bytes']} B at its end")
+
+
 def phase_multi_shard() -> dict:
     """The node-mesh phases where the host has 2 or more GPUs; on one,
     the declared not-run line. -> {path: launches}."""
@@ -6086,7 +6546,24 @@ def phase_multi_shard() -> dict:
     phase_multi_shard_reference(world)
     by_path = phase_multi_shard_full_width(world)
     by_path.update(phase_multi_shard_train_4k(world))
+    if n < TP_NODES * TP_K:
+        log("tensor_parallel", ran=False, gpus=n, needs=TP_NODES * TP_K)
+    else:
+        _fresh_memory()
+        by_path.update(phase_tensor_parallel(TP_NODES * TP_K))
     return by_path
+
+
+def kernels_line(records: dict, launches: dict, by_path: dict) -> list:
+    """The kernels' JSON record: each kernel's route, source, the TPU
+    kernel it replaces, its launches on the main path (`launches`) and by
+    path, and phase `kernel`'s measurements (`records`)."""
+    return [{"name": n, "route": "cuda", "source": SOURCES[n],
+             "replaces": TPU_KERNELS[n], "launches": launches[n],
+             "launches_by_path": {p: c[n] for p, c in by_path.items()},
+             **{k: records[n][k] for k in
+                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}} for n in TPU_KERNELS]
 
 
 def main(argv=None) -> int:
@@ -6133,7 +6610,14 @@ def main(argv=None) -> int:
         libraries=[str(build.library_path(n)) for n in build.KERNELS])
     if args.only is not None:
         if args.only == "multi_shard":
-            phase_multi_shard()
+            records = phase_kernels()
+            _fresh_memory()
+            by_path = phase_multi_shard()
+            if "tensor_parallel" in by_path:
+                print(smi[0], flush=True)
+                print(json.dumps({"kernels": kernels_line(
+                    records, by_path["tensor_parallel"], by_path)}),
+                    flush=True)
         else:
             _, main_records = phase_main_path()
             phase_scan_full_width(main_records)
@@ -6175,27 +6659,9 @@ def main(argv=None) -> int:
     serving.update(phase_zoo_train_full_width())
     serving.update(phase_zoo_serve_full_width())
     serving.update(phase_multi_shard())
-    kernels = [{"name": n, "route": "cuda", "source": SOURCES[n],
-                "replaces": TPU_KERNELS[n], "launches": counts[n],
-                "launches_by_path": {"overlap_q8_geometric": counts[n],
-                                     "blocking_q8": blocking[n],
-                                     **{p: c[n] for p, c in
-                                        remat.items()},
-                                     **{p: c[n] for p, c in
-                                        baselines.items()},
-                                     **{p: c[n] for p, c in
-                                        sched.items()},
-                                     **{p: c[n] for p, c in
-                                        codecs.items()},
-                                     **{p: c[n] for p, c in
-                                        transports.items()},
-                                     **{p: c[n] for p, c in
-                                        scan.items()},
-                                     **{p: c[n] for p, c in
-                                        serving.items()}},
-                **{k: records[n][k] for k in
-                   ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}} for n in TPU_KERNELS]
+    kernels = kernels_line(records, counts, {
+        "overlap_q8_geometric": counts, "blocking_q8": blocking, **remat,
+        **baselines, **sched, **codecs, **transports, **scan, **serving})
     # the card again, so the tail of a long log still names it
     print(smi[0], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

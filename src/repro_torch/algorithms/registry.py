@@ -22,6 +22,7 @@ from typing import Callable, Tuple
 
 from repro_torch.algorithms import adpsgd, allreduce, dpsgd, localsgd, sgp
 from repro_torch.core.bucket import NOT_ON_A_MESH
+from repro_torch.core.swarm import check_model_axis_run
 from repro_torch.quant.codecs import make_codec
 
 
@@ -101,11 +102,11 @@ CAPABILITIES = {
 
 def _make_swarm(loss_fn, opt_update, lr_fn, n_nodes, H: int = 2, scfg=None,
                 track_potential: bool = None, transport=None, mesh=None,
-                **swarm_kw):
+                param_specs=None, **swarm_kw):
     """Route 'swarm' through the baselines' factory signature: pass a full
     SwarmConfig via `scfg`, or let one be built from (n_nodes, H) plus any
-    SwarmConfig field given as a keyword; `mesh` passes through to
-    `make_swarm_step`."""
+    SwarmConfig field given as a keyword; `mesh` and `param_specs` pass
+    through to `make_swarm_step`."""
     from repro_torch.core.swarm import SwarmConfig, make_swarm_step
     if scfg is None:
         if track_potential is not None:
@@ -117,7 +118,8 @@ def _make_swarm(loss_fn, opt_update, lr_fn, n_nodes, H: int = 2, scfg=None,
         raise TypeError(f"pass either scfg or SwarmConfig fields, not both: "
                         f"{extra}")
     return make_swarm_step(scfg, loss_fn, opt_update, lr_fn,
-                           transport=transport, mesh=mesh)
+                           transport=transport, mesh=mesh,
+                           param_specs=param_specs)
 
 
 ALGORITHMS = {
@@ -136,6 +138,9 @@ def make_algorithm(name: str, **kw) -> Callable:
     if name not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {name!r}; known: "
                          f"{sorted(ALGORITHMS)}")
+    mesh = kw.get("mesh")
+    if mesh is not None and mesh.model_size > 1 and name != "swarm":
+        check_model_axis_run(algo=name)
     return ALGORITHMS[name](**kw)
 
 
@@ -155,7 +160,10 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     topology, no availability profile. On a node `mesh` it also raises,
     naming the ROADMAP.md item, for `n_nodes` other than the mesh's size
     (ValueError: one node a rank); `--scan-chunk` (`scan_chunk`) runs
-    there as on one shard. Returns the AlgoCaps row otherwise."""
+    there as on one shard. On a mesh with a model axis it raises for what
+    that axis does not carry yet (``core/swarm.py``
+    ``check_model_axis_run``, naming ROADMAP.md Queue A 15). Returns the
+    AlgoCaps row otherwise."""
     if algo not in CAPABILITIES:
         raise ValueError(f"unknown algorithm {algo!r}; known: "
                          f"{sorted(CAPABILITIES)}")
@@ -171,12 +179,17 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
     gossip_impl = gossip_impl or "gather"
     base = gossip_impl[:-len("_legacy")] \
         if gossip_impl.endswith("_legacy") else gossip_impl
-    del scan_chunk              # every chunk size runs on a mesh too
     if mesh is not None:
         if n_nodes is not None and n_nodes != mesh.size:
             raise ValueError(f"n_nodes={n_nodes} on a node mesh of "
                              f"{mesh.size} ranks: "
                              f"{NOT_ON_A_MESH['nodes_per_shard']}")
+        if mesh.model_size > 1:
+            check_model_axis_run(
+                algo=algo, gossip_impl=gossip_impl, quantize=quantize,
+                codec=codec, nonblocking=nonblocking, overlap=overlap,
+                compress_state=compress_state, rate_profile=rate_profile,
+                avail=avail, topology=topology, scan_chunk=scan_chunk)
     if base not in caps.transports:
         reject(f"--gossip-impl {gossip_impl}")
     mode = "overlap" if overlap else \

@@ -19,6 +19,13 @@ On a node mesh (``launch/mesh.py``: one node a rank, its leaves
 leaf along dim 0 in rank order to rank 0, which writes the one-shard file
 of the whole swarm; a load gives each rank its slab of it; the mean model
 is the whole swarm's, bitwise the one-shard mean of the gathered rows.
+
+With a model axis (a node split over K ranks) every rank also passes
+`split`, a tree like the saved one whose leaves are the split dimension
+of an un-stacked leaf or None (``models/transformer.py`` ``param_split``): a
+save first all-gathers each split leaf over the node's K ranks, so rank
+0 writes the same one-shard file; a load gives each rank its node's row,
+cut to its own slice.
 """
 from __future__ import annotations
 
@@ -88,7 +95,7 @@ def _to_numpy(t: torch.Tensor):
 
 
 def save_checkpoint(path: str, tree: Any, metadata: dict | None = None,
-                    mesh=None, times: dict | None = None):
+                    mesh=None, times: dict | None = None, split=None):
     """Write `tree` (nested dicts of tensors or arrays) to path.npz and
     path.json.
 
@@ -99,27 +106,33 @@ def save_checkpoint(path: str, tree: Any, metadata: dict | None = None,
     one-shard file of the gathered tree with its `metadata`, and every
     rank returns once the file is written. A `times` dict is filled with
     the seconds this rank spent gathering (its copies to the host in) and
-    writing (``gather_s``, ``write_s``)."""
+    writing (``gather_s``, ``write_s``). With a model axis `split` gives
+    each leaf's split dimension (see the module docstring)."""
     if mesh is not None:
         from repro_torch.core import bucket as B
         t0 = time.perf_counter()
         leaves, treedef = tree_flatten(tree, tuples=True)
+        dims = _split_dims(split, len(leaves), mesh)
         gathered = []
-        for v in leaves:
+        for v, d in zip(leaves, dims):
             if not isinstance(v, torch.Tensor):
                 raise TypeError(f"a node mesh saves tensor leaves, got "
                                 f"{type(v).__name__}")
-            g = B.gather_slab(v, mesh)
+            if d is not None:
+                v = B.all_gather_model(v, mesh, d + 1)
+            # the node's whole row lies on each of its ranks: model index
+            # 0's go to rank 0
+            g = B.gather_slab(v, mesh) if mesh.model_index == 0 else None
             gathered.append(None if g is None else g.cpu())
-            del g
+            del g, v
         t1 = time.perf_counter()
-        if mesh.rank == 0:
+        if mesh.rank == 0 and mesh.model_index == 0:
             save_checkpoint(path, tree_unflatten(treedef, gathered),
                             metadata)
         del gathered
         if times is not None:
             times.update(gather_s=t1 - t0, write_s=time.perf_counter() - t1)
-        dist.barrier(group=mesh.group)
+        dist.barrier(group=mesh.group if mesh.model_size == 1 else None)
         return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     leaves, treedef = tree_flatten(tree, tuples=True)
@@ -138,6 +151,20 @@ def save_checkpoint(path: str, tree: Any, metadata: dict | None = None,
             "metadata": _jsonable(metadata or {})}
     with open(path + ".json", "w") as f:
         json.dump(meta, f, indent=1)
+
+
+def _split_dims(split, n: int, mesh) -> list:
+    """Each of `n` leaves' split dimension (None: whole), from `split` on
+    a mesh with a model axis; all None without one."""
+    if mesh.model_size == 1:
+        return [None] * n
+    if split is None:
+        raise ValueError("a node mesh with a model axis saves and loads "
+                         "with split= (models/transformer.py param_split)")
+    dims = tree_flatten(split, tuples=True)[0]
+    if len(dims) != n:
+        raise ValueError(f"split has {len(dims)} leaves, the tree {n}")
+    return dims
 
 
 def _read_rows(npz: str, name: str, rank: int, size: int):
@@ -177,24 +204,33 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def load_checkpoint(path: str, like: Any, mesh=None) -> Any:
+def load_checkpoint(path: str, like: Any, mesh=None, split=None) -> Any:
     """Restore into the structure of `like` (a tree of tensors): each leaf
     shape-checked, cast to its `like` leaf's dtype and placed on its
     device. On a node `mesh` `like` is the rank's slab: each stored leaf
     must hold ``mesh.size`` of them along dim 0, and the rank reads its
-    own, only its bytes."""
+    own, only its bytes; with a model axis (`split`) its node's slab, cut
+    to its own slice."""
     leaves_like, treedef = tree_flatten(like, tuples=True)
     restored = []
     if mesh is not None:
-        for i, ref in enumerate(leaves_like):
+        from repro_torch.models.split import take_slice
+        dims = _split_dims(split, len(leaves_like), mesh)
+        for i, (ref, d) in enumerate(zip(leaves_like, dims)):
             if ref.dim() == 0:
                 raise ValueError(f"leaf {i}: a node mesh loads slabs along "
                                  "dim 0, not 0-d leaves")
-            want = (mesh.size * ref.shape[0],) + tuple(ref.shape[1:])
+            full = list(ref.shape)
+            if d is not None:
+                full[d + 1] *= mesh.model_size
+            want = (mesh.size * ref.shape[0],) + tuple(full[1:])
             shape, slab = _read_rows(path + ".npz", f"leaf_{i}", mesh.rank,
                                      mesh.size)
             if tuple(shape) != want:
                 raise ValueError(f"leaf {i}: shape {shape} != {want}")
+            if d is not None:
+                slab = take_slice(slab, d + 1, mesh.model_size,
+                                  mesh.model_index)
             restored.append(_tensor(slab).to(device=ref.device,
                                              dtype=ref.dtype))
         return tree_unflatten(treedef, restored)

@@ -31,6 +31,15 @@ bodies), the gather transport by the engine's host perm, which may be any
 permutation (SGP's cyclic shift included). The node mean and the dense
 mix all-gather the ranks' rows and run the one-shard reduction or product
 on them, so every mesh exchange is bitwise the one-shard one.
+
+With a model axis (a node split over K GPUs, ``launch/mesh.py``) each rank
+packs, encodes and exchanges its own slice of its node: the exchanges run
+over the node group, between the ranks of one model index, and a message's
+peer is that node's rank at this model index (``NodeMesh.peer``). A leaf
+every GPU of the node holds whole lies at the same offset on each of them
+(the slices have equal shapes), and the encode's uniforms come from the
+node's fold of the run's generator, so its rows stay bitwise equal across
+the node's GPUs.
 """
 from __future__ import annotations
 
@@ -347,9 +356,21 @@ def gather_slab(x: torch.Tensor, mesh, dst: int = 0):
     xb = _as_bytes(x)
     out = torch.empty((mesh.size, xb.numel()), dtype=torch.uint8,
                       device=x.device) if mesh.rank == dst else None
-    dist.gather(xb, None if out is None else list(out.unbind(0)), dst=dst,
-                group=mesh.group)
+    dist.gather(xb, None if out is None else list(out.unbind(0)),
+                dst=mesh.peer(dst), group=mesh.group)
     return None if out is None else _from_bytes(out, x, mesh.size)
+
+
+def all_gather_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The K slices of a leaf over the model group (`x` this rank's),
+    concatenated along `dim` in model index order: ONE all-gather of its
+    bytes."""
+    xb = _as_bytes(x)
+    k = mesh.model_size
+    out = torch.empty((k, xb.numel()), dtype=torch.uint8, device=x.device)
+    dist.all_gather(list(out.unbind(0)), xb, group=mesh.model_group)
+    parts = out.view(x.dtype).reshape((k,) + tuple(x.shape)).unbind(0)
+    return torch.cat(parts, dim=dim)
 
 
 def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -560,14 +581,15 @@ def _post(payload, mesh, dsts, src, own: bool) -> Posted:
         if dsts:
             xb = _as_bytes(x)
             sent.append(xb)
-            ops.extend(dist.P2POp(dist.isend, xb, d, group=mesh.group, tag=i)
-                       for d in dsts)
+            ops.extend(dist.P2POp(dist.isend, xb, mesh.peer(d),
+                                  group=mesh.group, tag=i) for d in dsts)
         if src is None:
             recv.append(x if own else torch.zeros_like(x))
             continue
         rb = torch.empty((x.numel() * x.element_size(),), dtype=torch.uint8,
                          device=x.device)
-        ops.append(dist.P2POp(dist.irecv, rb, src, group=mesh.group, tag=i))
+        ops.append(dist.P2POp(dist.irecv, rb, mesh.peer(src),
+                              group=mesh.group, tag=i))
         recv.append(rb.view(x.dtype).reshape(x.shape))
     works = dist.batch_isend_irecv(ops) if ops else []
     return Posted(works, tuple(recv), tuple(sent))

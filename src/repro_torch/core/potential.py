@@ -23,21 +23,40 @@ def mean_model(params_stacked, mesh=None):
     return tree_map(mu, params_stacked)
 
 
-def gamma_potential(params_stacked, mesh=None) -> torch.Tensor:
+def gamma_potential(params_stacked, mesh=None, split=None) -> torch.Tensor:
     """Γ_t = Σᵢ ‖Xᵢ − μ‖² summed over every parameter leaf (fp32).
 
     On a node `mesh` (one node a rank, `params_stacked` its [1, ...]
     leaves) every rank gets the global Γ: one all-reduce of the rank's
     packed fp32 buffer gives the sum, so μ; each rank's squared distance
-    to μ, and one scalar all-reduce sums them."""
+    to μ, and one scalar all-reduce sums them.
+
+    With a model axis `params_stacked` is the rank's slices and `split`
+    the tree of ``models/transformer.py`` ``param_split`` (None: a leaf every
+    GPU of the node holds whole): μ is taken over the node group, and the
+    scalar all-reduce runs over the whole mesh, a whole leaf counted at
+    model index 0 only."""
     if mesh is not None:
-        buf = B.pack(B.build_layout(params_stacked), params_stacked)[0]
+        layout = B.build_layout(params_stacked)
+        buf = B.pack(layout, params_stacked)[0]
         mu = buf.clone()
         dist.all_reduce(mu, group=mesh.group)
         mu.div_(mesh.size)
-        g = torch.sum(torch.square(buf - mu)).reshape(1)
+        d = torch.square(buf - mu)
         del buf, mu
-        dist.all_reduce(g, group=mesh.group)
+        if mesh.model_size > 1:
+            if split is None:
+                raise ValueError("Γ on the model axis needs the parameters' "
+                                 "split (models/transformer.py param_split)")
+            if mesh.model_index != 0:
+                for dim, off, seg in zip(tree_leaves(split), layout.offsets,
+                                         layout.seg_sizes):
+                    if dim is None:
+                        d[off:off + seg] = 0.0
+        g = torch.sum(d).reshape(1)
+        del d
+        dist.all_reduce(g, group=mesh.group if mesh.model_size == 1
+                        else None)
         return g[0]
     total = None
     for x in tree_leaves(params_stacked):

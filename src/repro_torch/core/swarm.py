@@ -47,6 +47,14 @@ its own device; the exchange and the momentum average cross point to
 point between partners (by the static pairs, or the gather's host perm),
 and the metrics are the global ones.
 
+With a model axis (``launch/mesh.py`` ``init_node_mesh(...,
+model_parallel=K)``: a node split over K ranks, ``make_swarm_step(...,
+param_specs=)``) each rank holds its slices of its node's state and
+takes its local steps on them, the model's collectives running over its
+node's K ranks; the exchange runs between the ranks of one model index,
+each on its own slice's buffer, and Γ is summed over the whole mesh.
+The blocking superstep runs there, exact or q8, on gather or ppermute.
+
 Elastic membership (a scheduler trace with ``--avail``): a join bin runs
 ``make_join_step`` — the joiner copies its donor's model, one row gather
 on the packed buffer (on a node mesh one message, donor to joiner), no
@@ -69,6 +77,7 @@ from repro_torch.core.exchange import (
     rank_inputs, select, stale_combine,
 )
 from repro_torch.core.potential import gamma_potential
+from repro_torch.models.split import NOT_ON_THE_MODEL_AXIS
 from repro_torch.quant.codecs import make_codec
 from repro_torch.quant.schemes import ModularQuantConfig
 from repro_torch.tree import tree_leaves, tree_map
@@ -254,10 +263,47 @@ def select_rows(m_rows, new, old):
                        old)
 
 
+def check_model_axis_run(*, algo: str = "swarm", gossip_impl: str = None,
+                         quantize: bool = False, codec=None,
+                         nonblocking: bool = False, overlap: bool = False,
+                         compress_state: bool = False,
+                         rate_profile: str = None, avail: str = None,
+                         topology: str = None, scan_chunk: int = 0) -> None:
+    """Raise ValueError (ROADMAP.md Queue A 15) for a run the model axis
+    does not carry yet: anything but the swarm's blocking superstep on
+    the gather or ppermute transport, exact or with the q8 lattice. The
+    run's validation (``algorithms/registry.py`` ``validate_run_config``)
+    passes every flag; ``make_algorithm`` and :func:`make_swarm_step`,
+    which a library caller may reach without it, pass what they see."""
+    why = []
+    if algo != "swarm":
+        why.append(f"--algo {algo}")
+    if (gossip_impl or "gather") not in ("gather", "ppermute"):
+        why.append(f"--gossip-impl {gossip_impl}")
+    if quantize:
+        c = codec if codec is not None and not isinstance(codec, str) \
+            else make_codec(codec)
+        if c.name != "q8":
+            why.append(f"--codec {c.name}")
+    for flag, on in (("--nonblocking", nonblocking), ("--overlap", overlap),
+                     ("--compress-state", compress_state),
+                     ("--scan-chunk", scan_chunk),
+                     (f"--rate-profile {rate_profile}",
+                      rate_profile not in (None, "none")),
+                     (f"--avail {avail}", avail is not None),
+                     (f"--topology {topology}", topology not in
+                      (None, "", "flat", "none"))):
+        if on:
+            why.append(flag)
+    if why:
+        raise ValueError(f"{', '.join(why)}: "
+                         f"{NOT_ON_THE_MODEL_AXIS['run']}")
+
+
 def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                     lr_fn: Callable,
                     transport: Optional[GossipTransport] = None, *,
-                    mesh=None):
+                    mesh=None, param_specs=None):
     """Returns the superstep, an :class:`EngineStep`: step(state, batch,
     perm, h_counts, rng, mask=None, *, u=None, u_state=None) -> (state,
     metrics). batch leaves are [n_nodes, h_loop_bound, local_batch, ...]
@@ -282,7 +328,14 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
     own uniforms ([1, n_padded]); drawn, they come from the rank's
     generator folded from `rng`. The loss comes from all-gathered
     per-node losses, matched_frac from the global perm and mask, and Γ
-    from all-reduces, so every rank reports the global metrics."""
+    from all-reduces, so every rank reports the global metrics.
+
+    On a mesh with a model axis the state is the rank's slices of its
+    node, `loss_fn` the model's share of the node (``TransformerLM(cfg,
+    tp=mesh.model_shard).functional_loss``) and `param_specs` the
+    parameters' split (``models/transformer.py`` ``param_split``), by
+    which Γ counts a whole leaf once; what the model axis does not carry
+    yet raises (:func:`check_model_axis_run`)."""
     tr = transport or GossipTransport(cfg.n_nodes, impl=cfg.gossip_impl,
                                       quant=cfg.quant,
                                       codec=cfg.make_codec(), mesh=mesh)
@@ -292,6 +345,15 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
     mesh = tr.mesh
     if mesh is not None:
         B.check_mesh_nodes(cfg.n_nodes, mesh)
+        if mesh.model_size > 1:
+            check_model_axis_run(gossip_impl=tr.impl, quantize=cfg.quantize,
+                                 codec=tr.codec, nonblocking=cfg.nonblocking,
+                                 overlap=cfg.overlap,
+                                 compress_state=cfg.compress_state)
+            if param_specs is None:
+                raise ValueError("a step on the model axis needs the "
+                                 "parameters' split (param_specs=, "
+                                 "models/transformer.py param_split)")
     ef = cfg.quantize and tr.codec.carries_residual
     cs = cfg.compress_state
     if cs and (tr.codec.carries_residual or not cfg.quantize
@@ -328,7 +390,8 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
                    "matched_frac": torch.mean(matched.to(torch.float32))}
         if cfg.track_potential:
             with record_function("swarm.gamma"):
-                metrics["gamma"] = gamma_potential(params, mesh=mesh)
+                metrics["gamma"] = gamma_potential(params, mesh=mesh,
+                                                   split=param_specs)
         return SwarmState(params, opt, prev, state.step + 1,
                           inflight, residual), metrics
 

@@ -23,6 +23,14 @@ shapes). The step is built by the drivers' own code:
   layout ``launch/train.py`` runs: N nodes stacked on one GPU. The global
   batch splits as the reference's ``train_input_specs``: ``b_local =
   global_batch // (n_nodes · H)`` a node and local step;
+* ``--model-parallel K`` splits each node over K GPUs, the reference's
+  own layout (``specs.py``: a node is a 16-chip "model" row): the mesh
+  is ``n_nodes x K`` ranks (``launch/mesh.py``), the step is model index 0
+  of node 0, its parameters and state that GPU's slices
+  (``models/split.py``), and the model group's all-reduces count into
+  ``coll_bytes_per_dev`` (apart too: ``model_allreduce_bytes_per_dev``).
+  Dense archs and training shapes only; the rest raise, naming their
+  ROADMAP.md item;
 * a serving shape traces one GPU's prefill or decode step
   (``launch/serve.py`` ``make_serve_fns``) with its KV cache or SSM state.
   The batch splits over the same GPUs, data-parallel replicas of the mean
@@ -79,12 +87,19 @@ NO_SEQ_SHARDING = ("batch 1 stays whole on one GPU: the reference shards "
                    "port has no counterpart for")
 
 
+# the reference's production meshes (``launch/mesh.py``
+# ``make_production_mesh``)
+PRODUCTION_MESHES = {"single": {"data": 16, "model": 16},
+                     "multi": {"pod": 2, "data": 16, "model": 16}}
+
+
 def n_nodes_for(cfg, mesh_kind: str) -> int:
-    """Nodes of the reference's production mesh (``specs.py:36``): one a
-    16-chip data row, 16 a pod and 32 on two pods; a ``big_model`` node is
-    a whole pod. In the port each node is one GPU."""
-    pods = 2 if mesh_kind == "multi" else 1
-    return pods if cfg.big_model else 16 * pods
+    """Nodes of the reference's production mesh (``launch/specs.py``
+    ``n_nodes_for``): one a 16-chip data row, 16 a pod and 32 on two pods;
+    a ``big_model`` node is a whole pod. In the port a node is one GPU,
+    or K with ``--model-parallel K``."""
+    from repro_torch.launch.specs import n_nodes_for as nodes_of
+    return nodes_of(cfg, PRODUCTION_MESHES[mesh_kind])
 
 
 def node_batch(shape: InputShape, n_nodes: int, H: int) -> int:
@@ -145,20 +160,27 @@ class HostFolds:
 
 
 @contextlib.contextmanager
-def fake_world(n_nodes: int, device: str):
-    """Rank 0 of a node mesh of `n_nodes` whose other ranks are torch's
-    ``fake`` process group (collectives return at once); -> its NodeMesh,
-    folding through :class:`HostFolds`."""
+def fake_world(n_nodes: int, device: str, model_parallel: int = 1):
+    """Rank 0 of a node mesh of `n_nodes` (of `model_parallel` GPUs each)
+    whose other ranks are torch's ``fake`` process group (collectives
+    return at once); -> its NodeMesh, folding through
+    :class:`HostFolds`."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.launch.mesh import NodeMesh
+    K = int(model_parallel)
     dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=n_nodes)
+                            world_size=n_nodes * K)
     try:
         dev = torch.device(device)
         if dev.type == "cuda":
             dev = torch.device("cuda", 0)
-        mesh = NodeMesh(0, n_nodes, dev)
+        if K == 1:
+            mesh = NodeMesh(0, n_nodes, dev)
+        else:
+            model = dist.new_group(list(range(K)))
+            node = dist.new_group(list(range(0, n_nodes * K, K)))
+            mesh = NodeMesh(0, n_nodes, dev, node, K, 0, model)
         with mesh.folding(HostFolds(mesh)):
             yield mesh
     finally:
@@ -204,6 +226,7 @@ def trace_train(cfg, argv: list, mesh=None) -> dict:
     from repro_torch.core.exchange import transport_from_config
     from repro_torch.core.scan import _state_leaves
     from repro_torch.launch import train
+    from repro_torch.models import layers
     args = train.build_parser().parse_args(argv)
     graph = lone_node_graph() if args.nodes == 1 else None
     counter = TraceCounter()
@@ -217,15 +240,18 @@ def trace_train(cfg, argv: list, mesh=None) -> dict:
             n_wire = transport_from_config(tr.scfg, tr.graph, args.seed) \
                 .payload_num_bytes(tr.state.params, quantize=args.quantize)
             del state
+            layers.COLLECTIVES = model_coll = {}
             with _counting(counter) as fc:
                 tr.superstep(0)
     finally:
+        layers.COLLECTIVES = None
         # the fake constants the trace cached do not outlive it
         B._CONSTANTS.clear()
         B._CONSTANTS.update(constants)
     return {"flops": float(fc.get_total_flops()), "argument_bytes": arg_bytes,
             "peak_bytes": counter.peak, "coll": dict(counter.coll),
-            "wire_bytes": n_wire, "h": [int(h) for h in tr.hs[0]]}
+            "wire_bytes": n_wire, "h": [int(h) for h in tr.hs[0]],
+            "model_coll": model_coll}
 
 
 def trace_serve(cfg, kind: str, batch: int, seq: int, device: str) -> dict:
@@ -275,17 +301,31 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
             nonblocking: bool = False, overlap: bool = False,
             H: int = DEFAULT_H, h_mode: str = "fixed", h_max: int = 8,
             nodes_per_gpu: int = None, nodes: int = None, batch: int = None,
-            seq: int = None, device: str = "cuda", cfg=None) -> dict:
+            seq: int = None, device: str = "cuda", cfg=None,
+            model_parallel: int = 1) -> dict:
     """The dry run of (arch, shape, mesh); -> its record. `nodes_per_gpu`
     stacks that many nodes on one GPU; `nodes` is a node mesh of that many
-    GPUs in place of the reference's count. `cfg` replaces the arch's
+    nodes in place of the reference's count; `model_parallel` K splits
+    each node over K GPUs (``models/split.py``). `cfg` replaces the arch's
     config (tests pass reduced ones); `batch` and `seq` replace the
     shape's per-node (training: a local step's) or per-GPU (serving)
     batch and its sequence (decode: the cache's length)."""
     cfg = cfg or get_config(arch)
     shape = INPUT_SHAPES[shape_name]
+    K = int(model_parallel)
     mesh_name = "one_card" if nodes_per_gpu else \
         f"{nodes}_gpus" if nodes else mesh_kind
+    if K > 1:
+        from repro_torch.models.split import (NOT_ON_THE_MODEL_AXIS,
+                                              check_model_parallel)
+        if nodes_per_gpu:
+            raise ValueError("--model-parallel splits a node over GPUs; "
+                             "--nodes-per-gpu stacks nodes on one")
+        if shape.kind != "train":
+            raise ValueError(f"{shape_name}: "
+                             f"{NOT_ON_THE_MODEL_AXIS['serve']}")
+        check_model_parallel(cfg, K)
+        mesh_name += f"_tp{K}"
     head = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
     if shape.name == "long_500k" and not cfg.subquadratic:
         return {**head, "skipped": SKIP_LONG}
@@ -298,11 +338,11 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
     t0 = time.time()
     if shape.kind == "train":
         b = batch or node_batch(shape, n_nodes, H)
-        n_dev = 1 if one_card else n_nodes
+        n_dev = 1 if one_card else n_nodes * K
         argv = train_argv(arch, n_nodes, H, b, seq, device, gossip_impl,
                           quantize, nonblocking, overlap, h_mode, h_max)
         world = contextlib.nullcontext() if one_card \
-            else fake_world(n_nodes, device)
+            else fake_world(n_nodes, device, K)
         with world as mesh:
             counts = trace_train(cfg, argv, mesh)
         g_shape = InputShape(shape.name, seq, b * n_nodes * H, "train")
@@ -313,7 +353,15 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
         rec.update(remat=cfg.remat, gossip=gossip_impl, quantize=quantize,
                    nonblocking=nonblocking or overlap, overlap=overlap, H=H,
                    h_mode=h_mode, h_traced=counts["h"],
-                   batch_per_node=b)
+                   batch_per_node=b, model_parallel=K,
+                   model_allreduce_bytes_per_dev=2 * counts["model_coll"]
+                   .get("bytes", 0),
+                   model_allreduce_calls=counts["model_coll"].get("calls",
+                                                                  0))
+        if K > 1:
+            from repro_torch.models.split import kv_deviation
+            rec.update(layout="node_over_gpus",
+                       kv_heads_whole=kv_deviation(cfg, K))
     else:
         n_dev = 1 if one_card or shape.global_batch == 1 else n_nodes
         b = batch or serve_batch(shape, n_dev)
@@ -337,7 +385,8 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
         bytes_analytic_per_dev=an_bytes,
         coll_bytes_per_dev=coll_bytes, coll_raw=coll,
         wire_bytes_per_node=counts["wire_bytes"],
-        **roofline_terms(flops, an_bytes, coll_bytes, cfg.dtype, n_dev),
+        **roofline_terms(flops, an_bytes, coll_bytes, cfg.dtype, n_dev,
+                         rec.get("model_allreduce_bytes_per_dev", 0), K),
         argument_bytes=counts["argument_bytes"],
         temp_bytes=peak - counts["argument_bytes"], peak_bytes=peak,
         fits=peak <= HW.HBM_CAPACITY, hbm_capacity_bytes=HW.HBM_CAPACITY,
@@ -353,6 +402,7 @@ def record_tag(args) -> str:
     tag = f"{args.arch}__{args.shape}__{args.mesh}"
     for flag, on in ((f"npg{args.nodes_per_gpu}", args.nodes_per_gpu),
                      (f"n{args.nodes}", args.nodes),
+                     (f"tp{args.model_parallel}", args.model_parallel > 1),
                      (args.gossip_impl, args.gossip_impl != "gather"),
                      ("q8", args.quantize), ("nb", args.nonblocking),
                      ("ov", args.overlap),
@@ -376,8 +426,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="N nodes stacked on one GPU, as launch/train.py "
                          "runs them (in place of --mesh's layout)")
     ap.add_argument("--nodes", type=int, default=None,
-                    help="a node mesh of N GPUs, one node each (in place "
-                         "of --mesh's count)")
+                    help="a node mesh of N nodes (in place of --mesh's "
+                         "count)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="K GPUs a node, its parameters split by "
+                         "models/split.py (the reference's 'model' axis); "
+                         "1: one node a GPU")
     ap.add_argument("--gossip-impl", default="gather", choices=GOSSIP_IMPLS)
     ap.add_argument("--quantize", action="store_true")
     ap.add_argument("--nonblocking", action="store_true")
@@ -409,7 +463,8 @@ def main(argv=None) -> dict:
                   H=args.H, h_mode=args.h_mode, h_max=args.h_max,
                   nodes_per_gpu=args.nodes_per_gpu, nodes=args.nodes,
                   batch=args.batch,
-                  seq=args.seq, device=args.device)
+                  seq=args.seq, device=args.device,
+                  model_parallel=args.model_parallel)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, record_tag(args) + ".json")
     with open(path, "w") as f:

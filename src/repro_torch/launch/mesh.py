@@ -1,8 +1,16 @@
 """The port's node mesh (counterpart of ``repro/launch/mesh.py``
-``make_host_mesh`` and ``repro/compat.py`` ``make_mesh_compat`` for the
-node axis): SwarmSGD's nodes sharded over ``torch.distributed`` ranks, one
-node a rank, as the reference's static pairs index the shards of its node
-axis.
+``make_host_mesh`` / ``make_production_mesh`` and ``repro/compat.py``
+``make_mesh_compat``): SwarmSGD's nodes sharded over ``torch.distributed``
+ranks, as the reference's static pairs index the shards of its node axis.
+
+With ``model_parallel=K`` (default 1) the mesh is 2-D, the reference's
+``("data", "model")``: ``n_nodes x K`` ranks, rank ``r`` node ``r // K``
+at model index ``r % K`` ("model" the minor axis, so a node's GPUs are
+neighbours). A node's K ranks hold its parameters split by
+``models/split.py``; gossip, the node mean and the metrics run between
+the ranks of one model index (the node group), the model's own
+collectives between the K ranks of a node (the model group). K = 1 is
+one node a rank.
 
 On the card each rank owns one GPU (``cuda:<rank>``) and the backend is
 NCCL; on the CPU the backend is gloo. The backend follows the device the
@@ -34,14 +42,48 @@ _FOLDER = contextvars.ContextVar("repro_torch_mesh_folder", default=None)
 
 
 @dataclass(frozen=True)
+class ModelShard:
+    """What a model's layers need of the model axis: the node's GPU count
+    (`size`), this GPU's model index and the model group
+    (``models/layers.py`` ``copy_to_model`` / ``reduce_from_model``)."""
+    size: int
+    index: int
+    group: Any
+
+
+@dataclass(frozen=True)
 class NodeMesh:
-    """One rank's view of the node mesh: its rank, the mesh size (the
-    number of nodes, one a rank), its device and the process group (None:
-    the default group)."""
+    """One rank's view of the node mesh: its node (`rank`, its index in
+    the node group), the number of nodes (`size`), its device and the node
+    group, over which gossip runs (None: the default group). With a model
+    axis (`model_size` > 1) also its model index and the model group, the
+    K ranks of its node; the global rank of node i at this model index is
+    :meth:`peer`."""
     rank: int
     size: int
     device: torch.device
     group: Optional[Any] = None
+    model_size: int = 1
+    model_index: int = 0
+    model_group: Optional[Any] = None
+
+    @property
+    def world_rank(self) -> int:
+        """This rank's global rank."""
+        return self.peer(self.rank)
+
+    def peer(self, node: int) -> int:
+        """The global rank of node `node` at this rank's model index (a
+        point-to-point message's peer, a gather's destination)."""
+        return int(node) * self.model_size + self.model_index
+
+    @property
+    def model_shard(self) -> Optional[ModelShard]:
+        """The model axis as the layers take it; None without one."""
+        if self.model_size == 1:
+            return None
+        return ModelShard(self.model_size, self.model_index,
+                          self.model_group)
 
     def fold_seed(self, rng: torch.Generator) -> int:
         """The seed of this rank's fold of `rng` as it stands: a hash of
@@ -83,26 +125,38 @@ class NodeMesh:
             _FOLDER.reset(token)
 
     def close(self) -> None:
-        """Tear down the process group (every rank calls it)."""
-        dist.destroy_process_group(self.group)
+        """Tear down the process group (every rank calls it); with a model
+        axis every group of the mesh."""
+        dist.destroy_process_group(self.group if self.model_size == 1
+                                   else None)
 
 
 def init_node_mesh(device="cuda", *, rank: Optional[int] = None,
                    world_size: Optional[int] = None,
-                   init_method: Optional[str] = None) -> NodeMesh:
+                   init_method: Optional[str] = None,
+                   model_parallel: int = 1) -> NodeMesh:
     """Join the node mesh: rank and size from the arguments or the usual
     ``RANK`` / ``WORLD_SIZE`` variables, the rendezvous from
     `init_method` or ``env://`` (``MASTER_ADDR`` / ``MASTER_PORT``). On
     ``cuda`` the rank takes GPU `rank` (``torch.cuda.set_device``) and the
     group is NCCL; on ``cpu`` it is gloo. One all-reduce then runs on
     every rank, so the group's first call is a collective and a later P2P
-    batch may involve only a pair."""
+    batch may involve only a pair.
+
+    With `model_parallel` K > 1 the world is ``n_nodes x K`` ranks: every
+    rank makes every model group and node group (``dist.new_group`` in
+    the same order everywhere) and keeps its own two, and each group's
+    first call is an all-reduce, model group then node group."""
     dev = torch.device(device)
     rank = int(os.environ["RANK"]) if rank is None else int(rank)
     world_size = int(os.environ["WORLD_SIZE"]) if world_size is None \
         else int(world_size)
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} outside a mesh of {world_size}")
+    K = int(model_parallel)
+    if K < 1 or world_size % K:
+        raise ValueError(f"model_parallel={K} does not divide a mesh of "
+                         f"{world_size} ranks into nodes")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a node mesh on cuda needs a GPU a rank; "
@@ -126,4 +180,24 @@ def init_node_mesh(device="cuda", *, rank: Optional[int] = None,
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank, **kw)
     dist.all_reduce(torch.zeros((1,), device=dev))
-    return NodeMesh(rank, world_size, dev)
+    if K == 1:
+        return NodeMesh(rank, world_size, dev)
+    return _model_axis_mesh(rank, world_size, K, dev)
+
+
+def _model_axis_mesh(rank: int, world_size: int, K: int,
+                     dev: torch.device) -> NodeMesh:
+    """Rank `rank`'s NodeMesh of `world_size // K` nodes of K ranks, its
+    groups made (every rank makes every group, in one order) and each
+    group's first call a collective."""
+    n_nodes = world_size // K
+    model_groups = [dist.new_group(list(range(n * K, (n + 1) * K)))
+                    for n in range(n_nodes)]
+    node_groups = [dist.new_group(list(range(m, world_size, K)))
+                   for m in range(K)]
+    node, index = divmod(rank, K)
+    mesh = NodeMesh(node, n_nodes, dev, node_groups[index], K, index,
+                    model_groups[node])
+    for g in (mesh.model_group, mesh.group):
+        dist.all_reduce(torch.zeros((1,), device=dev), group=g)
+    return mesh

@@ -8,6 +8,18 @@ fails or times out gets an error record naming its cause.
       --out results/dryrun_torch --jobs 6
   PYTHONPATH=src python -m repro_torch.roofline.table \\
       --dir results/dryrun_torch
+
+For each dense arch (``models/split.py``) the grid's ``train_4k`` pairs
+are traced on the model axis too (``dryrun --model-parallel K``): at the
+reference's own K, ``min(16, n_heads)`` (a node is a 16-chip "model" row
+where the heads allow it), and at the smallest K of MODEL_AXIS_KS whose
+trace fits one H100, tried in ascending order. The other archs wait for
+their ROADMAP.md items (``models/split.py`` ``NOT_ON_THE_MODEL_AXIS``)
+and stay at one GPU a node. An existing record is kept, so a sweep into
+a directory that holds the one-GPU records adds only what is missing:
+
+  PYTHONPATH=src python -m repro_torch.launch.sweep --device cuda \\
+      --shapes train_4k --out results/dryrun_torch --jobs 7
 """
 from __future__ import annotations
 
@@ -25,16 +37,63 @@ ARCHS = [
     "mamba2-780m", "qwen3-moe-30b-a3b",
 ]
 SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+MODEL_AXIS_SHAPE = "train_4k"
+MODEL_AXIS_KS = (2, 4, 8, 16)
 SRC = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+def model_axis_ks(arch: str):
+    """(the reference's K, the K to try for the smallest that fits) of a
+    dense arch on the model axis, or None for an arch that waits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.split import check_model_parallel
+    cfg = get_config(arch)
+
+    def ok(k):
+        try:
+            check_model_parallel(cfg, k)
+        except ValueError:
+            return False
+        return True
+    if not ok(2):
+        return None
+    return min(16, cfg.n_heads), [k for k in MODEL_AXIS_KS if ok(k)]
+
+
+def record_path(out: str, arch: str, shape: str, mesh: str,
+                K: int = 1) -> str:
+    """The record's file, as ``dryrun`` ``record_tag`` names it."""
+    tag = f"{arch}__{shape}__{mesh}" + (f"__tp{K}" if K > 1 else "")
+    return os.path.join(out, tag + ".json")
+
+
+def run_model_axis(arch: str, mesh: str, out: str, device: str,
+                   timeout: int = 1800) -> bool:
+    """`arch`'s MODEL_AXIS_SHAPE pair at the reference's K, then at each K
+    in ascending order until one fits one H100; -> whether every trace
+    wrote a counted record."""
+    ks = model_axis_ks(arch)
+    if ks is None:
+        return True
+    k_ref, tries = ks
+    ok = run_pair(arch, MODEL_AXIS_SHAPE, mesh, out, device,
+                  ["--model-parallel", str(k_ref)], timeout, K=k_ref)
+    for k in tries:
+        ok = run_pair(arch, MODEL_AXIS_SHAPE, mesh, out, device,
+                      ["--model-parallel", str(k)], timeout, K=k) and ok
+        with open(record_path(out, arch, MODEL_AXIS_SHAPE, mesh, k)) as f:
+            if json.load(f).get("fits"):
+                break
+    return ok
+
+
 def run_pair(arch: str, shape: str, mesh: str, out: str, device: str,
-             extra=(), timeout: int = 1800) -> bool:
-    """One pair's dry run in a subprocess; -> whether it wrote a record
-    (an existing record is kept)."""
-    tag = f"{arch}__{shape}__{mesh}"
-    path = os.path.join(out, tag + ".json")
+             extra=(), timeout: int = 1800, K: int = 1) -> bool:
+    """One pair's dry run in a subprocess (on K GPUs a node); -> whether
+    it wrote a record (an existing record is kept)."""
+    path = record_path(out, arch, shape, mesh, K)
+    tag = os.path.basename(path)[:-len(".json")]
     if os.path.exists(path):
         print(f"[skip existing] {tag}", flush=True)
         return True
@@ -57,7 +116,7 @@ def run_pair(arch: str, shape: str, mesh: str, out: str, device: str,
     print(f"[FAIL {time.time() - t0:.0f}s] {tag}\n{err}", flush=True)
     with open(path, "w") as f:
         json.dump({"arch": arch, "shape": shape, "mesh": mesh,
-                   "error": err}, f)
+                   "model_parallel": K, "error": err}, f)
     return False
 
 
@@ -78,9 +137,14 @@ def main(argv=None) -> int:
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     pairs = [(a, s, m) for a in args.archs.split(",")
              for s in args.shapes.split(",") for m in meshes]
+    jobs = [lambda p=p: run_pair(*p, args.out, args.device,
+                                 timeout=args.timeout) for p in pairs]
+    if MODEL_AXIS_SHAPE in args.shapes.split(","):
+        jobs += [lambda a=a, m=m: run_model_axis(a, m, args.out, args.device,
+                                                 args.timeout)
+                 for a in args.archs.split(",") for m in meshes]
     with ThreadPoolExecutor(max_workers=args.jobs) as pool:
-        done = list(pool.map(lambda p: run_pair(
-            *p, args.out, args.device, timeout=args.timeout), pairs))
+        done = list(pool.map(lambda job: job(), jobs))
     print(f"done: {sum(done)} ok, {len(done) - sum(done)} failed",
           flush=True)
     return 0

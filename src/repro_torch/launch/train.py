@@ -78,7 +78,7 @@ from repro_torch.core.swarm import (
     swarm_init,
 )
 from repro_torch.data import DataConfig, SyntheticLMDataset, make_node_batches
-from repro_torch.models import TransformerLM, init_params
+from repro_torch.models import TransformerLM, init_params, param_split
 from repro_torch.optim import make_optimizer
 from repro_torch import sched as S
 
@@ -443,6 +443,8 @@ class Trainer:
     join: Optional[Callable] = None       # --avail: the join bootstrap
     chunker: Optional[Callable] = None    # --scan-chunk: the chunk driver
     mesh: object = None       # a node mesh (launch/mesh.py): this rank's node
+    # a mesh with a model axis: the parameters' split (param_split)
+    param_specs: object = None
 
     @property
     def h_max(self) -> int:
@@ -555,9 +557,12 @@ class Trainer:
             # tuple), so a reader needs the flag to build its template
             meta["codec"] = {"spec": a.codec or "q8", "state": sorted(tree),
                              "compress_state": bool(self.scfg.compress_state)}
-            save_checkpoint(path, tree, meta, mesh=self.mesh)
+            save_checkpoint(path, tree, meta, mesh=self.mesh,
+                            split=None if self.param_specs is None else
+                            {k: self.param_specs for k in tree})
         else:
-            save_checkpoint(path, ck_state.params, meta, mesh=self.mesh)
+            save_checkpoint(path, ck_state.params, meta, mesh=self.mesh,
+                            split=self.param_specs)
 
 
 def build(args, cfg=None, mesh=None, graph=None) -> Trainer:
@@ -571,7 +576,11 @@ def build(args, cfg=None, mesh=None, graph=None) -> Trainer:
     node `mesh` (``launch/mesh.py``, library only: --nodes its size, each
     rank calls this with the same flags) the transport, step, state, join,
     retirement, mean-model evaluation and checkpoints are the mesh's, and
-    each rank holds and feeds its own node."""
+    each rank holds and feeds its own node. On a mesh with a model axis
+    (``init_node_mesh(..., model_parallel=K)``) each rank holds its slices
+    of its node (``models/transformer.py`` ``param_split``), drawn as the
+    whole model's slices, and takes its node's batch; what that axis does
+    not carry yet raises before anything is built."""
     caps = validate_run_config(args.algo, gossip_impl=args.gossip_impl,
                                quantize=args.quantize,
                                nonblocking=args.nonblocking,
@@ -580,12 +589,15 @@ def build(args, cfg=None, mesh=None, graph=None) -> Trainer:
                                codec=args.codec, avail=args.avail,
                                topology=args.topology,
                                compress_state=args.compress_state,
-                               n_nodes=args.nodes, mesh=mesh)
+                               n_nodes=args.nodes, mesh=mesh,
+                               scan_chunk=args.scan_chunk)
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = reduced(cfg, n_layers=args.layers, d_model=args.d_model)
+    tp = None if mesh is None else mesh.model_shard
+    specs = None if tp is None else param_split(cfg, tp.size)
     ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
                                        seq_len=args.seq, seed=args.seed,
                                        non_iid_alpha=args.non_iid),
@@ -608,13 +620,15 @@ def build(args, cfg=None, mesh=None, graph=None) -> Trainer:
                        compress_state=args.compress_state,
                        gossip_impl=args.gossip_impl or "gather",
                        pool_size=args.pool_size, topology=args.topology)
-    model = TransformerLM(cfg)
+    model = TransformerLM(cfg, tp=tp)
     kw = dict(loss_fn=model.functional_loss, opt_update=opt.update,
               lr_fn=lambda s: args.lr, n_nodes=args.nodes,
               transport=transport_from_config(scfg, graph, args.seed,
                                               mesh=mesh), mesh=mesh)
     if args.algo == "swarm":
         kw["scfg"] = scfg
+        if specs is not None:
+            kw["param_specs"] = specs
     else:
         if args.algo == "localsgd":
             kw.update(H=args.H, h_max=scfg.h_loop_bound)
@@ -627,7 +641,8 @@ def build(args, cfg=None, mesh=None, graph=None) -> Trainer:
     step = make_algorithm(args.algo, **kw)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    state = swarm_init(gen, scfg, lambda g: init_params(g, cfg, device),
+    state = swarm_init(gen, scfg,
+                       lambda g: init_params(g, cfg, device, tp=tp),
                        opt.init, mesh=mesh)
     if args.algo == "sgp":
         state = sgp_init_state(state, args.nodes, args.quantize, mesh=mesh)
@@ -658,7 +673,8 @@ def build(args, cfg=None, mesh=None, graph=None) -> Trainer:
     evaluate = make_mean_model_eval(model.functional_loss, mesh=mesh) \
         if args.eval_mean else None
     return Trainer(args, device, cfg, caps, scfg, step, state, ds, perms, hs,
-                   enc_gen, evaluate, graph, mesh=mesh, **sched)
+                   enc_gen, evaluate, graph, mesh=mesh, param_specs=specs,
+                   **sched)
 
 
 def check_args(ap: argparse.ArgumentParser, args) -> None:

@@ -4,6 +4,16 @@ templates, norms, RoPE, MLPs and the chunked cross-entropy.
 Every function keeps the JAX package's layouts and its order of operations
 (fp32 statistics, bf16 matmuls in the parameter dtype), so the same weights
 give the same numbers up to the summation order of the backends.
+
+On a node split over K GPUs (the model axis, ``models/split.py``) a
+layer takes `tp` (``launch/mesh.py`` ``ModelShard``: K, this GPU's
+index, the model group) and its parameters' slices, and two conjugate
+collectives join the slices, as in the reference's sharded program:
+:func:`copy_to_model` (identity forward, all-reduce of the gradient
+over the model group backward) where a replicated tensor enters a
+split computation, :func:`reduce_from_model` (all-reduce forward,
+identity backward) where a split computation's partial sums leave it.
+``tp=None`` is the one-GPU layer, unchanged.
 """
 from __future__ import annotations
 
@@ -11,6 +21,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
@@ -31,10 +42,13 @@ def is_info(x) -> bool:
     return isinstance(x, ParamInfo)
 
 
-def init_from_template(gen: torch.Generator, template, dtype, device):
+def init_from_template(gen: torch.Generator, template, dtype, device,
+                       take=None):
     """Materialize a tree of ParamInfo with draws from `gen` (a generator
     on `device`). The draws differ from jax.random's; tests carry JAX's
-    weights over with ``models/convert.py`` instead."""
+    weights over with ``models/convert.py`` instead. `take(i, x)`, when
+    given, keeps its part of leaf i (one GPU's slice on the model axis)
+    as each leaf is drawn whole, so the draws are the whole tree's."""
     leaves, treedef = tree_flatten(template)
 
     def make(info: ParamInfo):
@@ -48,7 +62,10 @@ def init_from_template(gen: torch.Generator, template, dtype, device):
                         device=device)
         return (w * scale).to(dtype)
 
-    return tree_unflatten(treedef, [make(i) for i in leaves])
+    if take is None:
+        return tree_unflatten(treedef, [make(i) for i in leaves])
+    return tree_unflatten(treedef, [take(j, make(i))
+                                    for j, i in enumerate(leaves)])
 
 
 def stack_template(template, n: int, axis_name: str = "layers"):
@@ -64,6 +81,110 @@ def per_lane(x, batch: int, device) -> torch.Tensor:
     lane carries its own length."""
     t = torch.as_tensor(x, device=device).to(torch.int64).reshape(-1)
     return t.expand(batch) if t.numel() == 1 else t
+
+
+# ---------------------------------------------------------------------------
+# The model axis's collectives
+# ---------------------------------------------------------------------------
+
+
+#: The model group's all-reduces, counted while this is a dict
+#: (``{"calls": n, "bytes": b}``; None, the default, counts nothing): the
+#: dry run reads them apart from the node group's collectives.
+COLLECTIVES: Optional[dict] = None
+
+
+def _all_reduce(x, group, op=dist.ReduceOp.SUM):
+    """A fresh contiguous copy of `x`, reduced over `group` in place."""
+    y = x.clone(memory_format=torch.contiguous_format)
+    if COLLECTIVES is not None:
+        COLLECTIVES["calls"] = COLLECTIVES.get("calls", 0) + 1
+        COLLECTIVES["bytes"] = COLLECTIVES.get("bytes", 0) + \
+            y.numel() * y.element_size()
+    dist.all_reduce(y, op=op, group=group)
+    return y
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the model group
+    backward. Its `vmap` rule applies it to the batched tensor as it lies
+    (an elementwise sum, so the batch dim may sit anywhere, as long as it
+    sits alike on every rank of the group)."""
+
+    @staticmethod
+    def forward(x, group):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _CopyToModel.apply(x, group), in_dims[0]
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce over the model group forward; identity backward."""
+
+    @staticmethod
+    def forward(x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _ReduceFromModel.apply(x, group), in_dims[0]
+
+
+class _MaxOverModel(torch.autograd.Function):
+    """The elementwise max over the model group; no gradient (a shift the
+    caller's result does not depend on)."""
+
+    @staticmethod
+    def forward(x, group):
+        return _all_reduce(x.detach(), group, dist.ReduceOp.MAX)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _MaxOverModel.apply(x, group), in_dims[0]
+
+
+def copy_to_model(x, tp):
+    """`x` entering a computation split over the model axis: the identity,
+    whose backward sums the slices' partial gradients over the model
+    group (`tp` None: `x`)."""
+    return x if tp is None else _CopyToModel.apply(x, tp.group)
+
+
+def reduce_from_model(x, tp):
+    """The slices' partial sums `x`, summed over the model group (`tp`
+    None: `x`); its backward hands every slice the whole gradient."""
+    return x if tp is None else _ReduceFromModel.apply(x, tp.group)
+
+
+def max_over_model(x, tp):
+    """The elementwise max of `x` over the model group, no gradient."""
+    return x if tp is None else _MaxOverModel.apply(x, tp.group)
 
 
 # ---------------------------------------------------------------------------
@@ -154,14 +275,18 @@ def activation(cfg, x):
     return F.gelu(x, approximate="tanh") if cfg.act == "gelu" else F.silu(x)
 
 
-def apply_mlp(cfg, p, x):
+def apply_mlp(cfg, p, x, tp=None):
+    """The MLP; on the model axis (`tp`) `w_up` / `w_gate` are column
+    slices and `w_down` the matching row slice, so the output's partial
+    sums are all-reduced over the model group."""
+    x = copy_to_model(x, tp)
     h = torch.matmul(x, p["w_up"])
     if cfg.gated_mlp:
         g = torch.matmul(x, p["w_gate"])
         h = activation(cfg, g) * h
     else:
         h = activation(cfg, h)
-    return torch.matmul(h, p["w_down"])
+    return reduce_from_model(torch.matmul(h, p["w_down"]), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -170,15 +295,44 @@ def apply_mlp(cfg, p, x):
 
 
 def chunked_softmax_xent(x, embed, targets, mask=None, chunk: int = 16_384,
-                         softcap: float = 0.0):
+                         softcap: float = 0.0, tp=None):
     """Mean CE of logits = x @ embed.T, online logsumexp over vocab chunks
-    in fp32. x: [B,S,D], embed: [V,D], targets: [B,S] integer."""
+    in fp32. x: [B,S,D], embed: [V,D], targets: [B,S] integer.
+
+    On the model axis (`tp`) `embed` is this GPU's vocab slice (rows
+    ``[index * V_local, (index + 1) * V_local)``): the slice's online max
+    and sum and the target's logit (from the slice that holds it) are
+    the partial statistics, and three [B,S] all-reduces over the model
+    group join them (the reference's ``layers.py:184-200``)."""
+    if tp is not None:
+        return _vocab_parallel_xent(x, embed, targets, mask, chunk, softcap,
+                                    tp)
+    m, s, tl = _xent_stats(x, embed, targets, chunk, softcap, 0)
+    return _mean_nll(m + torch.log(s) - tl, mask)
+
+
+def _vocab_parallel_xent(x, embed, targets, mask, chunk, softcap, tp):
+    x = copy_to_model(x, tp)
+    m, s, tl = _xent_stats(x, embed, targets, chunk, softcap,
+                           tp.index * embed.shape[0])
+    M = max_over_model(m, tp)
+    S = reduce_from_model(s * torch.exp(m - M), tp)
+    TL = reduce_from_model(tl, tp)
+    return _mean_nll(M + torch.log(S) - TL, mask)
+
+
+def _xent_stats(x, embed, targets, chunk, softcap, v_offset: int):
+    """The online (max, sum of exp below it, target logit) over the rows
+    of `embed`, the vocabulary's rows ``v_offset`` onwards; a target
+    outside them contributes a 0 logit."""
     V = embed.shape[0]
     chunk = min(chunk, V)
     n_chunks = -(-V // chunk)
     pad_v = n_chunks * chunk - V
     embed_p = F.pad(embed, (0, 0, 0, pad_v)) if pad_v else embed
     targets = targets.to(torch.int64)
+    if v_offset:
+        targets = targets - v_offset
     B, S = targets.shape
     m = torch.full((B, S), -torch.inf, dtype=torch.float32, device=x.device)
     s = torch.zeros((B, S), dtype=torch.float32, device=x.device)
@@ -202,7 +356,10 @@ def chunked_softmax_xent(x, embed, targets, mask=None, chunk: int = 16_384,
                            torch.clamp(loc, 0, chunk - 1)[..., None])[..., 0]
         tl = torch.where(in_chunk, tgt, tl)
         m = m_new
-    nll = m + torch.log(s) - tl
+    return m, s, tl
+
+
+def _mean_nll(nll, mask):
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(torch.float32)

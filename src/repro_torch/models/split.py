@@ -1,0 +1,127 @@
+"""The model axis of a SwarmSGD node: how a node's parameters split over
+its K GPUs (counterpart of the sharding rules of ``repro/launch/specs.py``,
+restricted to the dense training path).
+
+In the reference's production layout a node is a tensor-parallel island
+of 16 chips whose mesh axis ``"model"`` carries the split;
+:func:`logical_rules` maps each parameter's logical axes onto it. In the
+port a node is K GPUs of a node mesh (``launch/mesh.py``
+``init_node_mesh(..., model_parallel=K)``; the mesh's node axes are
+``launch/specs.py``'s); the same rules say which dimension of each
+leaf of ``param_template(cfg)`` is cut into K equal slices
+(``models/transformer.py`` ``param_split``) and which leaves every GPU of
+the node holds whole ("replicated", None).
+
+The dense rules, as the reference's: ``ffn``, ``heads_x_dim`` and
+``vocab`` (where the vocabulary divides by K) on the model axis;
+``embed``, ``layers`` and the unnamed axes (norm scales, ``q_norm`` /
+``k_norm``, the frontend's ``proj``) replicated.
+
+The port's deviation (``kv_x_dim``): heads are split whole. K must divide
+``n_heads``; where it also divides ``n_kv_heads`` the kv heads split with
+the q heads, as the reference's. Where ``n_kv_heads < K`` (gemma3-4b and
+chatglm3-6b at K 8, chatglm3-6b at K 4, paligemma-3b at any K) the
+reference cuts ``kv_x_dim`` inside a head; the port keeps ``wk`` / ``wv``
+replicated, and each GPU computes only the kv heads its own q heads read
+(``models/transformer.py`` ``_local_kv``), its partial gradient of the
+replicated weight summed over the node's GPUs. :func:`kv_deviation` names
+the cases.
+
+What the model axis does not carry yet raises ``ValueError`` naming its
+ROADMAP.md Queue A item (:data:`NOT_ON_THE_MODEL_AXIS`).
+
+FUNCTIONS only: importing this module touches no device state.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+MODEL_AXIS = "model"
+
+#: What the model axis does not carry yet, each refusal naming the
+#: ROADMAP.md item that carries it.
+NOT_ON_THE_MODEL_AXIS = {
+    "moe": ("the MoE expert axes (expert, expert_ffn) on the model axis "
+            "wait for ROADMAP.md Queue A 11"),
+    "ssm": ("the SSM rules (ssm_proj, ssm_conv, ssm_inner, ssm_head) on "
+            "the model axis wait for ROADMAP.md Queue A 12"),
+    "big_model": ("the big_model layout (a node is a whole pod) waits for "
+                  "ROADMAP.md Queue A 13"),
+    "serve": ("serving under the model axis (prefill, decode, chunk) waits "
+              "for ROADMAP.md Queue A 14"),
+    "run": ("on the model axis the swarm's blocking superstep runs, on the "
+            "gather or ppermute transport, exact or with the q8 lattice; "
+            "the baselines, --scan-chunk, the non-blocking and overlapped "
+            "modes, the other codecs and transports, --compress-state and "
+            "the scheduler wait for ROADMAP.md Queue A 15"),
+}
+
+
+def check_model_parallel(cfg, model_parallel: int) -> None:
+    """Raise ValueError where the port does not split `cfg`'s node over
+    `model_parallel` GPUs: a non-dense arch (naming its ROADMAP.md item),
+    heads that do not divide, or an FFN width that does not."""
+    K = int(model_parallel)
+    if K < 1:
+        raise ValueError(f"model_parallel={K}: a node holds 1 or more GPUs")
+    if K == 1:
+        return
+    if cfg.big_model:
+        raise ValueError(f"{cfg.name}: {NOT_ON_THE_MODEL_AXIS['big_model']}")
+    if cfg.moe is not None:
+        raise ValueError(f"{cfg.name}: {NOT_ON_THE_MODEL_AXIS['moe']}")
+    if cfg.ssm is not None or any(m == "mamba" for m, _ in
+                                  cfg.pattern + cfg.tail_pattern):
+        raise ValueError(f"{cfg.name}: {NOT_ON_THE_MODEL_AXIS['ssm']}")
+    if cfg.n_heads % K:
+        raise ValueError(
+            f"{cfg.name}: model_parallel={K} does not divide n_heads="
+            f"{cfg.n_heads}; the port splits heads whole (the reference "
+            "would cut heads_x_dim inside a head)")
+    if cfg.n_kv_heads % K and K % cfg.n_kv_heads:
+        raise ValueError(
+            f"{cfg.name}: model_parallel={K} and n_kv_heads="
+            f"{cfg.n_kv_heads}: one must divide the other, so that each "
+            "GPU's q heads read whole kv heads")
+    if cfg.d_ff % K:
+        raise ValueError(f"{cfg.name}: model_parallel={K} does not divide "
+                         f"d_ff={cfg.d_ff}")
+
+
+def kv_deviation(cfg, model_parallel: int) -> bool:
+    """True where the port keeps ``wk`` / ``wv`` replicated and the
+    reference cuts ``kv_x_dim`` over the model axis: n_kv_heads < K."""
+    return model_parallel > 1 and cfg.n_kv_heads % model_parallel != 0
+
+
+def logical_rules(cfg, mesh: Dict[str, int]) -> Dict[Optional[str],
+                                                       Optional[str]]:
+    """Logical axis name -> mesh axis (or None) for the dense axes
+    (``specs.py:43``), with the port's kv rule (:func:`kv_deviation`);
+    `mesh` maps axis names to sizes, as ``{"data": n, "model": K}``."""
+    K = mesh[MODEL_AXIS]
+    check_model_parallel(cfg, K)
+    return {
+        None: None,
+        "layers": None,
+        "embed": None,
+        "vocab": MODEL_AXIS if cfg.vocab_size % K == 0 else None,
+        "ffn": MODEL_AXIS,
+        "heads_x_dim": MODEL_AXIS,
+        "kv_x_dim": None if kv_deviation(cfg, K) else MODEL_AXIS,
+    }
+
+
+def take_slice(x, dim, model_parallel: int, index: int):
+    """GPU `index`'s slice of the leaf `x` (a tensor or an array) along
+    `dim`, a fresh contiguous copy; `x` itself where `dim` is None."""
+    if dim is None:
+        return x
+    n = x.shape[dim] // model_parallel
+    part = x[(slice(None),) * dim + (slice(index * n, (index + 1) * n),)]
+    if isinstance(part, torch.Tensor):
+        return part.clone(memory_format=torch.contiguous_format)
+    return np.ascontiguousarray(part)

@@ -13,11 +13,22 @@ same model as an ``nn.Module`` whose parameter names are the tree paths
 
 Entry points:
   param_template(cfg) / init_params(gen, cfg, device)
+  param_split(cfg, K) / shard_template(cfg, K)   a node over K GPUs
   forward(cfg, params, tokens, mode=...)     train / prefill / decode / chunk
   loss_fn(cfg, params, batch)                chunked CE + router aux loss
   node_losses(cfg, params, batch)            every node's loss_fn (remat)
   init_cache(cfg, batch, cache_size, device=...)   KV / ring / SSM cache tree
   logits_head(cfg, params, hidden)           fp32 logits
+
+On a node split over K GPUs (``tp``, ``launch/mesh.py`` ``ModelShard``;
+the parameters this GPU's slices, :func:`param_split` by the rules of
+``models/split.py``) training runs the
+reference's tensor-parallel layout: each attention layer the GPU's own
+heads with a row-parallel ``wo``, the MLP column- then row-parallel, the
+embedding a masked lookup of the GPU's vocab rows summed over the model
+group, and the cross-entropy vocab-parallel (``models/layers.py``). Norms,
+``q_norm`` / ``k_norm`` and the frontend's ``proj`` stay whole on every
+GPU. Serving under the model axis is refused.
 
 A cache's leaves carry the batch on their first axis after the stacked
 block axis (``blocks`` leaves [n_blocks, B, ...], ``tail`` leaves [B, ...]),
@@ -41,8 +52,11 @@ from repro_torch.models import multimodal as mm_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     ParamInfo, apply_mlp, apply_norm, apply_rope, chunked_softmax_xent,
-    init_from_template, mlp_template, norm_template, per_lane,
-    rms_norm_simple, stack_template,
+    copy_to_model, init_from_template, mlp_template, norm_template,
+    per_lane, reduce_from_model, rms_norm_simple, stack_template,
+)
+from repro_torch.models.split import (
+    MODEL_AXIS, NOT_ON_THE_MODEL_AXIS, logical_rules, take_slice,
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
@@ -163,9 +177,51 @@ def param_template(cfg):
     return t
 
 
-def init_params(gen: torch.Generator, cfg, device):
+def param_split(cfg, model_parallel: int):
+    """For each leaf of ``param_template(cfg)``, the dimension cut into
+    `model_parallel` slices (an index into the un-stacked leaf's shape) or
+    None where every GPU of the node holds it whole (``specs.py:97``
+    ``param_pspec`` read as one dimension a leaf; the rules are
+    ``models/split.py``'s)."""
+    K = int(model_parallel)
+    rules = logical_rules(cfg, {MODEL_AXIS: K})
+
+    def split_of(info: ParamInfo):
+        dims = [i for i, a in enumerate(info.axes)
+                if rules[a] == MODEL_AXIS]
+        assert len(dims) <= 1, info
+        if not dims or K == 1:
+            return None
+        assert info.shape[dims[0]] % K == 0, (info, K)
+        return dims[0]
+    return tree_map(split_of, param_template(cfg))
+
+
+def shard_template(cfg, model_parallel: int):
+    """``param_template(cfg)`` with each split leaf's shape the slice one
+    GPU of the node holds."""
+    K = int(model_parallel)
+
+    def local(info: ParamInfo, d):
+        if d is None:
+            return info
+        shape = list(info.shape)
+        shape[d] //= K
+        return ParamInfo(tuple(shape), info.axes, info.init, info.scale)
+    return tree_map(local, param_template(cfg), param_split(cfg, K))
+
+
+def init_params(gen: torch.Generator, cfg, device, tp=None):
+    """The model drawn from `gen`; with `tp` (a ``ModelShard``) this GPU's
+    slices of it, bitwise the slices of the whole model's draws."""
+    take = None
+    if tp is not None:
+        split = tree_leaves(param_split(cfg, tp.size))
+
+        def take(i, x):
+            return take_slice(x, split[i], tp.size, tp.index)
     return init_from_template(gen, param_template(cfg),
-                              getattr(torch, cfg.dtype), device)
+                              getattr(torch, cfg.dtype), device, take)
 
 
 # ---------------------------------------------------------------------------
@@ -209,19 +265,43 @@ def init_cache(cfg, batch: int, cache_size: int, dtype=None, *, device):
 # ---------------------------------------------------------------------------
 
 
+def _local_kv(cfg, p, tp):
+    """(wk, wv) as this GPU computes with them: the leaves themselves,
+    whole or its slices of whole kv heads; on the model axis with
+    n_kv_heads < K (``models/split.py`` ``kv_deviation``: the leaves
+    whole on every GPU) the columns of the kv heads its q heads read,
+    taken through ``copy_to_model``, so that the GPUs' partial gradients
+    of the whole leaf are summed over the model group."""
+    hd = cfg.resolved_head_dim
+    if tp is None or p["wk"].shape[-1] != cfg.n_kv_heads * hd:
+        return p["wk"], p["wv"]
+    nh = cfg.n_heads // tp.size
+    group = cfg.n_heads // cfg.n_kv_heads
+    lo = (tp.index * nh) // group
+    hi = ((tp.index + 1) * nh - 1) // group + 1
+    return tuple(copy_to_model(p[k], tp)[..., lo * hd:hi * hd]
+                 for k in ("wk", "wv"))
+
+
 def _attn_layer(cfg, p, x, positions, *, mixer: str, mode: str = "train",
-                cache=None, clen=None, pool=None, pages=None, n_valid=None):
+                cache=None, clen=None, pool=None, pages=None, n_valid=None,
+                tp=None):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     theta = cfg.rope_theta
     if mixer == "swa" and cfg.rope_theta_local is not None:
         theta = cfg.rope_theta_local
-    q = torch.matmul(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = torch.matmul(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = torch.matmul(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    # on the model axis: this GPU's heads (all of them without one)
+    x = copy_to_model(x, tp)
+    nh = p["wq"].shape[-1] // hd
+    wk, wv = _local_kv(cfg, p, tp)
+    q = torch.matmul(x, p["wq"]).reshape(B, S, nh, hd)
+    k = torch.matmul(x, wk).reshape(B, S, wk.shape[-1] // hd, hd)
+    v = torch.matmul(x, wv).reshape(B, S, wv.shape[-1] // hd, hd)
     if cfg.qk_norm:
-        q = rms_norm_simple(q, p["q_norm"])
-        k = rms_norm_simple(k, p["k_norm"])
+        # whole on every GPU, used on its own heads: summed gradients
+        q = rms_norm_simple(q, copy_to_model(p["q_norm"], tp))
+        k = rms_norm_simple(k, copy_to_model(p["k_norm"], tp))
     q = apply_rope(q, positions, theta=theta, rot_frac=cfg.partial_rotary)
     k = apply_rope(k, positions, theta=theta, rot_frac=cfg.partial_rotary)
     new_cache = None
@@ -279,13 +359,14 @@ def _attn_layer(cfg, p, x, positions, *, mixer: str, mode: str = "train",
                                         chunk_kv=_pick_chunk(S))
         if mode == "prefill":
             new_cache = {"k": k, "v": v}
-    return torch.matmul(out.reshape(B, S, cfg.n_heads * hd), p["wo"]), \
-        new_cache
+    return reduce_from_model(torch.matmul(out.reshape(B, S, nh * hd),
+                                          p["wo"]), tp), new_cache
 
 
 def _apply_layer(cfg, p, x, positions, *, mixer: str, ffn: str,
                  mode: str = "train", cache=None, clen=None, pool=None,
-                 pages=None, n_valid=None, moe_per_lane: bool = False):
+                 pages=None, n_valid=None, moe_per_lane: bool = False,
+                 tp=None):
     """-> (x, the layer's new cache or None, router aux loss or None)."""
     h = apply_norm(cfg, p["norm1"], x)
     if mixer == "mamba":
@@ -295,11 +376,12 @@ def _apply_layer(cfg, p, x, positions, *, mixer: str, ffn: str,
         mix, new_cache = _attn_layer(cfg, p["attn"], h, positions,
                                      mixer=mixer, mode=mode, cache=cache,
                                      clen=clen, pool=pool, pages=pages,
-                                     n_valid=n_valid)
+                                     n_valid=n_valid, tp=tp)
     x = x + mix
     aux = None
     if ffn == "dense":
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x),
+                          tp)
     elif ffn == "moe":
         mo, aux = moe_lib.apply_moe(cfg, p["moe"],
                                     apply_norm(cfg, p["norm2"], x),
@@ -342,11 +424,20 @@ def _unbind_blocks(tree):
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg, params, tokens, prefix_embeds=None):
+def _embed(cfg, params, tokens, prefix_embeds=None, tp=None):
     """Scaled token embeddings [B,S,D], after the projected prefix when
-    `prefix_embeds` is given."""
+    `prefix_embeds` is given. A vocab-split table (on the model axis) is
+    looked up where this GPU holds the token's row, zeros elsewhere, and
+    the rows are summed over the model group (one term each: exact)."""
     dtype = getattr(torch, cfg.dtype)
-    x = params["embed"][tokens.to(torch.int64)].to(dtype)
+    table = params["embed"]
+    if tp is not None and table.shape[0] != cfg.vocab_size:
+        loc = tokens.to(torch.int64) - tp.index * table.shape[0]
+        own = (loc >= 0) & (loc < table.shape[0])
+        x = table[torch.where(own, loc, 0)].to(dtype)
+        x = reduce_from_model(torch.where(own[..., None], x, 0), tp)
+    else:
+        x = table[tokens.to(torch.int64)].to(dtype)
     # a device fill, not a host copy: a CUDA graph capture runs this
     x = x * torch.full((), cfg.d_model ** 0.5, dtype=dtype, device=x.device)
     if prefix_embeds is not None:
@@ -357,7 +448,7 @@ def _embed(cfg, params, tokens, prefix_embeds=None):
 
 def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
             n_valid=None, pools=None, prefix_embeds=None,
-            moe_per_lane: bool = False):
+            moe_per_lane: bool = False, tp=None):
     """-> (hidden [B,S',D], new_cache, aux): aux is the router's
     load-balance loss summed over the MoE layers (fp32 0 without them).
 
@@ -382,9 +473,14 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
     ``moe_per_lane``: each of the B lanes routes and dispatches its MoE
     tokens on its own, with the capacity of its S tokens (the serving
     engine's steps, as the reference's engine vmaps a batch-1 forward
-    over its slots); otherwise the call's B*S tokens share the capacity."""
+    over its slots); otherwise the call's B*S tokens share the capacity.
+
+    ``tp``: this GPU's share of a node split over the model axis
+    (``params`` its slices); training only."""
+    if tp is not None and mode != "train":
+        raise ValueError(f"mode={mode!r}: {NOT_ON_THE_MODEL_AXIS['serve']}")
     x = _embed(cfg, params, tokens, prefix_embeds
-               if mode in ("train", "prefill") else None)
+               if mode in ("train", "prefill") else None, tp)
     B, S = x.shape[0], x.shape[1]
     clen = pages = None
     if mode in ("decode", "chunk"):
@@ -395,7 +491,7 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
     else:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     kw = dict(mode=mode, clen=clen, pages=pages, n_valid=n_valid,
-              moe_per_lane=moe_per_lane)
+              moe_per_lane=moe_per_lane, tp=tp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = {}
     if cfg.n_full_blocks:
@@ -443,29 +539,33 @@ def logits_head(cfg, params, hidden):
     return logits
 
 
-def train_loss(cfg, params, hidden, aux, targets):
+def train_loss(cfg, params, hidden, aux, targets, tp=None):
     """hidden [B,S',D] after the final norm, the router's aux loss and
     targets [B,S] -> mean chunked CE over the text positions +
-    router_aux_coef * aux."""
+    router_aux_coef * aux. A vocab-split table (on the model axis `tp`)
+    takes the vocab-parallel CE; a whole one the CE of one GPU, the same
+    on every GPU of the node."""
     S = targets.shape[1]
     hidden = hidden[:, -S:]   # drop the frontend prefix positions
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    split = tp if table.shape[0] != cfg.vocab_size else None
     ce = chunked_softmax_xent(hidden, table, targets,
-                              softcap=cfg.logit_softcap)
+                              softcap=cfg.logit_softcap, tp=split)
     if cfg.moe is None:
         return ce
     return ce + cfg.moe.router_aux_coef * aux
 
 
-def loss_fn(cfg, params, batch):
+def loss_fn(cfg, params, batch, tp=None):
     """batch: tokens [B,S], targets [B,S], optional prefix_embeds -> mean
-    chunked CE over the text positions + router_aux_coef * aux."""
+    chunked CE over the text positions + router_aux_coef * aux (on the
+    model axis `tp`: this GPU's slices, every GPU of the node the loss)."""
     hidden, _, aux = forward(cfg, params, batch["tokens"],
-                             prefix_embeds=batch.get("prefix_embeds"))
-    return train_loss(cfg, params, hidden, aux, batch["targets"])
+                             prefix_embeds=batch.get("prefix_embeds"), tp=tp)
+    return train_loss(cfg, params, hidden, aux, batch["targets"], tp)
 
 
-def node_losses(cfg, params, batch):
+def node_losses(cfg, params, batch, tp=None):
     """Every node's :func:`loss_fn` for node-stacked `params` and `batch`
     (leaves [n_nodes, ...]) -> [n_nodes], as ``vmap(loss_fn)`` gives it,
     with the scanned blocks taken out of the node vmap: the embedding,
@@ -483,16 +583,21 @@ def node_losses(cfg, params, batch):
     transform). The model draws no random numbers in training, so no RNG
     state is saved (``get_rng_state`` cannot run under a CUDA-graph
     capture); the recompute is the same operations on the same inputs,
-    so remat on is bitwise remat off."""
+    so remat on is bitwise remat off.
+
+    On the model axis (`tp`) every GPU of a node runs this on its slices;
+    the recompute replays the block's collectives in the backward pass,
+    in the same order on every GPU of the node."""
     vmap = torch.func.vmap
     x = vmap(lambda p, b: _embed(cfg, p, b["tokens"],
-                                 b.get("prefix_embeds")))(params, batch)
+                                 b.get("prefix_embeds"), tp))(params, batch)
     B, S = x.shape[1], x.shape[2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.n_full_blocks:
         def block(bp, xb):
-            xb, _, a = _apply_block(cfg, cfg.pattern, bp, xb, positions)
+            xb, _, a = _apply_block(cfg, cfg.pattern, bp, xb, positions,
+                                    tp=tp)
             return (xb,) if a is None else (xb, a)
         run = vmap(block)
         # one unbind per stacked leaf, as `_unbind_blocks` under the vmap
@@ -509,11 +614,11 @@ def node_losses(cfg, params, batch):
     def head(p, xh, a, b):
         if cfg.tail_pattern:
             xh, _, at = _apply_block(cfg, cfg.tail_pattern, p["tail"], xh,
-                                     positions)
+                                     positions, tp=tp)
             if at is not None:
                 a = a + at
         xh = apply_norm(cfg, p["final_norm"], xh)
-        return train_loss(cfg, p, xh, a, b["targets"])
+        return train_loss(cfg, p, xh, a, b["targets"], tp)
     return vmap(head, in_dims=(0, 0, 0 if aux.dim() else None, 0))(
         params, x, aux, batch)
 
@@ -543,12 +648,19 @@ def _param_tree(module: nn.Module, template):
 class TransformerLM(nn.Module):
     """The decoder as an nn.Module; parameter names are the tree
     paths. Built on the meta device: the engine supplies every tensor
-    through ``torch.func.functional_call`` (see :meth:`functional_loss`)."""
+    through ``torch.func.functional_call`` (see :meth:`functional_loss`).
+    With `tp` (a ``ModelShard``) it is one GPU's share of a node split
+    over the model axis: its parameters are that GPU's slices
+    (:func:`shard_template`)."""
 
-    def __init__(self, cfg, device="meta"):
+    def __init__(self, cfg, device="meta", tp=None):
         super().__init__()
         self.cfg = cfg
-        self._template = param_template(cfg)
+        self.tp = tp
+        if tp is None:
+            self._template = param_template(cfg)
+        else:
+            self._template = shard_template(cfg, tp.size)
         _register(self, self._template, device)
 
     def param_tree(self):
@@ -556,7 +668,7 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, targets):
         return loss_fn(self.cfg, self.param_tree(),
-                       {"tokens": tokens, "targets": targets})
+                       {"tokens": tokens, "targets": targets}, self.tp)
 
     def functional_loss(self, params, batch):
         """Loss of the model at the parameter tree `params` (one node's)."""
@@ -571,5 +683,6 @@ class TransformerLM(nn.Module):
         training paths take their gradients through it
         (``core/exchange.py`` ``node_grads_fn``)."""
         return node_losses(self.cfg, params, {"tokens": batch["tokens"],
-                                              "targets": batch["targets"]})
+                                              "targets": batch["targets"]},
+                           self.tp)
 

@@ -132,13 +132,21 @@ def link_bw(n_devices: int) -> float:
 
 
 def roofline_terms(flops: float, n_bytes: float, coll_bytes: float,
-                   dtype: str, n_devices: int) -> dict:
+                   dtype: str, n_devices: int, model_coll_bytes: float = 0,
+                   model_parallel: int = 1) -> dict:
     """The three terms in seconds and the largest: FLOPs over the matrix
-    peak, bytes over the HBM rate, collective bytes over the link."""
+    peak, bytes over the HBM rate, collective bytes over the link. Of
+    `coll_bytes`, the model group's `model_coll_bytes` (a node's
+    `model_parallel` GPUs, neighbours on the mesh's minor axis) cross the
+    slowest link that many GPUs may cross, NVLink within one host; the
+    rest the slowest link the mesh of `n_devices` may cross."""
+    node_bytes = coll_bytes - model_coll_bytes
     terms = {"compute": flops / peak_flops(dtype),
              "memory": n_bytes / HW.HBM_BW,
-             "collective": coll_bytes / link_bw(n_devices)
-             if coll_bytes else 0.0}
+             "collective": (node_bytes / link_bw(n_devices) if node_bytes
+                            else 0.0) +
+             (model_coll_bytes / link_bw(model_parallel)
+              if model_coll_bytes else 0.0)}
     return {"compute_s": terms["compute"], "memory_s": terms["memory"],
             "collective_s": terms["collective"],
             "bottleneck": max(terms, key=terms.get)}

@@ -6,7 +6,16 @@ skipped and the failed pairs.
       [--dir results/dryrun_torch]
 
 Every time in it is a prediction, counted FLOPs and bytes over the card's
-datasheet peaks (``repro_torch/hardware.py``), not a measurement.
+datasheet peaks (``repro_torch/hardware.py``), not a measurement. The
+terms are priced anew from each record's counts (``analysis.py``
+``roofline_terms``), so a record written before a change of pricing
+reads as a new one would.
+
+A second table reads the ``train_4k`` records on the model axis
+(``dryrun --model-parallel K``, ``launch/sweep.py``): per arch and mesh,
+the peak a GPU at one GPU a node, at the reference's K and at the
+smallest K that fits; an arch that waits for its ROADMAP.md item says
+which.
 """
 from __future__ import annotations
 
@@ -20,8 +29,22 @@ def load(dirname: str) -> list:
     rows = []
     for p in sorted(glob.glob(os.path.join(dirname, "*.json"))):
         with open(p) as f:
-            rows.append(json.load(f))
+            rows.append(priced(json.load(f)))
     return rows
+
+
+def priced(r: dict) -> dict:
+    """A counted record with its roofline terms priced from its counts
+    by ``analysis.py`` ``roofline_terms``; any other record as it is."""
+    if "flops_per_dev" not in r:
+        return r
+    from repro_torch.configs import get_config
+    from repro_torch.roofline.analysis import roofline_terms
+    return {**r, **roofline_terms(
+        r["flops_per_dev"], r["bytes_analytic_per_dev"],
+        r["coll_bytes_per_dev"], get_config(r["arch"]).dtype,
+        r["n_devices"], r.get("model_allreduce_bytes_per_dev", 0),
+        r.get("model_parallel", 1))}
 
 
 def fmt_bytes(b) -> str:
@@ -80,6 +103,56 @@ def build_tables(rows):
     return table, sk, fl, ok
 
 
+TERM = {"compute": "cmp", "memory": "mem", "collective": "coll"}
+
+
+def term(r) -> str:
+    """' cmp', ' mem' or ' coll': the record's largest term ('' if none)."""
+    return f" {TERM[r['bottleneck']]}" if r and "bottleneck" in r else ""
+
+
+def model_axis_table(rows) -> str:
+    """The train_4k rows on the model axis, a line per (arch, mesh): each
+    peak in GiB a GPU beside the record's largest term."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sweep import MODEL_AXIS_SHAPE, model_axis_ks
+    from repro_torch.models.split import NOT_ON_THE_MODEL_AXIS
+    ok = [r for r in rows if "error" not in r and "skipped" not in r
+          and r.get("shape") == MODEL_AXIS_SHAPE]
+    by = {}
+    for r in ok:
+        base = r["mesh"].split("_tp")[0]
+        by.setdefault((r["arch"], base), {})[r.get("model_parallel", 1)] = r
+    lines = ["| arch | mesh | 1 GPU a node: peak GiB | reference's K: "
+             "fits (peak GiB) | smallest K that fits: peak GiB | kv heads "
+             "whole at that K |", "|---|---|---|---|---|---|"]
+    for (arch, mesh), recs in sorted(by.items()):
+        one = recs.get(1)
+        ks = model_axis_ks(arch)
+        if ks is None:
+            cfg = get_config(arch)
+            why = "big_model" if cfg.big_model else \
+                "moe" if cfg.moe is not None else "ssm"
+            item = NOT_ON_THE_MODEL_AXIS[why].split("ROADMAP.md ")[-1]
+            lines.append(f"| {arch} | {mesh} | "
+                         f"{fmt_bytes(one and one['peak_bytes'])}{term(one)}"
+                         f" | waits ({item}) | - | - |")
+            continue
+        k_ref = ks[0]
+        ref = recs.get(k_ref)
+        fit = next((recs[k] for k in sorted(recs) if k > 1 and
+                    recs[k]["fits"]), None)
+        lines.append(
+            f"| {arch} | {mesh} | {fmt_bytes(one and one['peak_bytes'])}"
+            f"{term(one)} | K {k_ref}: " +
+            (f"{fmt_fits(ref)}{term(ref)}" if ref else "-") + " | " +
+            (f"K {fit['model_parallel']}: {fmt_bytes(fit['peak_bytes'])}"
+             f"{term(fit)}"
+             if fit else "none of " + ", ".join(map(str, ks[1]))) + " | " +
+            ("yes" if (fit or {}).get("kv_heads_whole") else "no") + " |")
+    return "\n".join(lines)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="repro_torch.roofline.table")
     ap.add_argument("--dir", default="results/dryrun_torch")
@@ -91,6 +164,8 @@ def main(argv=None) -> None:
     if fl:
         print("\nFAILED:\n" + fl)
     print(f"\n{len(ok)} combinations traced OK.")
+    print("\nOn the model axis (train_4k):\n" +
+          model_axis_table(load(args.dir)))
 
 
 if __name__ == "__main__":
