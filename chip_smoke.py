@@ -2826,11 +2826,12 @@ def _dryrun_start(commands: dict, devices,
     return procs
 
 
-def _dryrun_jobs(commands: dict, devices, procs=None) -> dict:
-    """Run ``repro_torch.launch.dryrun`` for every (command, device), all
-    at once, one process each (or wait for `procs`, which
+def _dryrun_jobs(commands: dict, devices, procs=None,
+                 arch: str = "transformer-wmt") -> dict:
+    """Run ``repro_torch.launch.dryrun`` of `arch` for every (command,
+    device), all at once, one process each (or wait for `procs`, which
     `_dryrun_start` started); -> {(name, device): record}."""
-    procs = procs or _dryrun_start(commands, devices)
+    procs = procs or _dryrun_start(commands, devices, arch)
     records = {}
     for key, p in procs.items():
         stdout, stderr = p.communicate(timeout=900)
@@ -6117,8 +6118,24 @@ TP_BATCH = 4
 # on both GPUs) with the kv weights' gradient sum dropped
 TP_REDUCED = {"gemma3-4b": "mlp_reduce_dropped",
               "paligemma-3b": "kv_grad_sum_dropped"}
-TP_SWARM = {"gather_exact": ("gather", False), "gather_q8": ("gather", True),
-            "ppermute_q8": ("ppermute", True)}
+# name: (transport, q8, mode) of the reduced 2 x 2 supersteps
+TP_SWARM = {"gather_exact": ("gather", False, "blocking"),
+            "gather_q8": ("gather", True, "blocking"),
+            "ppermute_q8": ("ppermute", True, "blocking"),
+            "gather_nonblocking_q8": ("gather", True, "nonblocking"),
+            "gather_overlap_q8": ("gather", True, "overlap"),
+            "ppermute_overlap_exact": ("ppermute", False, "overlap"),
+            "gather_legacy_q8": ("gather_legacy", True, "blocking")}
+# the full-width runs: the blocking one and the paper's headline
+# combination, non-blocking with the pipelined exchange and q8
+TP_FULL_MODES = ("blocking", "overlap")
+# launches a rank makes in TP_STEPS supersteps of H = 2 (the overlapped
+# run's build encodes its prologue's payload)
+TP_FULL_LAUNCHES = {
+    "blocking": {"sgd_update": 2 * TP_STEPS, "quantize_mod": TP_STEPS,
+                 "decode_avg": TP_STEPS},
+    "overlap": {"sgd_update": 2 * TP_STEPS, "quantize_mod": TP_STEPS + 1,
+                "decode_avg": TP_STEPS}}
 # card vs CPU at fp32, relative to a leaf's scale above 1 (the model
 # tests' bound); the exact supersteps the codecs' 2e-5
 TP_ATOL, TP_STEP_ATOL = 1e-5, 2e-5
@@ -6204,11 +6221,17 @@ def _tp_whole_same(leaves, split, mesh) -> bool:
     return True
 
 
-def _tp_argv(impl, q8, batch, seq, steps, device, arch=TP_ARCH):
+def _tp_argv(impl, q8, batch, seq, steps, device, arch=TP_ARCH,
+             mode="blocking"):
     argv = ["--arch", arch, "--nodes", str(TP_NODES), "--H", "2",
             "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
             "--device", device, "--gossip-impl", impl, "--seed", "0"]
-    return argv + (["--quantize"] if q8 else [])
+    return argv + (["--quantize"] if q8 else []) + _tp_mode_flags(mode)
+
+
+def _tp_mode_flags(mode) -> list:
+    return {"blocking": [], "nonblocking": ["--nonblocking"],
+            "overlap": ["--nonblocking", "--overlap"]}[mode]
 
 
 def _tp_reference_rank(rank, world, port, out_dir, device):
@@ -6217,7 +6240,9 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
     one-GPU port on the same weights, with and without the case's planted
     fault; then 2 supersteps of each TP_SWARM command on the 2 x 2 mesh
     against the CPU's one-GPU 2-node run of its flags (exact), and the q8
-    encodes the kernel ran bitwise its plain version."""
+    encodes bitwise their plain version (the kernel's on the flat
+    transport; a per-leaf oracle's leaf by leaf). An overlapped command
+    re-primes its pipeline from the CPU's weights."""
     import dataclasses
     import numpy as np
     import torch
@@ -6226,7 +6251,10 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
     from repro_torch.models import param_split
     from repro_torch.models import init_params
     from repro_torch.models.convert import shard_params
+    from repro_torch.core import exchange as E
+    from repro_torch.core.swarm import SwarmState, pipeline_prologue
     from repro_torch.quant.codecs import LatticeCodec
+    from repro_torch.quant.schemes import _blocked
     from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
                                   tree_unflatten)
     mesh = _ms_mesh(rank, world, port, device, TP_K)
@@ -6278,13 +6306,30 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
         enc.append(same_bits(q.reshape(wire[0].shape), wire[0]) and
                    same_bits(s.reshape(wire[1].shape), wire[1]))
         return wire
-    for name, (impl, q8) in TP_SWARM.items():
+    leaf_encode0 = E.encode_modular
+
+    def leaf_encode(qc, x, ref, rng=None, *, u=None, lead=0):
+        def blocks(v):
+            return _blocked(v.to(torch.float32), qc.block,
+                            lead)[0].reshape(-1, qc.block)
+        if u is None:               # the draw encode_modular makes
+            u = torch.rand(_blocked(x, qc.block, lead)[0].shape,
+                           generator=rng, dtype=torch.float32,
+                           device=x.device)
+        q, s = leaf_encode0(qc, x, ref, None, u=u, lead=lead)
+        pq, ps = R.quantize_mod(blocks(x), blocks(ref),
+                                u.reshape(-1, qc.block), safety=qc.safety,
+                                min_scale=qc.min_scale, bits=qc.bits)
+        enc.append(same_bits(pq.reshape(q.shape), q) and
+                   same_bits(ps.reshape(s.shape), s))
+        return q, s
+    for name, (impl, q8, mode) in TP_SWARM.items():
         _ms_progress(mesh, f"tp reference {name}")
-        argv = _tp_argv(impl, q8, 2, 64, 2, "cpu")
+        argv = _tp_argv(impl, q8, 2, 64, 2, "cpu", mode=mode)
         one = train.build(train.build_parser().parse_args(argv), cfg)
         args = train.build_parser().parse_args(
-            _tp_argv(impl, q8, 2, 64, 2, device))
-        LatticeCodec.encode = encode
+            _tp_argv(impl, q8, 2, 64, 2, device, mode=mode))
+        LatticeCodec.encode, E.encode_modular = encode, leaf_encode
         try:
             tr = train.build(args, cfg, mesh=mesh)
             # the card's generator draws other weights: start from the
@@ -6295,6 +6340,11 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
                     TP_K, mesh.model_index, stacked=True))
                 for k, v in (("params", one.state.params),
                              ("prev", one.state.prev)) if v is not None})
+            if tr.scfg.overlap:
+                st = tr.state
+                tr.state = pipeline_prologue(
+                    tr.scfg, SwarmState(st.params, st.opt, None, 0),
+                    mesh.fold_generator(tr.enc_gen))
             errs, same, losses = [], [], []
             for t in range(2):
                 m = tr.superstep(t)
@@ -6308,7 +6358,7 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
                 same.append(_tp_whole_same(mine, split, mesh))
                 losses.append(float(m["loss"]))
         finally:
-            LatticeCodec.encode = encode0
+            LatticeCodec.encode, E.encode_modular = encode0, leaf_encode0
         rec[name] = {"errs": errs, "whole_same": same, "losses": losses,
                      "encodes_bitwise": list(enc)}
         enc.clear()
@@ -6329,9 +6379,10 @@ def _tp_full_cfg(cfg_name):
 
 
 def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
-                  device):
-    """A rank of the full-width run: its slices of its node of TP_ARCH,
-    TP_STEPS supersteps of blocking gather q8 through ``launch/train.py``
+                  device, mode="blocking"):
+    """A rank of a full-width run: its slices of its node of TP_ARCH,
+    TP_STEPS supersteps of gather q8 in `mode` (blocking, or non-blocking
+    with the pipelined exchange: ``overlap``) through ``launch/train.py``
     ``build(args, cfg, mesh=)``; writes its losses, superstep times,
     launches, peak allocated above what was live before the run was built,
     the model group's all-reduces (count, bytes, time on the current
@@ -6346,16 +6397,20 @@ def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
     dev = mesh.device
     cuda = dev.type == "cuda"
     cfg = _tp_full_cfg(cfg_name)
-    _ms_progress(mesh, "tp full width build")
+    _ms_progress(mesh, f"tp full width {mode} build")
     gc.collect()
     _sync(dev)
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     start = torch.cuda.memory_allocated(dev) if cuda else 0
+    # the allocator's retries (free the cache and allocate again) near the
+    # card's capacity, each behind a device sync
+    retries0 = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0) \
+        if cuda else 0
     reset_launch_counts()
     args = train.build_parser().parse_args(
-        _tp_argv("gather", True, batch, seq, TP_STEPS, device))
+        _tp_argv("gather", True, batch, seq, TP_STEPS, device, mode=mode))
     tr = train.build(args, cfg, mesh=mesh)
     events = []
     reduce0 = L._all_reduce
@@ -6374,7 +6429,7 @@ def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
     losses, secs, ar_ms = [], [], []
     try:
         for t in range(TP_STEPS):
-            _ms_progress(mesh, f"tp superstep {t}")
+            _ms_progress(mesh, f"tp {mode} superstep {t}")
             L.dist.barrier()
             _sync(dev)
             t0 = time.perf_counter()
@@ -6388,6 +6443,8 @@ def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
     finally:
         L._all_reduce, L.COLLECTIVES = reduce0, None
     peak = torch.cuda.max_memory_allocated(dev) - start if cuda else None
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0) - \
+        retries0 if cuda else None
     launches = dict(LAUNCHES)
     from repro_torch.models import param_split
     same = _tp_whole_same(tree_leaves(tr.state.params),
@@ -6397,13 +6454,25 @@ def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
            "allreduce_calls": coll.get("calls", 0) // TP_STEPS,
            "allreduce_bytes": coll.get("bytes", 0) // TP_STEPS,
            "launches": launches, "start_bytes": start,
-           "peak_above_start_bytes": peak, "whole_same": same,
+           "peak_above_start_bytes": peak, "alloc_retries": retries,
+           "whole_same": same,
            "params_per_gpu": sum(x.numel() for x in
                                  tree_leaves(tr.state.params))}
     del tr
     mesh.close()
-    with open(os.path.join(out_dir, f"tp_full_rank{rank}.json"), "w") as f:
+    with open(os.path.join(out_dir, f"{_tp_full_prefix(mode)}_rank{rank}"
+                           ".json"), "w") as f:
         json.dump(rec, f)
+
+
+def _tp_full_prefix(mode) -> str:
+    return "tp_full" if mode == "blocking" else f"tp_full_{mode}"
+
+
+def _tp_name(mode) -> str:
+    """A full-width run's phase line and path name."""
+    return "tensor_parallel" if mode == "blocking" \
+        else f"tensor_parallel_{mode}"
 
 
 def _tp_read(prefix, world) -> list:
@@ -6414,10 +6483,10 @@ def _tp_read(prefix, world) -> list:
     return out
 
 
-def _tp_dryrun_flags(batch, seq):
+def _tp_dryrun_flags(batch, seq, mode="blocking"):
     return ["--shape", "train_4k", "--nodes", str(TP_NODES),
             "--model-parallel", str(TP_K), "--batch", str(batch), "--seq",
-            str(seq), "--quantize"]
+            str(seq), "--quantize"] + _tp_mode_flags(mode)
 
 
 def phase_tensor_parallel(world: int, device: str = "cuda",
@@ -6425,21 +6494,25 @@ def phase_tensor_parallel(world: int, device: str = "cuda",
     """`tensor_parallel` on 4 GPUs, 2 nodes x TP_K: the reduced card-vs-CPU
     check (`_tp_reference_rank`: losses and gradients within TP_ATOL of the
     CPU's one-GPU port, whole leaves' gradients bitwise equal on a node's
-    GPUs, each planted fault failing; the 2 x 2 exact supersteps within
-    TP_STEP_ATOL of the CPU's one-GPU run, q8 whole leaves equal and its
-    encodes bitwise the plain encode), then TP_ARCH `train_4k` at full
-    width and depth (`_tp_full_rank`) at TP_BATCH, traced by the dry run
-    at --model-parallel 2 on fake CUDA and CPU tensors (the counted fields
-    equal): finite losses, the same on every rank; launches 2 / 1 / 1 a
-    superstep on every rank; each rank's peak above its start within
+    GPUs, each planted fault failing; the 2 x 2 supersteps of every
+    TP_SWARM command (blocking, non-blocking, overlapped, the per-leaf
+    oracle): exact within TP_STEP_ATOL of the CPU's one-GPU run, q8 whole
+    leaves equal and its encodes bitwise the plain encode), then TP_ARCH
+    `train_4k` at full width and depth (`_tp_full_rank`) in each of
+    TP_FULL_MODES, each traced by the dry run at --model-parallel 2 with
+    its own flags on fake CUDA and CPU tensors (the counted fields equal)
+    at TP_BATCH, or at 2 where the dry run predicts TP_BATCH misses the
+    card: finite losses, the same on every rank; each rank's launches
+    TP_FULL_LAUNCHES; each rank's peak above its start within
     DRYRUN_BOUND of the prediction; whole leaves bitwise equal on each
-    node's GPUs. -> {path: rank 0's launches}."""
+    node's GPUs. Prints a line a run. -> {path: rank 0's launches}."""
     os.makedirs(TP_DIR, exist_ok=True)
     cuda = device == "cuda" and cfg_name is None
     t0 = time.time()
     seq = 4096 if cfg_name is None else 64
-    procs = _dryrun_start({"tp": _tp_dryrun_flags(TP_BATCH, seq)},
-                          ("cuda", "cpu"), arch=TP_ARCH) if cuda else None
+    procs = _dryrun_start({m: _tp_dryrun_flags(TP_BATCH, seq, m)
+                           for m in TP_FULL_MODES}, ("cuda", "cpu"),
+                          arch=TP_ARCH) if cuda else None
     _ms_spawn(_tp_reference_rank, world, TP_DIR, device)
     ref = _tp_read("tp_reference", world)
     placed = [(p["node"], p["index"]) for p in ref]
@@ -6453,7 +6526,7 @@ def phase_tensor_parallel(world: int, device: str = "cuda",
             check(not (f["loss_err"] <= TP_ATOL and f["grad_err"] <= TP_ATOL
                        and f["whole_same"]),
                   f"tensor_parallel: planted fault {fault} passed {f}")
-        for name, (impl, q8) in TP_SWARM.items():
+        for name, (_, q8, _) in TP_SWARM.items():
             c = p[name]
             check(all(c["whole_same"]) and all(math.isfinite(x)
                                                for x in c["losses"]),
@@ -6469,40 +6542,67 @@ def phase_tensor_parallel(world: int, device: str = "cuda",
     reference = {"seconds": time.time() - t0, **{
         k: [p[k] for p in ref] for k in ref[0] if k not in ("node",
                                                             "index")}}
-    batch, dry = TP_BATCH, None
+    dry = {}
     if cuda:
         recs = _dryrun_jobs(None, None, procs)
-        _tp_check_dry(recs["tp", "cuda"], recs["tp", "cpu"])
-        dry = recs["tp", "cuda"]
-        check(dry["fits"], f"tensor_parallel: batch {batch} predicted at "
-              f"{dry['peak_bytes']} B a GPU, beyond one H100")
-    elif cfg_name is not None:
-        batch = 2
+        for mode in TP_FULL_MODES:
+            _tp_check_dry(recs[mode, "cuda"], recs[mode, "cpu"])
+            dry[mode] = (TP_BATCH, recs[mode, "cuda"])
+            if not dry[mode][1]["fits"]:
+                # the dry run says TP_BATCH misses the card: the next batch
+                again = _dryrun_jobs({mode: _tp_dryrun_flags(2, seq, mode)},
+                                     ("cuda", "cpu"), arch=TP_ARCH)
+                _tp_check_dry(again[mode, "cuda"], again[mode, "cpu"])
+                dry[mode] = (2, again[mode, "cuda"])
+            check(dry[mode][1]["fits"], f"tensor_parallel: {mode} "
+                  f"predicted at {dry[mode][1]['peak_bytes']} B a GPU at "
+                  f"batch {dry[mode][0]}, beyond one H100")
+    by_path = {}
+    for mode in TP_FULL_MODES:
+        batch = dry[mode][0] if cuda else \
+            (2 if cfg_name is not None else TP_BATCH)
+        by_path[_tp_name(mode)] = _tp_full(
+            world, device, cfg_name, batch, seq, mode,
+            dry.get(mode, (None, None))[1],
+            reference if mode == "blocking" else None)
+    return by_path
+
+
+def _tp_full(world, device, cfg_name, batch, seq, mode, dry,
+             reference) -> dict:
+    """One full-width run of `mode` on the mesh, its checks and its line;
+    -> rank 0's launches."""
     t1 = time.time()
-    _ms_spawn(_tp_full_rank, world, cfg_name, batch, seq, TP_DIR, device)
-    full = _tp_read("tp_full", world)
+    _ms_spawn(_tp_full_rank, world, cfg_name, batch, seq, TP_DIR, device,
+              mode)
+    name = _tp_name(mode)
+    full = _tp_read(_tp_full_prefix(mode), world)
     losses = [p["losses"] for p in full]
     check(all(math.isfinite(x) for x in losses[0]) and
           all(x == losses[0] for x in losses),
-          f"tensor_parallel: losses not finite or not the same on every "
-          f"rank {losses}")
+          f"{name}: losses not finite or not the same on every rank "
+          f"{losses}")
     check(all(p["whole_same"] for p in full),
-          "tensor_parallel: whole leaves differ across a node's GPUs")
-    want = {"sgd_update": 2 * TP_STEPS, "quantize_mod": TP_STEPS,
-            "decode_avg": TP_STEPS}
+          f"{name}: whole leaves differ across a node's GPUs")
+    want = TP_FULL_LAUNCHES[mode]
     if device == "cuda":
         for r, p in enumerate(full):
-            check(p["launches"] == want, f"tensor_parallel: rank {r} "
-                  f"launches {p['launches']} != {want}")
+            check(p["launches"] == want, f"{name}: rank {r} launches "
+                  f"{p['launches']} != {want}")
     out = {"arch": TP_ARCH if cfg_name is None else f"{TP_ARCH} (reduced)",
-           "nodes": TP_NODES, "model_parallel": TP_K,
+           "nodes": TP_NODES, "model_parallel": TP_K, "mode": mode,
+           "flags": _tp_mode_flags(mode) + ["--quantize"],
            "batch_per_node": batch, "seq": seq, "H": 2,
-           "remat": _tp_full_cfg(cfg_name).remat, "reference": reference,
+           "remat": _tp_full_cfg(cfg_name).remat,
            "full_width_seconds": time.time() - t1, "losses": losses[0],
+           "launches_want": want,
            **{k: [p[k] for p in full] for k in (
                "superstep_s", "allreduce_ms", "allreduce_calls",
                "allreduce_bytes", "peak_above_start_bytes", "start_bytes",
-               "params_per_gpu", "launches")}}
+               "alloc_retries", "params_per_gpu", "launches",
+               "whole_same")}}
+    if reference is not None:
+        out["reference"] = reference
     if dry is not None:
         ratios = [p["peak_above_start_bytes"] / dry["peak_bytes"]
                   for p in full]
@@ -6514,13 +6614,13 @@ def phase_tensor_parallel(world: int, device: str = "cuda",
                 "coll_raw", "model_allreduce_bytes_per_dev",
                 "model_allreduce_calls", "wire_bytes_per_node", "compute_s",
                 "memory_s", "collective_s", "bottleneck", "t_trace_s")}}
-    log("tensor_parallel", ranks=world, **out)
+    log(name, ranks=world, **out)
     if dry is not None:
         lo, hi = DRYRUN_BOUND
         check(all(lo <= r <= hi for r in ratios),
-              f"tensor_parallel: measured over predicted {ratios} outside "
+              f"{name}: measured over predicted {ratios} outside "
               f"{DRYRUN_BOUND}")
-    return {"tensor_parallel": full[0]["launches"]}
+    return full[0]["launches"]
 
 
 def _tp_check_dry(cuda_rec, cpu_rec) -> None:

@@ -187,8 +187,8 @@ def validate_run_config(algo: str, *, gossip_impl: str = None,
         if mesh.model_size > 1:
             check_model_axis_run(
                 algo=algo, gossip_impl=gossip_impl, quantize=quantize,
-                codec=codec, nonblocking=nonblocking, overlap=overlap,
-                compress_state=compress_state, rate_profile=rate_profile,
+                codec=codec, compress_state=compress_state,
+                rate_profile=rate_profile,
                 avail=avail, topology=topology, scan_chunk=scan_chunk)
     if base not in caps.transports:
         reject(f"--gossip-impl {gossip_impl}")

@@ -42,7 +42,10 @@ def gamma_potential(params_stacked, mesh=None, split=None) -> torch.Tensor:
         mu = buf.clone()
         dist.all_reduce(mu, group=mesh.group)
         mu.div_(mesh.size)
-        d = torch.square(buf - mu)
+        # in the packed buffer's own memory (the same values as out of
+        # place): two fp32 copies of the rank's parameters at once, not
+        # four, where an overlapped step's in-flight buffers are live too
+        d = buf.sub_(mu).square_()
         del buf, mu
         if mesh.model_size > 1:
             if split is None:

@@ -53,7 +53,13 @@ param_specs=)``) each rank holds its slices of its node's state and
 takes its local steps on them, the model's collectives running over its
 node's K ranks; the exchange runs between the ranks of one model index,
 each on its own slice's buffer, and Γ is summed over the whole mesh.
-The blocking superstep runs there, exact or q8, on gather or ppermute.
+The blocking, non-blocking and overlapped supersteps run there, exact or
+q8, on gather, ppermute or their per-leaf oracles. The overlapped
+pipeline's in-flight buffers are packed from the rank's own slices, and
+its permute is posted to the node group before the local steps issue
+the model group's all-reduces, the same order on every rank. An encode
+folds the run's generator by node, so a node's K ranks draw the same
+uniforms and the leaves they hold whole stay bitwise equal.
 
 Elastic membership (a scheduler trace with ``--avail``): a join bin runs
 ``make_join_step`` — the joiner copies its donor's model, one row gather
@@ -263,30 +269,36 @@ def select_rows(m_rows, new, old):
                        old)
 
 
+#: the transports a split node exchanges over; the pool's wait for
+#: ROADMAP.md Queue A 15
+MODEL_AXIS_IMPLS = ("gather", "ppermute", "gather_legacy", "ppermute_legacy")
+
+
 def check_model_axis_run(*, algo: str = "swarm", gossip_impl: str = None,
                          quantize: bool = False, codec=None,
-                         nonblocking: bool = False, overlap: bool = False,
                          compress_state: bool = False,
                          rate_profile: str = None, avail: str = None,
                          topology: str = None, scan_chunk: int = 0) -> None:
     """Raise ValueError (ROADMAP.md Queue A 15) for a run the model axis
-    does not carry yet: anything but the swarm's blocking superstep on
-    the gather or ppermute transport, exact or with the q8 lattice. The
+    does not carry yet: it carries the swarm's blocking, non-blocking and
+    overlapped supersteps on the gather and ppermute transports and their
+    per-leaf oracles (``*_legacy``; overlap refuses those itself,
+    ``GossipTransport.check_overlap``), exact or with the q8 lattice —
+    the grid the reference's dry run builds on its "model" axis. The
     run's validation (``algorithms/registry.py`` ``validate_run_config``)
     passes every flag; ``make_algorithm`` and :func:`make_swarm_step`,
     which a library caller may reach without it, pass what they see."""
     why = []
     if algo != "swarm":
         why.append(f"--algo {algo}")
-    if (gossip_impl or "gather") not in ("gather", "ppermute"):
+    if (gossip_impl or "gather") not in MODEL_AXIS_IMPLS:
         why.append(f"--gossip-impl {gossip_impl}")
     if quantize:
         c = codec if codec is not None and not isinstance(codec, str) \
             else make_codec(codec)
         if c.name != "q8":
             why.append(f"--codec {c.name}")
-    for flag, on in (("--nonblocking", nonblocking), ("--overlap", overlap),
-                     ("--compress-state", compress_state),
+    for flag, on in (("--compress-state", compress_state),
                      ("--scan-chunk", scan_chunk),
                      (f"--rate-profile {rate_profile}",
                       rate_profile not in (None, "none")),
@@ -347,8 +359,7 @@ def make_swarm_step(cfg: SwarmConfig, loss_fn: Callable, opt_update: Callable,
         B.check_mesh_nodes(cfg.n_nodes, mesh)
         if mesh.model_size > 1:
             check_model_axis_run(gossip_impl=tr.impl, quantize=cfg.quantize,
-                                 codec=tr.codec, nonblocking=cfg.nonblocking,
-                                 overlap=cfg.overlap,
+                                 codec=tr.codec,
                                  compress_state=cfg.compress_state)
             if param_specs is None:
                 raise ValueError("a step on the model axis needs the "

@@ -52,11 +52,12 @@ NOT_ON_THE_MODEL_AXIS = {
                   "ROADMAP.md Queue A 13"),
     "serve": ("serving under the model axis (prefill, decode, chunk) waits "
               "for ROADMAP.md Queue A 14"),
-    "run": ("on the model axis the swarm's blocking superstep runs, on the "
-            "gather or ppermute transport, exact or with the q8 lattice; "
-            "the baselines, --scan-chunk, the non-blocking and overlapped "
-            "modes, the other codecs and transports, --compress-state and "
-            "the scheduler wait for ROADMAP.md Queue A 15"),
+    "run": ("on the model axis the swarm's blocking, non-blocking and "
+            "overlapped supersteps run, on the gather or ppermute transport "
+            "or its per-leaf oracle, exact or with the q8 lattice; the "
+            "baselines, --scan-chunk, ppermute_pool, the other codecs, "
+            "--compress-state and the scheduler wait for ROADMAP.md Queue "
+            "A 15"),
 }
 
 

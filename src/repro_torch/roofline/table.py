@@ -111,9 +111,20 @@ def term(r) -> str:
     return f" {TERM[r['bottleneck']]}" if r and "bottleneck" in r else ""
 
 
+def run_flags(r) -> str:
+    """The training record's flags beyond the sweep's blocking exact
+    gather run ('' for it): its mode, transport and codec."""
+    return " ".join(f for f, on in (
+        ("--nonblocking", r.get("nonblocking") and not r.get("overlap")),
+        ("--overlap", r.get("overlap")),
+        (f"--gossip-impl {r.get('gossip')}",
+         r.get("gossip", "gather") != "gather"),
+        ("--quantize", r.get("quantize"))) if on)
+
+
 def model_axis_table(rows) -> str:
-    """The train_4k rows on the model axis, a line per (arch, mesh): each
-    peak in GiB a GPU beside the record's largest term."""
+    """The train_4k rows on the model axis, a line per (arch, mesh, run
+    flags): each peak in GiB a GPU beside the record's largest term."""
     from repro_torch.configs import get_config
     from repro_torch.launch.sweep import MODEL_AXIS_SHAPE, model_axis_ks
     from repro_torch.models.split import NOT_ON_THE_MODEL_AXIS
@@ -122,6 +133,8 @@ def model_axis_table(rows) -> str:
     by = {}
     for r in ok:
         base = r["mesh"].split("_tp")[0]
+        if run_flags(r):
+            base += f" ({run_flags(r)})"
         by.setdefault((r["arch"], base), {})[r.get("model_parallel", 1)] = r
     lines = ["| arch | mesh | 1 GPU a node: peak GiB | reference's K: "
              "fits (peak GiB) | smallest K that fits: peak GiB | kv heads "

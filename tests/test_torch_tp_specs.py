@@ -254,8 +254,10 @@ def _tp_mesh(n_nodes=2, K=2):
 
 @pytest.mark.parametrize("flags", [
     dict(algo="localsgd"), dict(algo="allreduce"), dict(algo="sgp"),
-    dict(gossip_impl="ppermute_pool"), dict(gossip_impl="gather_legacy"),
-    dict(nonblocking=True), dict(nonblocking=True, overlap=True),
+    dict(gossip_impl="ppermute_pool"),
+    dict(gossip_impl="ppermute_pool_legacy"),
+    dict(nonblocking=True, quantize=True, codec="q4"),
+    dict(nonblocking=True, overlap=True, scan_chunk=4),
     dict(quantize=True, codec="q4"), dict(quantize=True, codec="bf16"),
     dict(quantize=True, compress_state=True), dict(scan_chunk=4),
     dict(rate_profile="lognormal")])
@@ -269,7 +271,13 @@ def test_runs_the_model_axis_does_not_carry_are_refused(flags):
 @pytest.mark.parametrize("flags", [
     dict(), dict(quantize=True), dict(gossip_impl="ppermute"),
     dict(gossip_impl="ppermute", quantize=True, codec="q8"),
-    dict(quantize=True, codec="q8")])
+    dict(quantize=True, codec="q8"), dict(nonblocking=True),
+    dict(nonblocking=True, quantize=True),
+    dict(nonblocking=True, overlap=True),
+    dict(nonblocking=True, overlap=True, quantize=True,
+         gossip_impl="ppermute"),
+    dict(gossip_impl="gather_legacy"),
+    dict(gossip_impl="ppermute_legacy", quantize=True, nonblocking=True)])
 def test_runs_the_model_axis_carries_pass(flags):
     assert validate_run_config("swarm", n_nodes=2, mesh=_tp_mesh(),
                                **flags) is not None
