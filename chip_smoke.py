@@ -3586,19 +3586,28 @@ ZOO_LAYERS = {"gemma3-4b": 8, "gemma3-27b": 8, "jamba-1.5-large-398b": 8}
 ZOO_SEQ = 192          # > window 64 + its query chunk 64: the band path
 
 
-def _route_choices(cfg, params, tokens):
+def _route_choices(cfg, params, tokens, tp=None, drops=None):
     """Every MoE layer's expert choices [T, k] of one train forward, in
-    layer order (route recorded on the way)."""
+    layer order (route recorded on the way); `tp`: the forward of a
+    GPU's slices on the model axis; `drops`, a list, gets each layer's
+    count of choices dropped by capacity."""
     from repro_torch.models import forward, moe
     seen = []
-    route = moe.route
+    route, positions = moe.route, moe.dispatch_positions
 
     def recording(*a, **kw):
         out = route(*a, **kw)
         seen.append(out[1].cpu())
         return out
-    with _planted((moe, "route", recording)):
-        forward(cfg, params, tokens)
+
+    def counting(*a, **kw):
+        out = positions(*a, **kw)
+        if drops is not None:
+            drops.append(int((~out[1]).sum()))
+        return out
+    with _planted((moe, "route", recording),
+                  (moe, "dispatch_positions", counting)):
+        forward(cfg, params, tokens, tp=tp)
     return seen
 
 
@@ -6126,6 +6135,28 @@ TP_SWARM = {"gather_exact": ("gather", False, "blocking"),
             "gather_overlap_q8": ("gather", True, "overlap"),
             "ppermute_overlap_exact": ("ppermute", False, "overlap"),
             "gather_legacy_q8": ("gather_legacy", True, "blocking")}
+# the MoE archs on the model axis (models/moe.py `expert_ffn`):
+# granite-moe-3b-a800m cuts each expert's d_ff, qwen3-moe-30b-a3b its
+# experts. Their reduced cases restore the arch's expert axis and
+# capacity factor (`reduced` sets None and 4.0: qwen3 would run granite's
+# layout, and no choice would drop), each with its planted fault
+TP_MOE_REDUCED = {"granite-moe-3b-a800m": "expert_reduce_dropped",
+                  "qwen3-moe-30b-a3b": "copy_on_the_layer_input"}
+# name: (arch, transport, q8, mode, supersteps) of every reduced 2 x 2
+# superstep run: TP_SWARM's on TP_ARCH, then one blocking gather
+# superstep of each MoE arch, exact and q8
+TP_SWARM_RUNS = {**{n: (TP_ARCH, i, q, m, 2)
+                    for n, (i, q, m) in TP_SWARM.items()},
+                 **{f"{a}/gather_{'q8' if q else 'exact'}":
+                    (a, "gather", q, "blocking", 1)
+                    for a in TP_MOE_REDUCED for q in (False, True)}}
+# the MoE archs' full-width runs (blocking gather q8, H 2, TP_STEPS
+# supersteps, remat on), each at the first (layers, batch) the dry run
+# at --model-parallel 2 predicts fits one H100: granite at its full depth
+# (None), `single`'s batch of 8 or else `multi`'s 4; qwen3 at `multi`'s
+# 4, cut to 8 layers or else 4 (its 48 hold 682 GiB a GPU at K 1)
+TP_MOE_FULL = {"granite-moe-3b-a800m": [(None, 8), (None, 4)],
+               "qwen3-moe-30b-a3b": [(8, 4), (4, 4)]}
 # the full-width runs: the blocking one and the paper's headline
 # combination, non-blocking with the pipelined exchange and q8
 TP_FULL_MODES = ("blocking", "overlap")
@@ -6143,10 +6174,18 @@ TP_DIR = os.path.join(ROOT, "build", "chip_smoke_tensor_parallel")
 
 
 def _tp_reduced(arch):
+    """`arch` at the reduced size (d_model 64, 2 layers, remat on); a
+    MoE arch with its own expert axis and capacity factor restored."""
     import dataclasses
     from repro_torch.configs import get_config, reduced
-    return dataclasses.replace(reduced(get_config(arch), n_layers=2,
-                                       d_model=64), remat=True)
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=2,
+                                      d_model=64), remat=True)
+    if cfg.moe is None:
+        return cfg
+    own = get_config(arch).moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, expert_shard_axis=own.expert_shard_axis,
+        capacity_factor=own.capacity_factor))
 
 
 def _tp_mlp_without_reduce(cfg, p, x, tp=None):
@@ -6171,26 +6210,59 @@ def _tp_kv_without_sum(cfg, p, tp):
     return tuple(p[k][..., lo * hd:(lo + 1) * hd] for k in ("wk", "wv"))
 
 
-class _TpPlant:
-    """A context planting `fault` in ``models/transformer.py`` (None:
-    nothing)."""
+def _tp_ffn_without_reduce(cfg, p, buf, tp=None):
+    """Planted fault: the expert FFN's d_ff slices' partial outputs left
+    unsummed (in place of ``models/moe.py`` ``expert_ffn``)."""
+    from repro_torch.models import moe
+    return moe._ffn(cfg, p, moe.copy_to_model(buf, tp))
 
-    def __init__(self, fault):
-        from repro_torch.models import transformer as T
-        self.T, self.fault = T, fault
-        self.name, self.fn = {
-            "mlp_reduce_dropped": ("apply_mlp", _tp_mlp_without_reduce),
-            "kv_grad_sum_dropped": ("_local_kv", _tp_kv_without_sum),
-            None: (None, None)}[fault]
 
-    def __enter__(self):
-        if self.name:
-            self.saved = getattr(self.T, self.name)
-            setattr(self.T, self.name, self.fn)
+def _tp_plant(fault) -> "_planted":
+    """A context planting `fault` in ``models/transformer.py`` or
+    ``models/moe.py`` (None: nothing). ``copy_on_the_layer_input`` moves
+    the MoE layer's ``copy_to_model`` from the dispatched buffer to the
+    layer's input, so the router path's whole gradient is summed K
+    times."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    apply0 = moe.apply_moe
 
-    def __exit__(self, *exc):
-        if self.name:
-            setattr(self.T, self.name, self.saved)
+    def apply_copied(cfg, p, x, **kw):
+        return apply0(cfg, p, L.copy_to_model(x, kw.get("tp")), **kw)
+    return _planted(*{
+        "mlp_reduce_dropped": [(T, "apply_mlp", _tp_mlp_without_reduce)],
+        "kv_grad_sum_dropped": [(T, "_local_kv", _tp_kv_without_sum)],
+        "expert_reduce_dropped": [(moe, "expert_ffn",
+                                   _tp_ffn_without_reduce)],
+        "copy_on_the_layer_input": [(moe, "apply_moe", apply_copied),
+                                    (moe, "copy_to_model",
+                                     lambda x, tp: x)],
+        None: []}[fault])
+
+
+def _tp_routes(cfg, params, tokens, mesh):
+    """The routing of one train forward of the rank's slices `params`
+    (node-stacked [1, ...]) on `tokens` [B, S]: each MoE layer's choices
+    (on the host), whether they are bitwise the same on the node's GPUs,
+    and the choices dropped by capacity."""
+    import torch
+    from repro_torch.core import bucket as B
+    from repro_torch.tree import tree_map
+    drops = []
+    with torch.no_grad():
+        idx = _route_choices(cfg, tree_map(lambda x: x[0], params), tokens,
+                             mesh.model_shard, drops)
+    every = [B.all_gather_model(x.to(mesh.device).unsqueeze(0), mesh, 0)
+             for x in idx]
+    same = all(torch.equal(e[0], y) for e in every for y in e[1:])
+    return idx, same, drops
+
+
+def _route_flips(got, want) -> list:
+    """Each layer's count of (token, choice) entries whose expert
+    differs."""
+    return [int((a != b).sum()) for a, b in zip(got, want)]
 
 
 def _tp_grads(cfg, params, batch, tp):
@@ -6235,14 +6307,16 @@ def _tp_mode_flags(mode) -> list:
 
 
 def _tp_reference_rank(rank, world, port, out_dir, device):
-    """A rank of the reduced card-vs-CPU check: each TP_REDUCED model's
-    loss and gradients on the rank's GPU (its slices) against the CPU's
-    one-GPU port on the same weights, with and without the case's planted
-    fault; then 2 supersteps of each TP_SWARM command on the 2 x 2 mesh
-    against the CPU's one-GPU 2-node run of its flags (exact), and the q8
-    encodes bitwise their plain version (the kernel's on the flat
-    transport; a per-leaf oracle's leaf by leaf). An overlapped command
-    re-primes its pipeline from the CPU's weights."""
+    """A rank of the reduced card-vs-CPU check: each TP_REDUCED and
+    TP_MOE_REDUCED model's loss and gradients on the rank's GPU (its
+    slices) against the CPU's one-GPU port on the same weights, with and
+    without the case's planted fault, and a MoE model's routing (the same
+    on the node's GPUs, its flips against the CPU, its drops); then each
+    TP_SWARM_RUNS command on the 2 x 2 mesh against the CPU's one-GPU
+    2-node run of its flags (exact), and the q8 encodes bitwise their
+    plain version (the kernel's on the flat transport; a per-leaf
+    oracle's leaf by leaf). An overlapped command re-primes its pipeline
+    from the CPU's weights."""
     import dataclasses
     import numpy as np
     import torch
@@ -6260,7 +6334,7 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
     mesh = _ms_mesh(rank, world, port, device, TP_K)
     dev = mesh.device
     rec = {"node": mesh.rank, "index": mesh.model_index}
-    for arch, fault in TP_REDUCED.items():
+    for arch, fault in {**TP_REDUCED, **TP_MOE_REDUCED}.items():
         _ms_progress(mesh, f"tp reference {arch}")
         cfg = _tp_reduced(arch)
         split = tree_leaves(param_split(cfg, TP_K))
@@ -6278,7 +6352,7 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
             whole, cfg, TP_K, mesh.model_index, stacked=True))
         bdev = {k: v.to(dev) for k, v in batch.items()}
         for f in (None, fault):
-            with _TpPlant(f):
+            with _tp_plant(f):
                 loss, g = _tp_grads(cfg, mine, bdev, mesh.model_shard)
             rec[f"{arch}/{f or 'clean'}"] = {
                 "loss_err": abs(float(loss[0]) - float(l_cpu[0])) /
@@ -6286,8 +6360,17 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
                 "grad_err": _tp_err(g, want),
                 "whole_same": _tp_whole_same(g, split, mesh)}
             del g
-    cfg = _tp_reduced(TP_ARCH)
-    split = tree_leaves(param_split(cfg, TP_K))
+        if cfg.moe is not None:
+            # the routing on the card's slices against the CPU's one-GPU
+            # port on the same weights and tokens
+            idx, same, drops = _tp_routes(cfg, mine, bdev["tokens"][0],
+                                          mesh)
+            with torch.no_grad():
+                want_idx = _route_choices(cfg, tree_map(
+                    lambda x: x[0], whole), batch["tokens"][0])
+            rec[f"{arch}/routing"] = {
+                "same_on_node": same, "drops": drops,
+                "flips_vs_cpu": sum(_route_flips(idx, want_idx))}
     enc = []
     encode0 = LatticeCodec.encode
 
@@ -6323,12 +6406,14 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
         enc.append(same_bits(pq.reshape(q.shape), q) and
                    same_bits(ps.reshape(s.shape), s))
         return q, s
-    for name, (impl, q8, mode) in TP_SWARM.items():
+    for name, (arch, impl, q8, mode, steps) in TP_SWARM_RUNS.items():
         _ms_progress(mesh, f"tp reference {name}")
-        argv = _tp_argv(impl, q8, 2, 64, 2, "cpu", mode=mode)
+        cfg = _tp_reduced(arch)
+        split = tree_leaves(param_split(cfg, TP_K))
+        argv = _tp_argv(impl, q8, 2, 64, steps, "cpu", arch, mode)
         one = train.build(train.build_parser().parse_args(argv), cfg)
         args = train.build_parser().parse_args(
-            _tp_argv(impl, q8, 2, 64, 2, device, mode=mode))
+            _tp_argv(impl, q8, 2, 64, steps, device, arch, mode))
         LatticeCodec.encode, E.encode_modular = encode, leaf_encode
         try:
             tr = train.build(args, cfg, mesh=mesh)
@@ -6346,7 +6431,7 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
                     tr.scfg, SwarmState(st.params, st.opt, None, 0),
                     mesh.fold_generator(tr.enc_gen))
             errs, same, losses = [], [], []
-            for t in range(2):
+            for t in range(steps):
                 m = tr.superstep(t)
                 one.superstep(t)
                 mine = tree_leaves(tr.state.params)
@@ -6369,24 +6454,55 @@ def _tp_reference_rank(rank, world, port, out_dir, device):
         json.dump(rec, f)
 
 
-def _tp_full_cfg(cfg_name):
-    """The full-width config (`cfg_name` "reduced": a small stand-in with
-    remat on, for a CPU rehearsal)."""
+def _tp_full_cfg(cfg_name, arch=TP_ARCH, layers=None):
+    """`arch`'s full-width config, its depth cut to `layers` where given
+    (`cfg_name` "reduced": a small stand-in with remat on, for a CPU
+    rehearsal)."""
+    import dataclasses
     from repro_torch.configs import get_config
-    if cfg_name is None:
-        return get_config(TP_ARCH)
-    return _tp_reduced(TP_ARCH)
+    if cfg_name is not None:
+        return _tp_reduced(arch)
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _tp_full_routing(cfg, tr, mesh) -> dict:
+    """The routing of the first local step's forward on the rank's slices
+    (before any step): whether it is bitwise the same on the node's GPUs,
+    its drops, and its flips against the one-GPU port's forward of the
+    whole node, every split leaf all-gathered over the model group."""
+    import torch
+    from repro_torch.core import bucket as B
+    from repro_torch.models import param_split
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+    tokens = tr.batch(0)["tokens"][0, 0]
+    idx, same, drops = _tp_routes(cfg, tr.state.params, tokens, mesh)
+    leaves, treedef = tree_flatten(tr.state.params)
+    whole = tree_unflatten(treedef, [
+        x[0] if d is None else B.all_gather_model(x[0], mesh, d)
+        for x, d in zip(leaves, tree_leaves(param_split(cfg, TP_K)))])
+    with torch.no_grad():
+        want = _route_choices(cfg, whole, tokens)
+    del whole
+    flips = _route_flips(idx, want)
+    return {"same_on_node": same, "drops_by_layer": drops,
+            "choices": sum(x.numel() for x in idx),
+            "flips_vs_one_gpu": sum(flips), "flips_by_layer": flips}
 
 
 def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
-                  device, mode="blocking"):
-    """A rank of a full-width run: its slices of its node of TP_ARCH,
-    TP_STEPS supersteps of gather q8 in `mode` (blocking, or non-blocking
-    with the pipelined exchange: ``overlap``) through ``launch/train.py``
-    ``build(args, cfg, mesh=)``; writes its losses, superstep times,
-    launches, peak allocated above what was live before the run was built,
-    the model group's all-reduces (count, bytes, time on the current
-    stream) and whether its whole leaves match the node's other GPU."""
+                  device, mode="blocking", arch=TP_ARCH, layers=None):
+    """A rank of a full-width run: its slices of its node of `arch` (cut
+    to `layers`), TP_STEPS supersteps of gather q8 in `mode` (blocking, or
+    non-blocking with the pipelined exchange: ``overlap``) through
+    ``launch/train.py`` ``build(args, cfg, mesh=)``; writes its losses,
+    superstep times, launches, peak allocated above what was live before
+    the run was built, the model group's all-reduces and all-gathers
+    (count, bytes, time on the current stream) and whether its whole
+    leaves match the node's other GPU. A MoE arch's first local step is
+    routed once before the run (`_tp_full_routing`), its memory freed
+    before the peak is reset."""
     import gc
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
@@ -6396,8 +6512,8 @@ def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
     mesh = _ms_mesh(rank, world, port, device, TP_K)
     dev = mesh.device
     cuda = dev.type == "cuda"
-    cfg = _tp_full_cfg(cfg_name)
-    _ms_progress(mesh, f"tp full width {mode} build")
+    cfg = _tp_full_cfg(cfg_name, arch, layers)
+    _ms_progress(mesh, f"tp full width {arch} {mode} build")
     gc.collect()
     _sync(dev)
     if cuda:
@@ -6410,26 +6526,39 @@ def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
         if cuda else 0
     reset_launch_counts()
     args = train.build_parser().parse_args(
-        _tp_argv("gather", True, batch, seq, TP_STEPS, device, mode=mode))
+        _tp_argv("gather", True, batch, seq, TP_STEPS, device, arch, mode))
     tr = train.build(args, cfg, mesh=mesh)
-    events = []
-    reduce0 = L._all_reduce
+    routing = None
+    if cfg.moe is not None:
+        _ms_progress(mesh, f"tp full width {arch} routing")
+        routing = _tp_full_routing(cfg, tr, mesh)
+        gc.collect()
+        _sync(dev)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+    events = {"reduce": [], "gather": []}
+    reduce0, gather0 = L._all_reduce, L._all_gather
 
-    def timed(x, group, op=L.dist.ReduceOp.SUM):
-        if not cuda:
-            return reduce0(x, group, op)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        y = reduce0(x, group, op)
-        b.record()
-        events.append((a, b))
-        return y
-    L._all_reduce, L.COLLECTIVES = timed, {}
-    losses, secs, ar_ms = [], [], []
+    def timed(kind, fn):
+        def run(*a, **kw):
+            if not cuda:
+                return fn(*a, **kw)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            y = fn(*a, **kw)
+            e1.record()
+            events[kind].append((e0, e1))
+            return y
+        return run
+    L._all_reduce, L._all_gather = timed("reduce", reduce0), \
+        timed("gather", gather0)
+    L.COLLECTIVES = {}
+    losses, secs, ms = [], [], {"reduce": [], "gather": []}
     try:
         for t in range(TP_STEPS):
-            _ms_progress(mesh, f"tp {mode} superstep {t}")
+            _ms_progress(mesh, f"tp {arch} {mode} superstep {t}")
             L.dist.barrier()
             _sync(dev)
             t0 = time.perf_counter()
@@ -6437,11 +6566,13 @@ def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
             losses.append(float(m["loss"]))
             _sync(dev)
             secs.append(time.perf_counter() - t0)
-            ar_ms.append(sum(a.elapsed_time(b) for a, b in events))
-            events.clear()
+            for kind, ev in events.items():
+                ms[kind].append(sum(a.elapsed_time(b) for a, b in ev))
+                ev.clear()
         coll = dict(L.COLLECTIVES)
     finally:
-        L._all_reduce, L.COLLECTIVES = reduce0, None
+        L._all_reduce, L._all_gather = reduce0, gather0
+        L.COLLECTIVES = None
     peak = torch.cuda.max_memory_allocated(dev) - start if cuda else None
     retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0) - \
         retries0 if cuda else None
@@ -6450,27 +6581,34 @@ def _tp_full_rank(rank, world, port, cfg_name, batch, seq, out_dir,
     same = _tp_whole_same(tree_leaves(tr.state.params),
                           tree_leaves(param_split(cfg, TP_K)), mesh)
     rec = {"node": mesh.rank, "index": mesh.model_index, "losses": losses,
-           "superstep_s": secs, "allreduce_ms": ar_ms,
+           "superstep_s": secs, "allreduce_ms": ms["reduce"],
            "allreduce_calls": coll.get("calls", 0) // TP_STEPS,
            "allreduce_bytes": coll.get("bytes", 0) // TP_STEPS,
+           "allgather_ms": ms["gather"],
+           "allgather_calls": coll.get("gather_calls", 0) // TP_STEPS,
+           "allgather_bytes": coll.get("gather_bytes", 0) // TP_STEPS,
            "launches": launches, "start_bytes": start,
            "peak_above_start_bytes": peak, "alloc_retries": retries,
-           "whole_same": same,
+           "whole_same": same, "routing": routing,
            "params_per_gpu": sum(x.numel() for x in
                                  tree_leaves(tr.state.params))}
     del tr
     mesh.close()
-    with open(os.path.join(out_dir, f"{_tp_full_prefix(mode)}_rank{rank}"
-                           ".json"), "w") as f:
+    with open(os.path.join(out_dir, f"{_tp_full_prefix(mode, arch)}_rank"
+                           f"{rank}.json"), "w") as f:
         json.dump(rec, f)
 
 
-def _tp_full_prefix(mode) -> str:
+def _tp_full_prefix(mode, arch=TP_ARCH) -> str:
+    if arch != TP_ARCH:
+        return f"tp_full_{arch.split('-')[0]}"
     return "tp_full" if mode == "blocking" else f"tp_full_{mode}"
 
 
-def _tp_name(mode) -> str:
+def _tp_name(mode, arch=TP_ARCH) -> str:
     """A full-width run's phase line and path name."""
+    if arch != TP_ARCH:
+        return f"tensor_parallel_{arch.split('-')[0]}"
     return "tensor_parallel" if mode == "blocking" \
         else f"tensor_parallel_{mode}"
 
@@ -6483,10 +6621,11 @@ def _tp_read(prefix, world) -> list:
     return out
 
 
-def _tp_dryrun_flags(batch, seq, mode="blocking"):
+def _tp_dryrun_flags(batch, seq, mode="blocking", layers=None):
     return ["--shape", "train_4k", "--nodes", str(TP_NODES),
             "--model-parallel", str(TP_K), "--batch", str(batch), "--seq",
-            str(seq), "--quantize"] + _tp_mode_flags(mode)
+            str(seq), "--quantize"] + _tp_mode_flags(mode) + \
+        (["--layers", str(layers)] if layers else [])
 
 
 def phase_tensor_parallel(world: int, device: str = "cuda",
@@ -6494,39 +6633,57 @@ def phase_tensor_parallel(world: int, device: str = "cuda",
     """`tensor_parallel` on 4 GPUs, 2 nodes x TP_K: the reduced card-vs-CPU
     check (`_tp_reference_rank`: losses and gradients within TP_ATOL of the
     CPU's one-GPU port, whole leaves' gradients bitwise equal on a node's
-    GPUs, each planted fault failing; the 2 x 2 supersteps of every
-    TP_SWARM command (blocking, non-blocking, overlapped, the per-leaf
-    oracle): exact within TP_STEP_ATOL of the CPU's one-GPU run, q8 whole
-    leaves equal and its encodes bitwise the plain encode), then TP_ARCH
-    `train_4k` at full width and depth (`_tp_full_rank`) in each of
-    TP_FULL_MODES, each traced by the dry run at --model-parallel 2 with
-    its own flags on fake CUDA and CPU tensors (the counted fields equal)
-    at TP_BATCH, or at 2 where the dry run predicts TP_BATCH misses the
-    card: finite losses, the same on every rank; each rank's launches
+    GPUs, each planted fault failing, for TP_ARCH and the dense cases and
+    the MoE archs, whose routing is bitwise the same on a node's GPUs
+    with 0 flips against the CPU and drops choices; the 2 x 2 supersteps
+    of every TP_SWARM_RUNS command (blocking, non-blocking, overlapped,
+    the per-leaf oracle, the MoE archs): exact within TP_STEP_ATOL of the
+    CPU's one-GPU run, q8 whole leaves equal and its encodes bitwise the
+    plain encode), then TP_ARCH `train_4k` at full width and depth
+    (`_tp_full_rank`) in each of TP_FULL_MODES, each traced by the dry run
+    at --model-parallel 2 with its own flags on fake CUDA and CPU tensors
+    (the counted fields equal) at TP_BATCH, or at 2 where the dry run
+    predicts TP_BATCH misses the card, then each TP_MOE_FULL arch at full
+    width, blocking, at its first (layers, batch) the dry run predicts
+    fits: finite losses, the same on every rank; each rank's launches
     TP_FULL_LAUNCHES; each rank's peak above its start within
     DRYRUN_BOUND of the prediction; whole leaves bitwise equal on each
-    node's GPUs. Prints a line a run. -> {path: rank 0's launches}."""
+    node's GPUs; a MoE arch's first local step routed bitwise the same on
+    a node's GPUs (its flips against the one-GPU port's forward counted).
+    Prints a line a run. -> {path: rank 0's launches}."""
     os.makedirs(TP_DIR, exist_ok=True)
     cuda = device == "cuda" and cfg_name is None
     t0 = time.time()
     seq = 4096 if cfg_name is None else 64
-    procs = _dryrun_start({m: _tp_dryrun_flags(TP_BATCH, seq, m)
-                           for m in TP_FULL_MODES}, ("cuda", "cpu"),
-                          arch=TP_ARCH) if cuda else None
+    procs = moe_procs = None
+    if cuda:
+        procs = _dryrun_start({m: _tp_dryrun_flags(TP_BATCH, seq, m)
+                               for m in TP_FULL_MODES}, ("cuda", "cpu"),
+                              arch=TP_ARCH)
+        moe_procs = {}
+        for arch, tries in TP_MOE_FULL.items():
+            moe_procs.update(_dryrun_start(
+                {(arch, lb): _tp_dryrun_flags(lb[1], seq, layers=lb[0])
+                 for lb in tries}, ("cuda", "cpu"), arch=arch))
     _ms_spawn(_tp_reference_rank, world, TP_DIR, device)
     ref = _tp_read("tp_reference", world)
     placed = [(p["node"], p["index"]) for p in ref]
     check(placed == [divmod(r, TP_K) for r in range(world)],
           f"tensor_parallel: ranks placed {placed}")
     for r, p in enumerate(ref):
-        for arch, fault in TP_REDUCED.items():
+        for arch, fault in {**TP_REDUCED, **TP_MOE_REDUCED}.items():
             c, f = p[f"{arch}/clean"], p[f"{arch}/{fault}"]
             check(c["loss_err"] <= TP_ATOL and c["grad_err"] <= TP_ATOL and
                   c["whole_same"], f"tensor_parallel: rank {r} {arch} {c}")
             check(not (f["loss_err"] <= TP_ATOL and f["grad_err"] <= TP_ATOL
                        and f["whole_same"]),
                   f"tensor_parallel: planted fault {fault} passed {f}")
-        for name, (_, q8, _) in TP_SWARM.items():
+        for arch in TP_MOE_REDUCED:
+            c = p[f"{arch}/routing"]
+            check(c["same_on_node"] and c["flips_vs_cpu"] == 0 and
+                  sum(c["drops"]) > 0,
+                  f"tensor_parallel: rank {r} {arch} routing {c}")
+        for name, (_, _, q8, _, _) in TP_SWARM_RUNS.items():
             c = p[name]
             check(all(c["whole_same"]) and all(math.isfinite(x)
                                                for x in c["losses"]),
@@ -6565,18 +6722,40 @@ def phase_tensor_parallel(world: int, device: str = "cuda",
             world, device, cfg_name, batch, seq, mode,
             dry.get(mode, (None, None))[1],
             reference if mode == "blocking" else None)
+    if cuda:
+        moe_recs = _dryrun_jobs(None, None, moe_procs)
+    for arch, tries in TP_MOE_FULL.items():
+        layers, batch, rec = None, 2, None
+        if cuda:
+            for lb in tries:
+                _tp_check_dry(moe_recs[(arch, lb), "cuda"],
+                              moe_recs[(arch, lb), "cpu"])
+            (layers, batch), rec = next(
+                ((lb, moe_recs[(arch, lb), "cuda"]) for lb in tries
+                 if moe_recs[(arch, lb), "cuda"]["fits"]),
+                (tries[-1], moe_recs[(arch, tries[-1]), "cuda"]))
+            check(rec["fits"], f"tensor_parallel: {arch} predicted at "
+                  f"{rec['peak_bytes']} B a GPU at {tries[-1]}, beyond one "
+                  "H100")
+        by_path[_tp_name("blocking", arch)] = _tp_full(
+            world, device, cfg_name, batch, seq, "blocking", rec, None,
+            arch, layers,
+            {f"layers {lb[0] or 'all'}, batch {lb[1]}":
+             moe_recs[(arch, lb), "cuda"]["peak_bytes"]
+             for lb in tries} if cuda else None)
     return by_path
 
 
 def _tp_full(world, device, cfg_name, batch, seq, mode, dry,
-             reference) -> dict:
-    """One full-width run of `mode` on the mesh, its checks and its line;
-    -> rank 0's launches."""
+             reference, arch=TP_ARCH, layers=None, tried=None) -> dict:
+    """One full-width run of `arch` (cut to `layers`) in `mode` on the
+    mesh, its checks and its line (`tried`: the dry run's predicted peak
+    of each (layers, batch) it weighed); -> rank 0's launches."""
     t1 = time.time()
     _ms_spawn(_tp_full_rank, world, cfg_name, batch, seq, TP_DIR, device,
-              mode)
-    name = _tp_name(mode)
-    full = _tp_read(_tp_full_prefix(mode), world)
+              mode, arch, layers)
+    name = _tp_name(mode, arch)
+    full = _tp_read(_tp_full_prefix(mode, arch), world)
     losses = [p["losses"] for p in full]
     check(all(math.isfinite(x) for x in losses[0]) and
           all(x == losses[0] for x in losses),
@@ -6584,23 +6763,30 @@ def _tp_full(world, device, cfg_name, batch, seq, mode, dry,
           f"{losses}")
     check(all(p["whole_same"] for p in full),
           f"{name}: whole leaves differ across a node's GPUs")
+    cfg = _tp_full_cfg(cfg_name, arch, layers)
+    if cfg.moe is not None:
+        check(all(p["routing"]["same_on_node"] for p in full),
+              f"{name}: routing differs across a node's GPUs")
     want = TP_FULL_LAUNCHES[mode]
     if device == "cuda":
         for r, p in enumerate(full):
             check(p["launches"] == want, f"{name}: rank {r} launches "
                   f"{p['launches']} != {want}")
-    out = {"arch": TP_ARCH if cfg_name is None else f"{TP_ARCH} (reduced)",
-           "nodes": TP_NODES, "model_parallel": TP_K, "mode": mode,
+    out = {"arch": arch if cfg_name is None else f"{arch} (reduced)",
+           "n_layers": cfg.n_layers, "nodes": TP_NODES,
+           "model_parallel": TP_K, "mode": mode,
            "flags": _tp_mode_flags(mode) + ["--quantize"],
            "batch_per_node": batch, "seq": seq, "H": 2,
-           "remat": _tp_full_cfg(cfg_name).remat,
-           "full_width_seconds": time.time() - t1, "losses": losses[0],
-           "launches_want": want,
+           "remat": cfg.remat, "full_width_seconds": time.time() - t1,
+           "losses": losses[0], "launches_want": want,
            **{k: [p[k] for p in full] for k in (
                "superstep_s", "allreduce_ms", "allreduce_calls",
-               "allreduce_bytes", "peak_above_start_bytes", "start_bytes",
+               "allreduce_bytes", "allgather_ms", "allgather_calls",
+               "allgather_bytes", "peak_above_start_bytes", "start_bytes",
                "alloc_retries", "params_per_gpu", "launches",
-               "whole_same")}}
+               "whole_same", "routing")}}
+    if tried is not None:
+        out["dryrun_tried_peak_bytes"] = tried
     if reference is not None:
         out["reference"] = reference
     if dry is not None:
@@ -6609,10 +6795,11 @@ def _tp_full(world, device, cfg_name, batch, seq, mode, dry,
         out["dryrun"] = {
             "predicted_bytes": dry["peak_bytes"],
             "measured_over_predicted_by_rank": ratios,
-            **{k: dry[k] for k in (
+            **{k: dry.get(k) for k in (
                 "fits", "argument_bytes", "temp_bytes", "flops_per_dev",
                 "coll_raw", "model_allreduce_bytes_per_dev",
-                "model_allreduce_calls", "wire_bytes_per_node", "compute_s",
+                "model_allreduce_calls", "model_allgather_bytes_per_dev",
+                "model_allgather_calls", "wire_bytes_per_node", "compute_s",
                 "memory_s", "collective_s", "bottleneck", "t_trace_s")}}
     log(name, ranks=world, **out)
     if dry is not None:

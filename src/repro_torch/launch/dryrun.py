@@ -27,10 +27,13 @@ shapes). The step is built by the drivers' own code:
   own layout (``specs.py``: a node is a 16-chip "model" row): the mesh
   is ``n_nodes x K`` ranks (``launch/mesh.py``), the step is model index 0
   of node 0, its parameters and state that GPU's slices
-  (``models/split.py``), and the model group's all-reduces count into
-  ``coll_bytes_per_dev`` (apart too: ``model_allreduce_bytes_per_dev``).
-  Dense archs and training shapes only; the rest raise, naming their
-  ROADMAP.md item;
+  (``models/split.py``), and the model group's all-reduces and
+  all-gathers (a MoE layer's experts split by expert) count into
+  ``coll_bytes_per_dev`` (apart too: ``model_allreduce_bytes_per_dev``,
+  ``model_allgather_bytes_per_dev``), priced at the model group's own
+  link. Dense and MoE archs and training shapes only; the rest raise,
+  naming their ROADMAP.md item. ``--layers N`` cuts the depth to N
+  layers (the widths stay);
 * a serving shape traces one GPU's prefill or decode step
   (``launch/serve.py`` ``make_serve_fns``) with its KV cache or SSM state.
   The batch splits over the same GPUs, data-parallel replicas of the mean
@@ -76,7 +79,8 @@ from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.roofline import analytic as A
 from repro_torch.roofline.analysis import (
-    TraceCounter, model_flops, roofline_terms, sent_bytes,
+    TraceCounter, model_flops, model_group_bytes, roofline_terms,
+    sent_bytes,
 )
 
 DEFAULT_H = 2
@@ -350,14 +354,19 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
         an_bytes = A.train_bytes_full(cfg, g_shape, n_nodes, H=H,
                                       remat=cfg.remat) / n_dev
         mf = model_flops(cfg, g_shape, "train") / n_dev
-        rec.update(remat=cfg.remat, gossip=gossip_impl, quantize=quantize,
+        rec.update(n_layers=cfg.n_layers, remat=cfg.remat,
+                   gossip=gossip_impl, quantize=quantize,
                    nonblocking=nonblocking or overlap, overlap=overlap, H=H,
                    h_mode=h_mode, h_traced=counts["h"],
                    batch_per_node=b, model_parallel=K,
                    model_allreduce_bytes_per_dev=2 * counts["model_coll"]
                    .get("bytes", 0),
                    model_allreduce_calls=counts["model_coll"].get("calls",
-                                                                  0))
+                                                                  0),
+                   model_allgather_bytes_per_dev=counts["model_coll"]
+                   .get("gather_bytes", 0),
+                   model_allgather_calls=counts["model_coll"].get(
+                       "gather_calls", 0))
         if K > 1:
             from repro_torch.models.split import kv_deviation
             rec.update(layout="node_over_gpus",
@@ -386,7 +395,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
         coll_bytes_per_dev=coll_bytes, coll_raw=coll,
         wire_bytes_per_node=counts["wire_bytes"],
         **roofline_terms(flops, an_bytes, coll_bytes, cfg.dtype, n_dev,
-                         rec.get("model_allreduce_bytes_per_dev", 0), K),
+                         model_group_bytes(rec), K),
         argument_bytes=counts["argument_bytes"],
         temp_bytes=peak - counts["argument_bytes"], peak_bytes=peak,
         fits=peak <= HW.HBM_CAPACITY, hbm_capacity_bytes=HW.HBM_CAPACITY,
@@ -403,6 +412,7 @@ def record_tag(args) -> str:
     for flag, on in ((f"npg{args.nodes_per_gpu}", args.nodes_per_gpu),
                      (f"n{args.nodes}", args.nodes),
                      (f"tp{args.model_parallel}", args.model_parallel > 1),
+                     (f"l{args.layers}", args.layers),
                      (args.gossip_impl, args.gossip_impl != "gather"),
                      ("q8", args.quantize), ("nb", args.nonblocking),
                      ("ov", args.overlap),
@@ -432,6 +442,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="K GPUs a node, its parameters split by "
                          "models/split.py (the reference's 'model' axis); "
                          "1: one node a GPU")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch's depth to N layers (its widths "
+                         "stay)")
     ap.add_argument("--gossip-impl", default="gather", choices=GOSSIP_IMPLS)
     ap.add_argument("--quantize", action="store_true")
     ap.add_argument("--nonblocking", action="store_true")
@@ -457,13 +470,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    cfg = None
+    if args.layers:
+        import dataclasses
+        cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
     res = run_one(args.arch, args.shape, args.mesh,
                   gossip_impl=args.gossip_impl, quantize=args.quantize,
                   nonblocking=args.nonblocking, overlap=args.overlap,
                   H=args.H, h_mode=args.h_mode, h_max=args.h_max,
                   nodes_per_gpu=args.nodes_per_gpu, nodes=args.nodes,
                   batch=args.batch,
-                  seq=args.seq, device=args.device,
+                  seq=args.seq, device=args.device, cfg=cfg,
                   model_parallel=args.model_parallel)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, record_tag(args) + ".json")

@@ -9,13 +9,15 @@ fails or times out gets an error record naming its cause.
   PYTHONPATH=src python -m repro_torch.roofline.table \\
       --dir results/dryrun_torch
 
-For each dense arch (``models/split.py``) the grid's ``train_4k`` pairs
-are traced on the model axis too (``dryrun --model-parallel K``): at the
-reference's own K, ``min(16, n_heads)`` (a node is a 16-chip "model" row
-where the heads allow it), and at the smallest K of MODEL_AXIS_KS whose
-trace fits one H100, tried in ascending order. The other archs wait for
-their ROADMAP.md items (``models/split.py`` ``NOT_ON_THE_MODEL_AXIS``)
-and stay at one GPU a node. An existing record is kept, so a sweep into
+For each dense and MoE arch (``models/split.py``) the grid's
+``train_4k`` pairs are traced on the model axis too (``dryrun
+--model-parallel K``): at the reference's own K, ``min(16, n_heads)`` (a
+node is a 16-chip "model" row where the heads allow it; skipped where the
+port refuses it, as granite-moe-3b-a800m's 24 heads at 16), and at the
+smallest K of MODEL_AXIS_KS whose trace fits one H100, tried in
+ascending order. The other archs wait for their ROADMAP.md items
+(``models/split.py`` ``NOT_ON_THE_MODEL_AXIS``) and stay at one GPU a
+node. An existing record is kept, so a sweep into
 a directory that holds the one-GPU records adds only what is missing:
 
   PYTHONPATH=src python -m repro_torch.launch.sweep --device cuda \\
@@ -44,8 +46,9 @@ SRC = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def model_axis_ks(arch: str):
-    """(the reference's K, the K to try for the smallest that fits) of a
-    dense arch on the model axis, or None for an arch that waits."""
+    """(the reference's K, the Ks the port accepts, to try for the
+    smallest that fits) of an arch on the model axis, or None for an arch
+    that waits."""
     from repro_torch.configs import get_config
     from repro_torch.models.split import check_model_parallel
     cfg = get_config(arch)
@@ -70,15 +73,16 @@ def record_path(out: str, arch: str, shape: str, mesh: str,
 
 def run_model_axis(arch: str, mesh: str, out: str, device: str,
                    timeout: int = 1800) -> bool:
-    """`arch`'s MODEL_AXIS_SHAPE pair at the reference's K, then at each K
-    in ascending order until one fits one H100; -> whether every trace
-    wrote a counted record."""
+    """`arch`'s MODEL_AXIS_SHAPE pair at the reference's K (where the port
+    accepts it), then at each K in ascending order until one fits one
+    H100; -> whether every trace wrote a counted record."""
     ks = model_axis_ks(arch)
     if ks is None:
         return True
     k_ref, tries = ks
-    ok = run_pair(arch, MODEL_AXIS_SHAPE, mesh, out, device,
-                  ["--model-parallel", str(k_ref)], timeout, K=k_ref)
+    ok = k_ref not in tries or run_pair(
+        arch, MODEL_AXIS_SHAPE, mesh, out, device,
+        ["--model-parallel", str(k_ref)], timeout, K=k_ref)
     for k in tries:
         ok = run_pair(arch, MODEL_AXIS_SHAPE, mesh, out, device,
                       ["--model-parallel", str(k)], timeout, K=k) and ok

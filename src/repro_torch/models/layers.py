@@ -13,6 +13,9 @@ collectives join the slices, as in the reference's sharded program:
 over the model group backward) where a replicated tensor enters a
 split computation, :func:`reduce_from_model` (all-reduce forward,
 identity backward) where a split computation's partial sums leave it.
+Where each GPU computes whole rows of its own (a MoE layer's E/K
+experts), :func:`gather_from_model` (all-gather forward, the GPU's own
+rows of the gradient backward) joins them.
 ``tp=None`` is the one-GPU layer, unchanged.
 """
 from __future__ import annotations
@@ -88,21 +91,42 @@ def per_lane(x, batch: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-#: The model group's all-reduces, counted while this is a dict
-#: (``{"calls": n, "bytes": b}``; None, the default, counts nothing): the
-#: dry run reads them apart from the node group's collectives.
+#: The model group's collectives, counted while this is a dict (None, the
+#: default, counts nothing): the all-reduces as ``"calls"`` and
+#: ``"bytes"`` (each the reduced tensor's), the all-gathers as
+#: ``"gather_calls"`` and ``"gather_bytes"`` (each the gathered result's).
+#: The dry run reads them apart from the node group's collectives.
 COLLECTIVES: Optional[dict] = None
+
+
+def _count(prefix: str, n_bytes: int) -> None:
+    if COLLECTIVES is not None:
+        COLLECTIVES[prefix + "calls"] = \
+            COLLECTIVES.get(prefix + "calls", 0) + 1
+        COLLECTIVES[prefix + "bytes"] = \
+            COLLECTIVES.get(prefix + "bytes", 0) + n_bytes
 
 
 def _all_reduce(x, group, op=dist.ReduceOp.SUM):
     """A fresh contiguous copy of `x`, reduced over `group` in place."""
     y = x.clone(memory_format=torch.contiguous_format)
-    if COLLECTIVES is not None:
-        COLLECTIVES["calls"] = COLLECTIVES.get("calls", 0) + 1
-        COLLECTIVES["bytes"] = COLLECTIVES.get("bytes", 0) + \
-            y.numel() * y.element_size()
+    _count("", y.numel() * y.element_size())
     dist.all_reduce(y, op=op, group=group)
     return y
+
+
+def _all_gather(x, group):
+    """The K ranks' `x` of `group`, concatenated along dim 0 in rank
+    order: ONE all-gather of their bytes (as ``core/bucket.py``
+    ``all_gather_model``)."""
+    x = x.contiguous()
+    k = dist.get_world_size(group)
+    out = torch.empty((k,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    _count("gather_", out.numel() * out.element_size())
+    flat = x.reshape(-1).view(torch.uint8)
+    dist.all_gather(list(out.reshape(k, -1).view(torch.uint8).unbind(0)),
+                    flat, group=group)
+    return out.reshape((k * x.shape[0],) + tuple(x.shape[1:]))
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -148,6 +172,33 @@ class _ReduceFromModel(torch.autograd.Function):
         return _ReduceFromModel.apply(x, group), in_dims[0]
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """The model group's rows, all-gathered along dim 0, forward; this
+    GPU's own rows of the gradient backward, with no sum: the consumer is
+    whole on every GPU, so each holds the whole gradient already. Its
+    `vmap` rule gathers with the batch dim moved to 1."""
+
+    @staticmethod
+    def forward(x, group, index):
+        return _all_gather(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n, ctx.index = inputs[0].shape[0], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.index * ctx.n
+        return grad[lo:lo + ctx.n], None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, index):
+        if in_dims[0] is None:
+            return _GatherFromModel.apply(x, group, index), None
+        return _GatherFromModel.apply(x.movedim(in_dims[0], 1), group,
+                                      index), 1
+
+
 class _MaxOverModel(torch.autograd.Function):
     """The elementwise max over the model group; no gradient (a shift the
     caller's result does not depend on)."""
@@ -180,6 +231,13 @@ def reduce_from_model(x, tp):
     """The slices' partial sums `x`, summed over the model group (`tp`
     None: `x`); its backward hands every slice the whole gradient."""
     return x if tp is None else _ReduceFromModel.apply(x, tp.group)
+
+
+def gather_from_model(x, tp):
+    """Every GPU's rows `x` (this GPU's at model index `tp.index`),
+    concatenated along dim 0 in model index order (`tp` None: `x`); its
+    backward hands each GPU its own rows of the whole gradient."""
+    return x if tp is None else _GatherFromModel.apply(x, tp.group, tp.index)
 
 
 def max_over_model(x, tp):
@@ -324,7 +382,9 @@ def _vocab_parallel_xent(x, embed, targets, mask, chunk, softcap, tp):
 def _xent_stats(x, embed, targets, chunk, softcap, v_offset: int):
     """The online (max, sum of exp below it, target logit) over the rows
     of `embed`, the vocabulary's rows ``v_offset`` onwards; a target
-    outside them contributes a 0 logit."""
+    outside them contributes a 0 logit, also where it falls in the last
+    chunk's padding (a vocab slice that is not a multiple of `chunk`: the
+    next slice's first rows)."""
     V = embed.shape[0]
     chunk = min(chunk, V)
     n_chunks = -(-V // chunk)
@@ -351,7 +411,7 @@ def _xent_stats(x, embed, targets, chunk, softcap, v_offset: int):
         s = s * torch.exp(m - m_new) + torch.sum(
             torch.exp(logits - m_new[..., None]), dim=-1)
         loc = targets - off
-        in_chunk = (loc >= 0) & (loc < chunk)
+        in_chunk = (loc >= 0) & (loc < min(chunk, V - off))
         tgt = torch.gather(logits, -1,
                            torch.clamp(loc, 0, chunk - 1)[..., None])[..., 0]
         tl = torch.where(in_chunk, tgt, tl)

@@ -21,6 +21,33 @@ under ``torch.func.vmap`` over the node axis and under ``grad``:
 The expert products ``ecd,edf->ecf`` are batched matmuls; the reference
 computes them outside any Pallas kernel too.
 
+On a node split over K GPUs (`tp`, ``models/split.py``) the layer's input
+is whole on every GPU (training's batch axes are None outside
+``big_model``, ``specs.py`` ``batch_axes_for``), so every GPU routes the
+same tokens into the same [E, C, D] buffer; only the expert FFN
+(:func:`expert_ffn`) is split, and the reference's partitioner's
+collectives at the buffer's boundary are placed by hand:
+
+* the buffer enters through ``copy_to_model``: the dispatch path's
+  gradient is partial on each GPU (by d_ff slice or by expert) and is
+  summed over the model group. The router's path from the input is
+  computed whole on every GPU, so it is not wrapped: its gradient is the
+  whole gradient already and a sum would count it K times;
+* ``expert_ffn`` split (granite-moe-3b-a800m): ``w_up`` / ``w_gate`` are
+  column slices and ``w_down`` the matching row slice of every expert,
+  and ``reduce_from_model`` sums the partial [E, C, D] outputs, as
+  ``layers.py`` ``apply_mlp`` does per expert;
+* ``expert`` split (qwen3-moe-30b-a3b): each GPU runs its own E/K
+  experts (experts ``[index * E/K, (index + 1) * E/K)``, the slices
+  ``split.py`` ``take_slice`` cuts) on their rows of the buffer, and
+  ``gather_from_model`` joins the outputs along E. Gather-back and
+  combine then run whole on every GPU, the combine the one-GPU k-loop
+  from fp32 zeros.
+
+The input, the router and the buffer are then bitwise the same on the
+node's GPUs, and so are the routing choices and every whole leaf's
+gradient, with no all-reduce of the engine's own.
+
 With ``per_lane`` (the serving engine's decode and chunk steps) each lane
 of the [B, S, D] call routes and dispatches on its own, as the reference's
 engine does by vmapping a batch-1 forward over its slots: a lane's
@@ -36,7 +63,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.layers import ParamInfo, activation
+from repro_torch.models.layers import (ParamInfo, activation,
+                                       copy_to_model, gather_from_model,
+                                       reduce_from_model)
 
 
 def moe_template(cfg):
@@ -101,12 +130,39 @@ def dispatch_positions(cfg, idx, T: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(pos_list, -1), torch.stack(keep_list, -1)
 
 
-def apply_moe(cfg, p, x, *, per_lane: bool = False):
+def _ffn(cfg, p, buf):
+    """The experts' FFN of their buffers: [E, C, D] -> [E, C, D]."""
+    h = torch.bmm(buf, p["w_up"])
+    if cfg.gated_mlp:
+        h = activation(cfg, torch.bmm(buf, p["w_gate"])) * h
+    else:
+        h = activation(cfg, h)
+    return torch.bmm(h, p["w_down"])
+
+
+def expert_ffn(cfg, p, buf, tp=None):
+    """Every expert's FFN of the dispatched buffer [E, C, D], whole on
+    every GPU of the node; on the model axis (`tp`) from this GPU's
+    slices of the expert weights (the module docstring): the experts' own
+    rows gathered (``expert`` split, fewer experts than E here) or the
+    d_ff slices' partial sums reduced (``expert_ffn`` split)."""
+    if tp is None:
+        return _ffn(cfg, p, buf)
+    buf = copy_to_model(buf, tp)
+    n = p["w_up"].shape[0]
+    if n != cfg.moe.n_experts:
+        own = buf[tp.index * n:(tp.index + 1) * n]
+        return gather_from_model(_ffn(cfg, p, own), tp)
+    return reduce_from_model(_ffn(cfg, p, buf), tp)
+
+
+def apply_moe(cfg, p, x, *, per_lane: bool = False, tp=None):
     """x:[B,S,D] -> ([B,S,D], aux loss). Capacity is that of the call's
     B*S tokens, as the reference's; with `per_lane` that of each lane's S
     tokens, each lane dispatched into its own buffer (the module
     docstring). The aux loss is the call's either way (the engine, the
-    one caller with `per_lane`, discards it)."""
+    one caller with `per_lane`, discards it). `tp`: this GPU's share of
+    a node split over the model axis, `p`'s expert weights its slices."""
     m = cfg.moe
     B, S, D = x.shape
     T, E, k = B * S, m.n_experts, m.top_k
@@ -125,12 +181,7 @@ def apply_moe(cfg, p, x, *, per_lane: bool = False):
     # every lane's rows of one expert side by side: [E, L*C, D]
     buf = buf.reshape(L, E, C, D).transpose(0, 1).reshape(E, L * C, D)
 
-    h = torch.bmm(buf, p["w_up"])
-    if cfg.gated_mlp:
-        h = activation(cfg, torch.bmm(buf, p["w_gate"])) * h
-    else:
-        h = activation(cfg, h)
-    out_buf = torch.bmm(h, p["w_down"]).reshape(E, L, C, D) \
+    out_buf = expert_ffn(cfg, p, buf, tp).reshape(E, L, C, D) \
         .transpose(0, 1).reshape(L * E * C, D)
 
     gathered = torch.gather(out_buf, 0, slot[:, None].expand(-1, D))

@@ -1,6 +1,6 @@
 """The model axis of a SwarmSGD node: how a node's parameters split over
 its K GPUs (counterpart of the sharding rules of ``repro/launch/specs.py``,
-restricted to the dense training path).
+restricted to the training path of the dense and MoE archs).
 
 In the reference's production layout a node is a tensor-parallel island
 of 16 chips whose mesh axis ``"model"`` carries the split;
@@ -16,6 +16,15 @@ The dense rules, as the reference's: ``ffn``, ``heads_x_dim`` and
 ``vocab`` (where the vocabulary divides by K) on the model axis;
 ``embed``, ``layers`` and the unnamed axes (norm scales, ``q_norm`` /
 ``k_norm``, the frontend's ``proj``) replicated.
+
+The MoE rules, as the reference's (``specs.py:45-53``, ``:86-88``):
+``expert`` on the model axis where ``cfg.moe.expert_shard_axis`` is
+"model" (qwen3-moe-30b-a3b: each GPU holds E/K whole experts), None
+otherwise (a "data" expert axis is a node axis outside ``big_model``);
+``expert_ffn`` on the model axis where ``expert`` is not
+(granite-moe-3b-a800m, whose 40 experts do not divide 16: each GPU holds
+every expert's d_ff slice); ``expert_unsharded`` (the router) replicated.
+K must divide the axis it cuts (:func:`check_model_parallel`).
 
 The port's deviation (``kv_x_dim``): heads are split whole. K must divide
 ``n_heads``; where it also divides ``n_kv_heads`` the kv heads split with
@@ -44,8 +53,6 @@ MODEL_AXIS = "model"
 #: What the model axis does not carry yet, each refusal naming the
 #: ROADMAP.md item that carries it.
 NOT_ON_THE_MODEL_AXIS = {
-    "moe": ("the MoE expert axes (expert, expert_ffn) on the model axis "
-            "wait for ROADMAP.md Queue A 11"),
     "ssm": ("the SSM rules (ssm_proj, ssm_conv, ssm_inner, ssm_head) on "
             "the model axis wait for ROADMAP.md Queue A 12"),
     "big_model": ("the big_model layout (a node is a whole pod) waits for "
@@ -63,8 +70,9 @@ NOT_ON_THE_MODEL_AXIS = {
 
 def check_model_parallel(cfg, model_parallel: int) -> None:
     """Raise ValueError where the port does not split `cfg`'s node over
-    `model_parallel` GPUs: a non-dense arch (naming its ROADMAP.md item),
-    heads that do not divide, or an FFN width that does not."""
+    `model_parallel` GPUs: an arch the model axis does not carry (naming
+    its ROADMAP.md item), heads that do not divide, or an FFN width, an
+    expert count or an expert's d_ff that does not."""
     K = int(model_parallel)
     if K < 1:
         raise ValueError(f"model_parallel={K}: a node holds 1 or more GPUs")
@@ -72,8 +80,6 @@ def check_model_parallel(cfg, model_parallel: int) -> None:
         return
     if cfg.big_model:
         raise ValueError(f"{cfg.name}: {NOT_ON_THE_MODEL_AXIS['big_model']}")
-    if cfg.moe is not None:
-        raise ValueError(f"{cfg.name}: {NOT_ON_THE_MODEL_AXIS['moe']}")
     if cfg.ssm is not None or any(m == "mamba" for m, _ in
                                   cfg.pattern + cfg.tail_pattern):
         raise ValueError(f"{cfg.name}: {NOT_ON_THE_MODEL_AXIS['ssm']}")
@@ -90,6 +96,22 @@ def check_model_parallel(cfg, model_parallel: int) -> None:
     if cfg.d_ff % K:
         raise ValueError(f"{cfg.name}: model_parallel={K} does not divide "
                          f"d_ff={cfg.d_ff}")
+    if cfg.moe is not None:
+        if expert_split(cfg):
+            if cfg.moe.n_experts % K:
+                raise ValueError(
+                    f"{cfg.name}: model_parallel={K} does not divide "
+                    f"n_experts={cfg.moe.n_experts} (the expert split)")
+        elif cfg.moe.d_ff % K:
+            raise ValueError(
+                f"{cfg.name}: model_parallel={K} does not divide the "
+                f"experts' d_ff={cfg.moe.d_ff} (the expert_ffn split)")
+
+
+def expert_split(cfg) -> bool:
+    """True where the model axis cuts the expert axis (each GPU E/K whole
+    experts), False where it cuts each expert's d_ff (``expert_ffn``)."""
+    return cfg.moe.expert_shard_axis == MODEL_AXIS
 
 
 def kv_deviation(cfg, model_parallel: int) -> bool:
@@ -100,11 +122,14 @@ def kv_deviation(cfg, model_parallel: int) -> bool:
 
 def logical_rules(cfg, mesh: Dict[str, int]) -> Dict[Optional[str],
                                                        Optional[str]]:
-    """Logical axis name -> mesh axis (or None) for the dense axes
-    (``specs.py:43``), with the port's kv rule (:func:`kv_deviation`);
-    `mesh` maps axis names to sizes, as ``{"data": n, "model": K}``."""
+    """Logical axis name -> mesh axis (or None) for the dense and MoE
+    axes (``specs.py:43``), with the port's kv rule
+    (:func:`kv_deviation`); `mesh` maps axis names to sizes, as
+    ``{"data": n, "model": K}``."""
     K = mesh[MODEL_AXIS]
     check_model_parallel(cfg, K)
+    expert = MODEL_AXIS if cfg.moe is not None and expert_split(cfg) \
+        else None
     return {
         None: None,
         "layers": None,
@@ -113,6 +138,9 @@ def logical_rules(cfg, mesh: Dict[str, int]) -> Dict[Optional[str],
         "ffn": MODEL_AXIS,
         "heads_x_dim": MODEL_AXIS,
         "kv_x_dim": None if kv_deviation(cfg, K) else MODEL_AXIS,
+        "expert": expert,
+        "expert_ffn": MODEL_AXIS if expert is None else None,
+        "expert_unsharded": None,
     }
 
 

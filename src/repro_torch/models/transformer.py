@@ -24,11 +24,13 @@ On a node split over K GPUs (``tp``, ``launch/mesh.py`` ``ModelShard``;
 the parameters this GPU's slices, :func:`param_split` by the rules of
 ``models/split.py``) training runs the
 reference's tensor-parallel layout: each attention layer the GPU's own
-heads with a row-parallel ``wo``, the MLP column- then row-parallel, the
-embedding a masked lookup of the GPU's vocab rows summed over the model
-group, and the cross-entropy vocab-parallel (``models/layers.py``). Norms,
-``q_norm`` / ``k_norm`` and the frontend's ``proj`` stay whole on every
-GPU. Serving under the model axis is refused.
+heads with a row-parallel ``wo``, the MLP column- then row-parallel, a
+MoE layer's experts split by expert or by d_ff behind a whole router
+(``models/moe.py``), the embedding a masked lookup of the GPU's vocab
+rows summed over the model group, and the cross-entropy vocab-parallel
+(``models/layers.py``). Norms, ``q_norm`` / ``k_norm``, the router and
+the frontend's ``proj`` stay whole on every GPU. Serving under the model
+axis is refused.
 
 A cache's leaves carry the batch on their first axis after the stacked
 block axis (``blocks`` leaves [n_blocks, B, ...], ``tail`` leaves [B, ...]),
@@ -385,7 +387,7 @@ def _apply_layer(cfg, p, x, positions, *, mixer: str, ffn: str,
     elif ffn == "moe":
         mo, aux = moe_lib.apply_moe(cfg, p["moe"],
                                     apply_norm(cfg, p["norm2"], x),
-                                    per_lane=moe_per_lane)
+                                    per_lane=moe_per_lane, tp=tp)
         x = x + mo
     return x, new_cache, aux
 

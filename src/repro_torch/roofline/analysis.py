@@ -131,6 +131,13 @@ def link_bw(n_devices: int) -> float:
     return HW.NVLINK_BW if n_devices <= HW.GPUS_A_HOST else HW.IB_NDR_BW
 
 
+def model_group_bytes(rec: dict) -> int:
+    """The bytes a dry-run record's rank puts on the model group's links:
+    its all-reduces' and its all-gathers' (0 off the model axis)."""
+    return rec.get("model_allreduce_bytes_per_dev", 0) + \
+        rec.get("model_allgather_bytes_per_dev", 0)
+
+
 def roofline_terms(flops: float, n_bytes: float, coll_bytes: float,
                    dtype: str, n_devices: int, model_coll_bytes: float = 0,
                    model_parallel: int = 1) -> dict:

@@ -13,7 +13,8 @@ reads as a new one would.
 
 A second table reads the ``train_4k`` records on the model axis
 (``dryrun --model-parallel K``, ``launch/sweep.py``): per arch and mesh,
-the peak a GPU at one GPU a node, at the reference's K and at the
+the peak a GPU at one GPU a node, at the reference's K (or its refusal,
+where the port splits heads whole and K does not divide them) and at the
 smallest K that fits; an arch that waits for its ROADMAP.md item says
 which.
 """
@@ -39,12 +40,12 @@ def priced(r: dict) -> dict:
     if "flops_per_dev" not in r:
         return r
     from repro_torch.configs import get_config
-    from repro_torch.roofline.analysis import roofline_terms
+    from repro_torch.roofline.analysis import model_group_bytes, \
+        roofline_terms
     return {**r, **roofline_terms(
         r["flops_per_dev"], r["bytes_analytic_per_dev"],
         r["coll_bytes_per_dev"], get_config(r["arch"]).dtype,
-        r["n_devices"], r.get("model_allreduce_bytes_per_dev", 0),
-        r.get("model_parallel", 1))}
+        r["n_devices"], model_group_bytes(r), r.get("model_parallel", 1))}
 
 
 def fmt_bytes(b) -> str:
@@ -144,8 +145,7 @@ def model_axis_table(rows) -> str:
         ks = model_axis_ks(arch)
         if ks is None:
             cfg = get_config(arch)
-            why = "big_model" if cfg.big_model else \
-                "moe" if cfg.moe is not None else "ssm"
+            why = "big_model" if cfg.big_model else "ssm"
             item = NOT_ON_THE_MODEL_AXIS[why].split("ROADMAP.md ")[-1]
             lines.append(f"| {arch} | {mesh} | "
                          f"{fmt_bytes(one and one['peak_bytes'])}{term(one)}"
@@ -155,10 +155,11 @@ def model_axis_table(rows) -> str:
         ref = recs.get(k_ref)
         fit = next((recs[k] for k in sorted(recs) if k > 1 and
                     recs[k]["fits"]), None)
+        at_ref = f"{fmt_fits(ref)}{term(ref)}" if ref else \
+            "-" if k_ref in ks[1] else "refused (whole heads, Queue A 16)"
         lines.append(
             f"| {arch} | {mesh} | {fmt_bytes(one and one['peak_bytes'])}"
-            f"{term(one)} | K {k_ref}: " +
-            (f"{fmt_fits(ref)}{term(ref)}" if ref else "-") + " | " +
+            f"{term(one)} | K {k_ref}: {at_ref} | " +
             (f"K {fit['model_parallel']}: {fmt_bytes(fit['peak_bytes'])}"
              f"{term(fit)}"
              if fit else "none of " + ", ".join(map(str, ks[1]))) + " | " +

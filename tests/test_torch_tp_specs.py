@@ -2,7 +2,7 @@
 in ``repro_torch/launch/specs.py``) against the reference's
 (``repro/launch/specs.py``), host only: no device, no process group.
 
-For every dense arch and K in {2, 4, 16} the port's split map
+For every dense and MoE arch and K in {2, 4, 16} the port's split map
 (``param_split``: one dimension a leaf, or None for a leaf every GPU of a
 node holds whole) equals the reference's ``param_pspec`` on
 ``tests/test_specs_host.py``'s ``FakeMesh({"data": 16, "model": K})``
@@ -13,6 +13,11 @@ leaf by leaf, with two named deviations:
   kv heads its own q heads read);
 * ``heads_do_not_divide``: where K does not divide n_heads the reference
   cuts inside a head; the port refuses K.
+
+The MoE archs' expert leaves take the reference's rules with no
+deviation: granite-moe-3b-a800m's per-expert d_ff (``expert_ffn``) and
+qwen3-moe-30b-a3b's experts (``expert``) on the model axis, the router
+whole.
 
 The rest: the node arithmetic, the shapes of a GPU's slices, the weight
 carry-over (slices of the JAX package's weights and back, bitwise), a
@@ -45,6 +50,7 @@ from repro_torch.tree import tree_leaves, tree_paths
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = [a for a in list_archs() if get_config(a).moe is None
          and get_config(a).ssm is None and not get_config(a).big_model]
+MOE = ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b"]
 KS = (2, 4, 16)
 
 
@@ -75,15 +81,22 @@ def test_the_dense_archs():
                      "transformer-wmt"]
 
 
+def test_the_moe_archs():
+    assert MOE == [a for a in list_archs() if get_config(a).moe is not None
+                   and not get_config(a).big_model]
+
+
 @pytest.mark.parametrize("K", KS)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_split_map_equals_the_reference(arch, K):
     cfg = get_config(arch)
     ref = _ref_split(cfg, K)
     paths = tree_paths(param_template(cfg))
     if cfg.n_heads % K:
-        # deviation heads_do_not_divide: gemma3-4b and paligemma-3b at 16
-        assert (arch, K) in {("gemma3-4b", 16), ("paligemma-3b", 16)}
+        # deviation heads_do_not_divide: gemma3-4b and paligemma-3b (8
+        # heads) and granite-moe-3b-a800m (24) at 16
+        assert (arch, K) in {("gemma3-4b", 16), ("paligemma-3b", 16),
+                             ("granite-moe-3b-a800m", 16)}
         with pytest.raises(ValueError, match="n_heads"):
             param_split(cfg, K)
         return
@@ -102,13 +115,25 @@ def test_split_map_equals_the_reference(arch, K):
         n_attn = sum(p.endswith(".wk") for p in paths)
         assert len(deviated) == 2 * n_attn > 0
         assert (arch, K) in {("chatglm3-6b", 4), ("chatglm3-6b", 16),
-                             ("paligemma-3b", 2), ("paligemma-3b", 4)}
+                             ("paligemma-3b", 2), ("paligemma-3b", 4),
+                             ("qwen3-moe-30b-a3b", 16)}
     else:
         assert not deviated
+    if cfg.moe is not None:
+        # the expert leaves split as the reference's: qwen3 by expert,
+        # granite by the experts' d_ff; the router whole
+        moe = [(p.split(".")[-1], g) for p, g in zip(paths, got)
+               if ".moe." in p]
+        want = {"router": None, "w_up": 0, "w_gate": 0, "w_down": 0} \
+            if MS.expert_split(cfg) else \
+            {"router": None, "w_up": 2, "w_gate": 2, "w_down": 1}
+        assert moe and all(want[k] == g - 1 for k, g in moe
+                           if g is not None)
+        assert all((g is None) == (want[k] is None) for k, g in moe)
 
 
 @pytest.mark.parametrize("K", (2, 4, 8, 16))
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_a_gpus_slices_tile_the_leaf(arch, K):
     """Each split leaf's slice is its dimension over K; a whole leaf keeps
     its shape; a GPU holds more than a K-th of the node and less than all
@@ -163,16 +188,29 @@ def test_logical_rules_equal_the_reference_on_the_dense_axes(arch, K):
                                else ref["kv_x_dim"])
 
 
+def _restored(cfg, arch):
+    """`cfg` (a reduced config of either package) with its arch's expert
+    axis back: ``reduced`` sets it None, which would hide the expert
+    split."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, expert_shard_axis=get_config(arch).moe.expert_shard_axis))
+
+
 @pytest.mark.parametrize("K", (2, 4))
 @pytest.mark.parametrize("arch", ["transformer-wmt", "gemma3-4b",
-                                  "chatglm3-6b", "paligemma-3b"])
+                                  "chatglm3-6b", "paligemma-3b"] + MOE)
 def test_weight_carry_over_round_trips_bitwise(arch, K):
     """The JAX package's weights (numpy, node-stacked or not) cut into K
     GPUs' slices and put back together: bitwise; the port's one-GPU
-    tensors likewise."""
+    tensors likewise. A MoE arch with its expert axis restored: qwen3's
+    slices are whole experts, granite's every expert's d_ff slice."""
     from repro.configs import reduced as jreduced
-    cfg = reduced(get_config(arch), n_layers=2, d_model=32)
-    jc = jreduced(jget_config(arch), n_layers=2, d_model=32)
+    cfg = _restored(reduced(get_config(arch), n_layers=2, d_model=32), arch)
+    jc = _restored(jreduced(jget_config(arch), n_layers=2, d_model=32),
+                   arch)
     np_tree = jax.device_get(jinit_params(jax.random.PRNGKey(1), jc))
     shards = [shard_params(np_tree, cfg, K, i) for i in range(K)]
     back = unshard_params(shards, cfg)
@@ -183,6 +221,13 @@ def test_weight_carry_over_round_trips_bitwise(arch, K):
     for a, b in zip(jax.tree.leaves(stacked),
                     tree_leaves(unshard_params(sh, cfg, stacked=True))):
         assert np.array_equal(a, b)
+    if cfg.moe is not None:
+        up = np_tree["blocks"]["layer_0"]["moe"]["w_up"]      # [1, E, d, f]
+        mine = shards[1]["blocks"]["layer_0"]["moe"]["w_up"]
+        E, f = cfg.moe.n_experts, cfg.moe.d_ff
+        want = up[:, E // K:2 * E // K] if MS.expert_split(cfg) else \
+            up[..., f // K:2 * f // K]
+        assert np.array_equal(mine, want)
     t = params_from_numpy(np_tree, "cpu")
     ts = [shard_params(t, cfg, K, i) for i in range(K)]
     assert all(x.is_contiguous() for s in ts for x in tree_leaves(s))
@@ -212,7 +257,7 @@ def _roadmap_queue_a():
 
 
 @pytest.mark.parametrize("what,words", [
-    ("moe", ("expert",)), ("ssm", ("SSM",)), ("big_model", ("big_model",)),
+    ("ssm", ("SSM",)), ("big_model", ("big_model",)),
     ("serve", ("Serving", "decode")), ("run", ("baselines", "--scan-chunk"))])
 def test_refusals_name_their_roadmap_item(what, words):
     m = re.search(r"ROADMAP\.md Queue A (\d+)", MS.NOT_ON_THE_MODEL_AXIS[what])
@@ -228,14 +273,38 @@ def test_the_model_axis_itself_is_marked_done():
     assert "done in PR" in item.split("\n")[0], item[:200]
 
 
+def test_the_moe_axes_item_is_marked_done():
+    assert "done in PR" in _roadmap_queue_a()[11].split("\n")[0]
+
+
 @pytest.mark.parametrize("arch,what", [
-    ("granite-moe-3b-a800m", "Queue A 11"), ("qwen3-moe-30b-a3b",
-                                             "Queue A 11"),
     ("mamba2-780m", "Queue A 12"), ("jamba-1.5-large-398b", "Queue A 13")])
 def test_non_dense_archs_are_refused(arch, what):
     with pytest.raises(ValueError, match=what):
         param_split(get_config(arch), 2)
     MS.check_model_parallel(get_config(arch), 1)
+
+
+@pytest.mark.parametrize("arch,ks", [
+    ("granite-moe-3b-a800m", (2, 4, 8)),
+    ("qwen3-moe-30b-a3b", (2, 4, 8, 16))])
+def test_the_moe_archs_are_accepted(arch, ks):
+    for K in ks:
+        MS.check_model_parallel(get_config(arch), K)
+
+
+@pytest.mark.parametrize("arch,K,what", [
+    ("qwen3-moe-30b-a3b", 3, "n_experts=128"),
+    ("granite-moe-3b-a800m", 3, "d_ff=512")])
+def test_a_k_that_divides_neither_expert_axis_is_refused(arch, K, what):
+    """A K that does not divide the expert axis the arch cuts (qwen3's
+    128 experts, granite's per-expert d_ff of 512) is refused, naming
+    it; the heads are no bar here (an arch with K-divisible heads)."""
+    import dataclasses
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_heads=3 * 8, n_kv_heads=3)
+    with pytest.raises(ValueError, match=what):
+        MS.check_model_parallel(cfg, K)
 
 
 def test_k_that_does_not_divide_is_refused():
@@ -348,9 +417,6 @@ def test_dry_run_refuses_what_the_model_axis_does_not_carry():
     with pytest.raises(ValueError, match="nodes-per-gpu"):
         D.run_one("gemma3-4b", "train_4k", nodes_per_gpu=2,
                   model_parallel=2, device="cpu")
-    with pytest.raises(ValueError, match="Queue A 11"):
-        D.run_one("granite-moe-3b-a800m", "train_4k", model_parallel=2,
-                  device="cpu")
     args = D.build_parser().parse_args(
         ["--arch", "gemma3-4b", "--shape", "train_4k", "--model-parallel",
          "8"])
@@ -362,7 +428,8 @@ def test_dry_run_refuses_what_the_model_axis_does_not_carry():
     ("olmo-1b", (16, [2, 4, 8, 16])), ("gemma3-27b", (16, [2, 4, 8, 16])),
     ("chatglm3-6b", (16, [2, 4, 8, 16])),
     ("musicgen-large", (16, [2, 4, 8, 16])),
-    ("granite-moe-3b-a800m", None), ("qwen3-moe-30b-a3b", None),
+    ("granite-moe-3b-a800m", (16, [2, 4, 8])),
+    ("qwen3-moe-30b-a3b", (16, [2, 4, 8, 16])),
     ("mamba2-780m", None), ("jamba-1.5-large-398b", None)])
 def test_the_sweep_traces_dense_archs_at_the_references_k(arch, want):
     from repro_torch.launch.sweep import model_axis_ks, record_path
@@ -383,13 +450,21 @@ def test_the_model_axis_table():
     rows = [rec("gemma3-4b", 1, 144.5), rec("gemma3-4b", 2, 90.0),
             rec("gemma3-4b", 4, 50.0), rec("gemma3-4b", 8, 30.0),
             rec("granite-moe-3b-a800m", 1, 86.0),
+            rec("granite-moe-3b-a800m", 2, 60.0),
+            rec("qwen3-moe-30b-a3b", 1, 682.4),
+            rec("qwen3-moe-30b-a3b", 16, 50.0),
+            rec("mamba2-780m", 1, 33.9),
             {"arch": "olmo-1b", "shape": "train_4k", "mesh": "single",
              "error": "boom"}]
     table = model_axis_table(rows)
     assert "| gemma3-4b | single | 144.50 | K 8: yes (30.00) | K 4: 50.00 " \
            "| no |" in table
-    assert "| granite-moe-3b-a800m | single | 86.00 | waits (Queue A 11)" \
-        in table
+    assert "| granite-moe-3b-a800m | single | 86.00 | K 16: refused " \
+        "(whole heads, Queue A 16) | K 2: 60.00 | no |" in table
+    assert "| qwen3-moe-30b-a3b | single | 682.40 | K 16: yes (50.00) | " \
+        "K 16: 50.00 | no |" in table
+    assert "| mamba2-780m | single | 33.90 | waits (Queue A 12)" in table
+    assert "waits (Queue A 11)" not in table
     assert "olmo-1b" not in table
 
 
@@ -430,3 +505,59 @@ def test_the_table_prices_each_record_from_its_counts():
     assert priced({"arch": "gemma3-4b", "error": "boom"}) == \
         {"arch": "gemma3-4b", "error": "boom"}
     assert "K 2: 70.00 cmp" in model_axis_table([now])
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_dry_run_counts_the_moe_layers_collectives(arch):
+    """``dryrun --model-parallel 2`` of a reduced MoE arch (its expert
+    axis restored): qwen3's expert split all-gathers the experts' outputs
+    over the model group (counted apart, and in the rank's all-gather
+    bytes); granite's d_ff split all-reduces them and gathers nothing.
+    Both priced at the model group's own link."""
+    from repro_torch import hardware as HW
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline.analysis import model_group_bytes
+    cfg = _restored(reduced(get_config(arch), n_layers=2, d_model=64), arch)
+    rec = D.run_one(arch, "train_4k", nodes=2, batch=2, seq=32,
+                    device="cpu", cfg=cfg, model_parallel=2, quantize=True)
+    assert rec["mesh"] == "2_gpus_tp2" and rec["n_layers"] == 2
+    assert rec["model_allreduce_calls"] > 0
+    if MS.expert_split(cfg):
+        # one a layer and local step
+        assert rec["model_allgather_calls"] == 2 * rec["H"]
+        assert rec["coll_raw"]["all-gather"] >= \
+            rec["model_allgather_bytes_per_dev"] > 0
+    else:
+        assert rec["model_allgather_calls"] == 0
+        assert rec["model_allgather_bytes_per_dev"] == 0
+    node = rec["coll_bytes_per_dev"] - model_group_bytes(rec)
+    assert rec["collective_s"] == node / HW.NVLINK_BW + \
+        model_group_bytes(rec) / HW.NVLINK_BW
+
+
+@pytest.mark.parametrize("K,chunk", [(2, 128), (4, 64), (2, 512)])
+def test_vocab_slices_stats_join_to_the_whole_cross_entropy(K, chunk):
+    """Each GPU's vocab slice's online statistics (``layers.py``
+    ``_xent_stats`` at the slice's offset), joined as the vocab-parallel
+    cross-entropy joins them (max, rescaled sum, the target's logit from
+    the slice that holds it), give the one-GPU chunked cross-entropy,
+    also where a slice is not a multiple of the chunk (qwen3-moe-30b-a3b's
+    151,936 rows at K 2 are 75,968 a GPU, 4.6 chunks of 16,384): a target
+    in the next slice's first rows falls in the last chunk's padding and
+    must count there as a 0 logit, not as the padding's -inf."""
+    from repro_torch.models.layers import _xent_stats, chunked_softmax_xent
+    V, D = 600, 16
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 24, D), generator=g)
+    embed = torch.randn((V, D), generator=g)
+    targets = torch.randint(0, V, (2, 24), generator=g)
+    n = V // K
+    stats = [_xent_stats(x, embed[i * n:(i + 1) * n], targets, chunk, 0.0,
+                         i * n) for i in range(K)]
+    M = torch.stack([m for m, _, _ in stats]).amax(0)
+    S = sum(s * torch.exp(m - M) for m, s, _ in stats)
+    TL = sum(tl for _, _, tl in stats)
+    got = torch.mean(M + torch.log(S) - TL)
+    want = chunked_softmax_xent(x, embed, targets, chunk=chunk)
+    assert torch.isfinite(got)
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
