@@ -2948,36 +2948,39 @@ def _serve_faults():
     }
 
 
-def _serve_readings(cfg, params, dev, prompts, chunks, step_tokens):
+def _serve_readings(cfg, params, dev, prompts, chunks, step_tokens,
+                    tp=None):
     """The model's serving modes on `dev` from `params`: prefill logits,
     teacher-forced decode logits (the tokens `step_tokens` fed to every
     device), the same decode through page pools (attention archs) and
-    ragged chunk-mode logits and states -> dict of CPU fp32 tensors."""
+    ragged chunk-mode logits and states -> dict of CPU fp32 tensors. On
+    the model axis (`tp`, `params` a GPU's slices) the logits, whole on
+    every GPU; the states are the GPU's and are left out."""
     import torch
     from repro_torch.launch.serve import make_serve_fns
     from repro_torch.models import forward, init_cache, logits_head
     from repro_torch.serve import paged as P
     from repro_torch.serve.engine import grow_cache
     from repro_torch.tree import keystr, tree_key_paths, tree_leaves
-    prefill, decode_step = make_serve_fns(cfg)
+    prefill, decode_step = make_serve_fns(cfg, tp)
     toks = torch.from_numpy(prompts).to(dev)
     B, L = toks.shape
     logits, c = prefill(params, toks)
     out = {"prefill": logits}
-    cache = grow_cache(init_cache(cfg, B, 16, device=dev), c)
+    cache = grow_cache(init_cache(cfg, B, 16, device=dev, tp=tp), c)
     steps = []
     for t in step_tokens:
         lg, cache = decode_step(params, cache, torch.from_numpy(t).to(dev))
         steps.append(lg)
     out["decode"] = torch.cat(steps, dim=1)
     if P.attn_layer_entries(cfg):
-        dense = grow_cache(init_cache(cfg, B, 16, device=dev), c)
+        dense = grow_cache(init_cache(cfg, B, 16, device=dev, tp=tp), c)
         lane, rows = P.strip_attn_kv(cfg, dense)
         lane["len"] = torch.full((B,), L, dtype=torch.int32, device=dev)
         tables = torch.tensor([[5, 1, 7, 3], [2, 6, 0, 4]],
                               dtype=torch.int32, device=dev)
         pools = P.scatter_tree(
-            P.build_pools(cfg, 8, 4, torch.float32, dev), rows, tables,
+            P.build_pools(cfg, 8, 4, torch.float32, dev, tp), rows, tables,
             torch.zeros(B, dtype=torch.int64, device=dev),
             torch.full((B,), L, dtype=torch.int64, device=dev),
             torch.ones(B, dtype=torch.bool, device=dev), 4)
@@ -2985,7 +2988,8 @@ def _serve_readings(cfg, params, dev, prompts, chunks, step_tokens):
         steps = []
         for t in step_tokens:
             h, c2, _ = forward(cfg, params, torch.from_numpy(t).to(dev),
-                               mode="decode", cache=lane, pools=pools)
+                               mode="decode", cache=lane, pools=pools,
+                               tp=tp)
             c2, new_rows = P.split_new_rows(c2)
             pools = P.scatter_tree(pools, new_rows, tables, lane["len"],
                                    torch.ones(B, dtype=torch.int64,
@@ -2993,27 +2997,30 @@ def _serve_readings(cfg, params, dev, prompts, chunks, step_tokens):
                                    torch.ones(B, dtype=torch.bool,
                                               device=dev), 4)
             lane = c2
-            steps.append(logits_head(cfg, params, h))
+            steps.append(logits_head(cfg, params, h, tp))
         out["paged_decode"] = torch.cat(steps, dim=1)
-    cache = init_cache(cfg, B, 16, device=dev)
+    cache = init_cache(cfg, B, 16, device=dev, tp=tp)
     for ch, nv in chunks:
         h, cache, _ = forward(cfg, params, torch.from_numpy(ch).to(dev),
                               mode="chunk", cache=cache,
-                              n_valid=torch.tensor(nv, device=dev))
-        out.setdefault("chunk", []).append(logits_head(cfg, params, h))
+                              n_valid=torch.tensor(nv, device=dev),
+                              moe_per_lane=True, tp=tp)
+        out.setdefault("chunk", []).append(logits_head(cfg, params, h, tp))
     out["chunk"] = torch.cat(out["chunk"], dim=1)
     for path, leaf in zip(tree_key_paths(cache), tree_leaves(cache)):
-        if leaf.is_floating_point():
+        if leaf.is_floating_point() and tp is None:
             out["chunk_state" + keystr(path)] = leaf
     return {k: v.detach().float().cpu() for k, v in out.items()}
 
 
-def _serve_engine_tokens(cfg, params, dev, prompts, **kw):
-    """Greedy tokens of the engine on `dev` over ragged `prompts`."""
+def _serve_engine_tokens(cfg, params, dev, prompts, tp=None, **kw):
+    """Greedy tokens of the engine on `dev` over ragged `prompts` (on the
+    model axis `tp`, `params` a GPU's slices)."""
     from repro_torch.serve import EngineConfig, Request, ServeEngine
     eng = ServeEngine(cfg, EngineConfig(max_slots=2, prompt_len=8,
                                         max_new_tokens=8, queue_depth=16,
-                                        **kw), params=params, device=dev)
+                                        **kw), params=params, device=dev,
+                      tp=tp)
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p))
     eng.drain()
@@ -4055,11 +4062,12 @@ def _ms_spawn(fn, world: int, *args) -> None:
 
 
 def _ms_mesh(rank: int, world: int, port: int, device: str,
-             model_parallel: int = 1):
+             model_parallel: int = 1, timeout=None):
     """A rank's setup: the mesh (NCCL on cuda; `model_parallel` GPUs a
-    node), the card's fp32 matmuls without TF32, as in `main`; NCCL's
-    registration of captured buffers off before the group starts, as the
-    mesh's chunk driver asks (``core/scan.py``)."""
+    node; `timeout` bounds its collectives' waits), the card's fp32
+    matmuls without TF32, as in `main`; NCCL's registration of captured
+    buffers off before the group starts, as the mesh's chunk driver asks
+    (``core/scan.py``)."""
     import torch
     os.environ["NCCL_GRAPH_REGISTER"] = "0"
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -4068,7 +4076,7 @@ def _ms_mesh(rank: int, world: int, port: int, device: str,
     torch.backends.cudnn.allow_tf32 = False
     return init_node_mesh(device, rank=rank, world_size=world,
                           init_method=f"tcp://localhost:{port}",
-                          model_parallel=model_parallel)
+                          model_parallel=model_parallel, timeout=timeout)
 
 
 def _sync(dev) -> None:
@@ -6819,6 +6827,733 @@ def _tp_check_dry(cuda_rec, cpu_rec) -> None:
           f"{cuda_rec['device_allocated_after_bytes']} B at its end")
 
 
+# ---------------------------------------------------------------------------
+# tensor_parallel_serve: serving on a node split over K GPUs (4 cards)
+# ---------------------------------------------------------------------------
+
+TPS_K, TPS_NODES = 2, 2
+TPS_DIR = os.path.join(ROOT, "build", "chip_smoke_tp_serve")
+# the reduced card-vs-CPU archs (fp32, d_model 64): gemma3-4b at 6 layers
+# with a window of 8 (one global layer; the rings wrap), the MoE archs
+# with their own expert axes restored
+TPS_ARCHS = ("olmo-1b", "gemma3-4b", "granite-moe-3b-a800m",
+             "qwen3-moe-30b-a3b")
+# planted faults of the reduced check: name -> the arch it is planted in
+TPS_FAULTS = {"next_kv_heads": "olmo-1b", "argmax_no_gather": "gemma3-4b",
+              "decode_reduce_dropped": "olmo-1b",
+              "late_admission": "olmo-1b"}
+TPS_ENGINE_MODES = (("dense", {}), ("paged", dict(paged=True, page_size=4)),
+                    ("chunked", dict(prefill_chunk=4)))
+# the full-width runs: decode_32k's cache of 32,768 rows; the reference's
+# batch for a node group (128 sequences over `single`'s 16 nodes), filled
+# by a prefill of a prompt 1,024 rows short of the cache (a multiple of
+# the attention's 1,024-row chunks), then TPS_DECODE_STEPS greedy steps
+TPS_CACHE, TPS_BATCH, TPS_DECODE_STEPS = 32768, 8, 16
+TPS_FULL_ARCH, TPS_MOE_ARCH = "olmo-1b", "qwen3-moe-30b-a3b"
+# the engine at full width: 8 slots, 16 requests of 512 + 64 tokens
+TPS_ENGINE_RUNS = (("dense", {}), ("chunked", dict(prefill_chunk=128)),
+                   ("paged_chunked", dict(paged=True, page_size=16,
+                                          prefill_chunk=128)),
+                   ("swap", {}))
+TPS_SWAP_AFTER = 8
+TPS_REQUESTS, TPS_PROMPT, TPS_NEW = 16, 512, 64
+# qwen3's cache where decode_32k's misses the card: the longest power of
+# two the dry run predicts fits
+TPS_MOE_CACHES = (32768, 16384, 8192)
+TPS_MOE_DECODE_STEPS = 8
+
+
+def _tps_cfg(arch):
+    """`arch` reduced (fp32, d_model 64, 2 layers; gemma3-4b 6 with a
+    window of 8), a MoE arch with its own expert axis restored."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    full = get_config(arch)
+    cfg = reduced(full, n_layers=6 if arch == "gemma3-4b" else 2,
+                  d_model=64)
+    if arch == "gemma3-4b":
+        cfg = dataclasses.replace(cfg, sliding_window=8)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, expert_shard_axis=full.moe.expert_shard_axis))
+    return cfg
+
+
+def _tps_inputs(cfg):
+    """Prompts [2, 8], six teacher-forced decode tokens and three ragged
+    chunks of 4, from numpy; the engine's ragged prompts."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    steps = [rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int64)
+             for _ in range(6)]
+    chunks = [(rng.integers(0, cfg.vocab_size, (2, 4)).astype(np.int64), nv)
+              for nv in ([4, 4], [4, 1], [2, 0])]
+    ragged = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+              for L in SERVE_LENS]
+    return prompts, steps, chunks, ragged
+
+
+class _tps_routes:
+    """Collect every MoE layer's routing choices in the body of a
+    `with`."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route0, self.idx = moe, moe.route, []
+
+        def route(*a):
+            out = self.route0(*a)
+            self.idx.append(out[1].detach().cpu())
+            return out
+        moe.route = route
+        return self.idx
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route0
+
+
+def _tps_plant(fault):
+    """The patches of a planted forward fault (`_planted`): the argmax
+    over a GPU's own vocab slice (no gather), or attention's all-reduce
+    dropped in decode. The weights' fault (``next_kv_heads``) is planted
+    in `_tps_slices`, the engine's in `_tps_late`."""
+    from repro_torch.models import transformer as tf
+    if fault == "argmax_no_gather":
+        return _planted((tf, "gather_from_model", lambda x, tp: x))
+    attn0, red0, skip = tf._attn_layer, tf.reduce_from_model, [False]
+
+    def attn(cfg, p, x, positions, *, mode="train", **kw):
+        skip[0] = mode == "decode"
+        try:
+            return attn0(cfg, p, x, positions, mode=mode, **kw)
+        finally:
+            skip[0] = False
+    return _planted((tf, "_attn_layer", attn),
+                    (tf, "reduce_from_model",
+                     lambda x, tp: x if skip[0] else red0(x, tp)))
+
+
+def _tps_slices(cfg, whole, K, index, dev, fault=""):
+    """GPU `index`'s slices of the CPU's `whole` model on `dev`; with the
+    fault ``next_kv_heads`` its wk / wv those of the next model index, so
+    its cache holds the next GPU's kv heads."""
+    from repro_torch.models.convert import shard_params
+    from repro_torch.tree import tree_map
+    mine = shard_params(whole, cfg, K, index)
+    if fault == "next_kv_heads":
+        nxt = shard_params(whole, cfg, K, (index + 1) % K)
+        for layer, p in mine["blocks"].items():
+            for k in ("wk", "wv"):
+                p["attn"][k] = nxt["blocks"][layer]["attn"][k]
+    return tree_map(lambda x: x.to(dev), mine)
+
+
+def _tps_late(engine):
+    """Planted fault: this GPU's engine admits its first request one step
+    after its peers."""
+    admit0, skipped = engine._admit, []
+
+    def admit(now):
+        if engine.queue and not skipped:
+            skipped.append(now)
+            return
+        admit0(now)
+    engine._admit = admit
+
+
+def _tps_cpu_reference() -> dict:
+    """The CPU's one-GPU port of every reduced arch: its weights, serving
+    readings, routing, one-shot and engine tokens."""
+    import argparse
+    import torch
+    from repro_torch.launch.serve import make_generators, run_oneshot
+    from repro_torch.models import init_params
+    ref = {}
+    for arch in TPS_ARCHS:
+        cfg = _tps_cfg(arch)
+        params = init_params(torch.Generator().manual_seed(1), cfg, "cpu")
+        prompts, steps, chunks, ragged = _tps_inputs(cfg)
+        with torch.no_grad(), _tps_routes() as routes:
+            readings = _serve_readings(cfg, params, "cpu", prompts, chunks,
+                                       steps)
+        args = argparse.Namespace(device="cpu", gen=8, temperature=0.0,
+                                  batch=2, prompt_len=8)
+        with torch.no_grad():
+            one = run_oneshot(cfg, args, params, make_generators(0, "cpu"),
+                              prompts=prompts)["tokens"].tolist()
+            engines = {mode: _serve_engine_tokens(cfg, params, "cpu", ragged,
+                                                  **kw)[0]
+                       for mode, kw in TPS_ENGINE_MODES}
+        ref[arch] = dict(params=params, readings=readings,
+                         routes=list(routes), oneshot=one, engines=engines)
+    return ref
+
+
+def _tps_reduced_rank(rank, world, port, device):
+    """A rank of the reduced check: every arch's serving readings, routing,
+    one-shot and engine tokens on its slices, each planted fault; writes
+    them for the parent to hold against the CPU's."""
+    import argparse
+    import torch
+    from datetime import timedelta
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import make_generators, run_oneshot
+    mesh = _ms_mesh(rank, world, port, device, TPS_K,
+                    timeout=timedelta(seconds=120))
+    dev, tp = mesh.device, mesh.model_shard
+    ref = torch.load(os.path.join(TPS_DIR, "cpu.pt"), weights_only=False)
+    reset_launch_counts()
+    out = {"node": mesh.rank, "index": mesh.model_index}
+    for arch in TPS_ARCHS:
+        _ms_progress(mesh, f"tp serve reduced {arch}")
+        cfg, whole = _tps_cfg(arch), ref[arch]["params"]
+        prompts, steps, chunks, ragged = _tps_inputs(cfg)
+        mine = _tps_slices(cfg, whole, TPS_K, mesh.model_index, dev)
+        with torch.no_grad(), _tps_routes() as routes:
+            readings = _serve_readings(cfg, mine, dev, prompts, chunks,
+                                       steps, tp)
+        args = argparse.Namespace(device=dev, gen=8, temperature=0.0,
+                                  batch=2, prompt_len=8)
+        with torch.no_grad():
+            one = run_oneshot(cfg, args, mine, make_generators(0, dev),
+                              prompts=prompts, mesh=mesh)["tokens"].tolist()
+            engines = {mode: _serve_engine_tokens(cfg, mine, dev, ragged,
+                                                  tp, **kw)
+                       for mode, kw in TPS_ENGINE_MODES}
+        out[arch] = dict(readings=readings, routes=list(routes), oneshot=one,
+                         engines={m: (t, {k: s[k] for k in (
+                             "decode_cache_misses", "prefill_cache_misses",
+                             "completed", "kv_bytes")})
+                             for m, (t, s) in engines.items()})
+    for fault, arch in TPS_FAULTS.items():
+        _ms_progress(mesh, f"tp serve planted {fault}")
+        cfg = _tps_cfg(arch)
+        prompts, steps, chunks, ragged = _tps_inputs(cfg)
+        mine = _tps_slices(cfg, ref[arch]["params"], TPS_K,
+                           mesh.model_index, dev, fault)
+        if fault == "late_admission":
+            from repro_torch.serve import EngineConfig, Request, ServeEngine
+            eng = ServeEngine(cfg, EngineConfig(max_slots=2, prompt_len=8,
+                                                max_new_tokens=8),
+                              params=mine, device=dev, tp=tp)
+            if mesh.model_index == 1:
+                _tps_late(eng)
+            for i, p in enumerate(ragged):
+                eng.submit(Request(i, p))
+            try:
+                with torch.no_grad():
+                    eng.drain(100)
+                out[fault] = None
+            except RuntimeError as e:
+                out[fault] = str(e)[:300]
+            continue
+        plant = _tps_plant(fault) if fault != "next_kv_heads" \
+            else _planted()
+        with torch.no_grad(), plant:
+            out[fault] = _serve_readings(cfg, mine, dev, prompts, chunks,
+                                         steps, tp)
+    out["launches"] = dict(LAUNCHES)
+    torch.save(out, os.path.join(TPS_DIR, f"reduced_rank{rank}.pt"))
+    mesh.close()
+
+
+def _tps_reduced_checks(world, ref) -> dict:
+    """The reduced check's verdicts (each rank against the CPU's one-GPU
+    port) -> its line."""
+    import torch
+    res = [torch.load(os.path.join(TPS_DIR, f"reduced_rank{r}.pt"),
+                      weights_only=False) for r in range(world)]
+    placed = [(p["node"], p["index"]) for p in res]
+    check(placed == [divmod(r, TPS_K) for r in range(world)],
+          f"tensor_parallel_serve: ranks placed {placed}")
+    line = {}
+    for arch in TPS_ARCHS:
+        want = ref[arch]
+        errs, flips, same_routes = [], [], []
+        for r, p in enumerate(res):
+            got = p[arch]
+            errs.append({k: float((got["readings"][k] - v).abs().max())
+                         for k, v in want["readings"].items()
+                         if not k.startswith("chunk_state")})
+            flips.append(sum(int((a != b).sum()) for a, b in
+                             zip(got["routes"], want["routes"])))
+            same_routes.append(all(torch.equal(a, b) for a, b in zip(
+                got["routes"], res[r - r % TPS_K][arch]["routes"])))
+            check(all(v <= SERVE_BOUND for v in errs[-1].values()),
+                  f"tensor_parallel_serve: rank {r} {arch} card vs CPU "
+                  f"beyond {SERVE_BOUND}: {errs[-1]}")
+            check(flips[-1] == 0 and same_routes[-1],
+                  f"tensor_parallel_serve: rank {r} {arch} routing flips "
+                  f"{flips[-1]}, same on its node {same_routes[-1]}")
+            check(got["oneshot"] == want["oneshot"],
+                  f"tensor_parallel_serve: rank {r} {arch} one-shot tokens")
+            for mode, (toks, s) in got["engines"].items():
+                check(toks == want["engines"][mode] and
+                      s["decode_cache_misses"] == 0 and
+                      s["prefill_cache_misses"] == 0,
+                      f"tensor_parallel_serve: rank {r} {arch} {mode} "
+                      f"engine tokens or signatures {s}")
+        line[arch] = dict(max_abs=[max(e.values()) for e in errs],
+                          routing_flips=flips,
+                          kv_bytes={m: s["kv_bytes"] for m, (_, s) in
+                                    res[0][arch]["engines"].items()})
+    planted = {}
+    for fault, arch in TPS_FAULTS.items():
+        if fault == "late_admission":
+            msgs = [p[fault] for p in res]
+            check(all(m is not None and "out of step" in m for m in msgs),
+                  f"tensor_parallel_serve: late admission did not fail by "
+                  f"check: {msgs}")
+            planted[fault] = msgs[0]
+            continue
+        worst = []
+        for p in res:
+            got, want = p[fault], ref[arch]["readings"]
+            worst.append(max(
+                float((got[k] - want[k]).abs().max())
+                if got[k].shape == want[k].shape else math.inf
+                for k in got))
+        check(any(w > SERVE_BOUND for w in worst),
+              f"tensor_parallel_serve: planted fault {fault} passed "
+              f"{worst}")
+        planted[fault] = worst
+    launches = [p["launches"] for p in res]
+    check(all(sum(c.values()) == 0 for c in launches),
+          f"tensor_parallel_serve: serving launched kernels {launches}")
+    line["planted"] = planted
+    return line
+
+
+def _tps_draw(cfg, K, seed, dev):
+    """A GPU's slices of a model of random weights from `seed` (bf16,
+    drawn in place a leaf at a time: a whole expert leaf in fp32 would not
+    fit); the same seed on every GPU of a node gives the same whole
+    leaves, so the routers agree."""
+    import torch
+    from repro_torch.models import shard_template
+    from repro_torch.models.layers import ParamInfo
+    from repro_torch.tree import tree_map
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dtype = getattr(torch, cfg.dtype)
+
+    def make(info: ParamInfo):
+        if info.init in ("zeros", "ones"):
+            return torch.full(info.shape, float(info.init == "ones"),
+                              dtype=dtype, device=dev)
+        fan_in = info.shape[-2] if len(info.shape) >= 2 else info.shape[-1]
+        scale = info.scale if info.scale is not None else fan_in ** -0.5
+        w = torch.empty(info.shape, dtype=dtype, device=dev)
+        return w.normal_(0.0, scale, generator=gen)
+    return tree_map(make, shard_template(cfg, K))
+
+
+def _tps_timed_collectives(dev):
+    """Wrap the model group's all-reduces and all-gathers (``models/
+    layers.py``) in CUDA events; -> (events by kind, undo)."""
+    import torch
+    from repro_torch.models import layers as L
+    events = {"reduce": [], "gather": []}
+    reduce0, gather0 = L._all_reduce, L._all_gather
+
+    def timed(kind, fn):
+        def run(*a, **kw):
+            if dev.type != "cuda":
+                return fn(*a, **kw)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            y = fn(*a, **kw)
+            e1.record()
+            events[kind].append((e0, e1))
+            return y
+        return run
+    L._all_reduce, L._all_gather = timed("reduce", reduce0), \
+        timed("gather", gather0)
+
+    def undo():
+        L._all_reduce, L._all_gather = reduce0, gather0
+    return events, undo
+
+
+def _tps_prompts(cfg, n, length, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (n, length)).astype(np.int32)
+
+
+def _tps_install(bank, cache1, lane):
+    """Copy a batch-1 prefill cache into lane `lane` of the batch cache
+    `bank` (the engine's install: one prefix copy a leaf)."""
+    from repro_torch.serve.engine import lane_axis
+    from repro_torch.tree import tree_key_paths, tree_leaves
+    for path, dst, src in zip(tree_key_paths(bank), tree_leaves(bank),
+                              tree_leaves(cache1)):
+        if path == ("len",):
+            continue
+        ax = lane_axis(path)
+        dst = dst.select(ax, lane)
+        dst[tuple(slice(0, s) for s in src.select(ax, 0).shape)].copy_(
+            src.select(ax, 0))
+
+
+def _tps_decode_run(mesh, cfg, params, cache_rows, one_at_a_time, out):
+    """Fill a cache of `cache_rows` rows for TPS_BATCH sequences by a real
+    prefill (the whole batch at once, or one sequence at a time), then
+    greedy decode steps: ms a token, the model group's collectives a
+    step, the peak above the rank's start (before the weights) over the
+    decode steps, the routing of a MoE arch's first step. Fills `out`."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.serve import make_serve_fns, sample_token
+    from repro_torch.models import init_cache, layers as L
+    from repro_torch.models.layers import broadcast_from_model
+    dev, tp = mesh.device, mesh.model_shard
+    prefill, decode_step = make_serve_fns(cfg, tp)
+    plen = cache_rows - 1024
+    prompts = torch.from_numpy(_tps_prompts(cfg, TPS_BATCH, plen,
+                                            mesh.rank)).to(dev)
+    n_steps = TPS_DECODE_STEPS if cfg.moe is None else TPS_MOE_DECODE_STEPS
+    with torch.no_grad():
+        _ms_progress(mesh, f"tp serve {cfg.name} prefill")
+        _sync(dev)
+        t0 = time.perf_counter()
+        if one_at_a_time:
+            cache = init_cache(cfg, TPS_BATCH, cache_rows, device=dev, tp=tp)
+            firsts = []
+            for b in range(TPS_BATCH):
+                _ms_progress(mesh, f"tp serve {cfg.name} prefill {b}")
+                logits, c1 = prefill(params, prompts[b:b + 1])
+                _tps_install(cache, c1, b)
+                firsts.append(logits)
+                del c1
+            cache["len"] = torch.full((), plen, dtype=torch.int32,
+                                      device=dev)
+            logits = torch.cat(firsts)
+        else:
+            from repro_torch.serve.engine import grow_cache
+            logits, c = prefill(params, prompts)
+            cache = grow_cache(init_cache(cfg, TPS_BATCH, cache_rows,
+                                          device=dev, tp=tp), c)
+            del c
+        _sync(dev)
+        out["prefill_s"] = time.perf_counter() - t0
+        tok = broadcast_from_model(sample_token(logits, None, 0.0), tp)
+        del logits, prompts
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        events, undo = _tps_timed_collectives(dev)
+        L.COLLECTIVES = {}
+        secs, ms = [], {"reduce": [], "gather": []}
+        toks = []
+        try:
+            for t in range(n_steps):
+                _ms_progress(mesh, f"tp serve {cfg.name} decode {t}")
+                dist.barrier(group=tp.group)
+                _sync(dev)
+                t0 = time.perf_counter()
+                if t == 0 and cfg.moe is not None:
+                    with _tps_routes() as routes:
+                        logits, cache = decode_step(params, cache,
+                                                    tok[:, None])
+                    out["routing"] = [r.tolist() for r in routes]
+                else:
+                    logits, cache = decode_step(params, cache, tok[:, None])
+                tok = broadcast_from_model(sample_token(logits, None, 0.0),
+                                           tp)
+                _sync(dev)
+                secs.append(time.perf_counter() - t0)
+                toks.append(tok.tolist())
+                for kind, ev in events.items():
+                    ms[kind].append(sum(a.elapsed_time(b) for a, b in ev))
+                    ev.clear()
+            coll = dict(L.COLLECTIVES)
+        finally:
+            undo()
+            L.COLLECTIVES = None
+        out.update(
+            cache_rows=cache_rows, prompt=plen, batch=TPS_BATCH,
+            decode_ms=[1e3 * s for s in secs],
+            decode_ms_steady=1e3 * statistics.median(secs[1:]),
+            allreduce_calls=coll.get("calls", 0) // n_steps,
+            allreduce_bytes=coll.get("bytes", 0) // n_steps,
+            allreduce_ms=ms["reduce"],
+            allgather_calls=coll.get("gather_calls", 0) // n_steps,
+            allgather_bytes=coll.get("gather_bytes", 0) // n_steps,
+            allgather_ms=ms["gather"],
+            peak_above_start_bytes=torch.cuda.max_memory_allocated(dev) -
+            out["start_bytes"],
+            tokens=toks, finite=bool(torch.isfinite(logits).all()))
+        del cache, logits
+
+
+def _tps_engine_run(cfg, params, prompts, dev, tp, kw, swap=None):
+    """The engine at full width: 8 slots, `prompts` (all queued at once),
+    TPS_NEW new tokens each; `swap`: the params published after
+    TPS_SWAP_AFTER decode steps of the first lanes. -> (tokens by rid,
+    summary, wall s)."""
+    import torch
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    eng = ServeEngine(cfg, EngineConfig(
+        max_slots=8, prompt_len=TPS_PROMPT, max_new_tokens=TPS_NEW,
+        queue_depth=TPS_REQUESTS, **kw), params=params, device=dev, tp=tp)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p))
+    _sync(dev)
+    t0 = time.time()
+    with torch.no_grad():
+        if swap is not None:
+            eng.step()                   # admits (and prefills) 8 lanes
+            while min(len(ln.tokens) for ln in eng.lanes if ln.active) \
+                    < 1 + TPS_SWAP_AFTER:
+                eng.step()
+            eng.swap.publish(swap, tag="B")
+        eng.drain()
+    _sync(dev)
+    wall = time.time() - t0
+    toks = {c.rid: (c.tokens.tolist(), c.gen) for c in eng.completions}
+    return toks, eng.metrics.summary(), wall
+
+
+def _tps_full_rank(rank, world, port, device):
+    """A rank of olmo-1b at full width and depth, bf16, 2 x 2: the
+    decode_32k run (`_tps_decode_run`, the whole batch prefilled at once),
+    then the engine four ways, then the same dense engine on this GPU
+    alone with the whole model (agreement printed, not required)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+    mesh = _ms_mesh(rank, world, port, device, TPS_K)
+    dev, tp = mesh.device, mesh.model_shard
+    cfg = get_config(TPS_FULL_ARCH)
+    _fresh_memory()
+    reset_launch_counts()
+    out = {"node": mesh.rank, "index": mesh.model_index,
+           "start_bytes": torch.cuda.memory_allocated(dev)}
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         dev, tp=tp)
+    out["params_per_gpu"] = sum(x.numel() for x in tree_leaves(params))
+    _tps_decode_run(mesh, cfg, params, TPS_CACHE, False, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = list(_tps_prompts(cfg, TPS_REQUESTS, TPS_PROMPT,
+                                100 + mesh.rank))
+    swap = init_params(torch.Generator(device=dev).manual_seed(1), cfg, dev,
+                       tp=tp)
+    engines = {}
+    for mode, kw in TPS_ENGINE_RUNS:
+        _ms_progress(mesh, f"tp serve engine {mode}")
+        toks, summary, wall = _tps_engine_run(
+            cfg, params, prompts, dev, tp, kw,
+            swap if mode == "swap" else None)
+        engines[mode] = dict(tokens=toks, summary=summary, wall_s=wall)
+    out["engines"] = engines
+    out["launches"] = dict(LAUNCHES)
+    del params, swap
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ms_progress(mesh, "tp serve engine on one GPU")
+    whole = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    toks, summary, wall = _tps_engine_run(cfg, whole, prompts, dev, None,
+                                          {})
+    out["one_gpu"] = dict(tokens=toks, summary=summary, wall_s=wall)
+    del whole
+    torch.save(out, os.path.join(TPS_DIR, f"full_rank{rank}.pt"))
+    mesh.close()
+
+
+def _tps_moe_rank(rank, world, port, device, cache_rows):
+    """A rank of qwen3-moe-30b-a3b at full width and all 48 layers, bf16,
+    2 x 2, one-shot: a cache of `cache_rows` rows for TPS_BATCH sequences
+    filled one sequence at a time (every GPU holds the whole [E, C, D]
+    dispatch buffer), then greedy decode steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.tree import tree_leaves
+    mesh = _ms_mesh(rank, world, port, device, TPS_K)
+    dev = mesh.device
+    cfg = get_config(TPS_MOE_ARCH)
+    _fresh_memory()
+    reset_launch_counts()
+    out = {"node": mesh.rank, "index": mesh.model_index,
+           "start_bytes": torch.cuda.memory_allocated(dev)}
+    _ms_progress(mesh, "tp serve qwen3 weights")
+    params = _tps_draw(cfg, TPS_K, 0, dev)
+    out["params_per_gpu"] = sum(x.numel() for x in tree_leaves(params))
+    _tps_decode_run(mesh, cfg, params, cache_rows, True, out)
+    out["launches"] = dict(LAUNCHES)
+    torch.save(out, os.path.join(TPS_DIR, f"moe_rank{rank}.pt"))
+    mesh.close()
+
+
+def _tps_dry_flags(batch, cache_rows):
+    return ["--shape", "decode_32k", "--nodes", str(TPS_NODES),
+            "--model-parallel", str(TPS_K), "--batch", str(batch), "--seq",
+            str(cache_rows)]
+
+
+def _tps_read(prefix, world) -> list:
+    import torch
+    return [torch.load(os.path.join(TPS_DIR, f"{prefix}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _tps_decode_line(name, full, dry) -> dict:
+    """A full-width decode run's checks and line: finite, the same tokens
+    on a node's GPUs, each rank's peak within DRYRUN_BOUND of `dry`."""
+    for n in range(TPS_NODES):
+        a, b = full[n * TPS_K:(n + 1) * TPS_K]
+        check(a["tokens"] == b["tokens"] and a["finite"] and b["finite"],
+              f"{name}: tokens differ on node group {n} or not finite")
+        if "routing" in a:
+            check(a["routing"] == b["routing"],
+                  f"{name}: routing differs on node group {n}")
+    ratios = [p["peak_above_start_bytes"] / dry["peak_bytes"] for p in full]
+    line = {k: [p.get(k) for p in full] for k in (
+        "prefill_s", "decode_ms_steady", "decode_ms", "allreduce_calls",
+        "allreduce_bytes", "allreduce_ms", "allgather_calls",
+        "allgather_bytes", "allgather_ms", "peak_above_start_bytes",
+        "start_bytes", "params_per_gpu")}
+    line.update(cache_rows=full[0]["cache_rows"], prompt=full[0]["prompt"],
+                batch=full[0]["batch"], tokens_rank0=full[0]["tokens"][:4],
+                dryrun={"predicted_bytes": dry["peak_bytes"],
+                        "measured_over_predicted_by_rank": ratios,
+                        **{k: dry.get(k) for k in (
+                            "fits", "argument_bytes", "temp_bytes",
+                            "model_allreduce_calls",
+                            "model_allreduce_bytes_per_dev",
+                            "model_allgather_calls",
+                            "model_allgather_bytes_per_dev", "memory_s",
+                            "compute_s", "collective_s", "bottleneck")}})
+    if "routing" in full[0]:
+        r0 = full[0]["routing"]
+        line["routing"] = {"layers": len(r0), "choices_a_layer":
+                           sum(len(x) for x in r0[0]),
+                           "layer0_lane0": r0[0][0],
+                           "same_on_each_node": True}
+    log(name, ranks=len(full), **line)
+    lo, hi = DRYRUN_BOUND
+    check(all(lo <= r <= hi for r in ratios),
+          f"{name}: measured over predicted {ratios} outside "
+          f"{DRYRUN_BOUND}")
+    return line
+
+
+def phase_tensor_parallel_serve(device: str = "cuda") -> dict:
+    """`tensor_parallel_serve` on 4 GPUs, 2 node groups x TPS_K: (a) the
+    reduced card-vs-CPU check (`_tps_reduced_rank`); (b) olmo-1b at full
+    width, decode_32k's 8 sequences a node group over a 32,768-row cache,
+    held to its dry run, and the engine four ways; (c) qwen3-moe-30b-a3b at
+    full width and depth, one-shot, at the longest cache of
+    TPS_MOE_CACHES the dry run predicts fits. -> {path: launches}."""
+    import torch
+    n = torch.cuda.device_count()
+    world = TPS_NODES * TPS_K
+    if n < world:
+        log("tensor_parallel_serve", ran=False, gpus=n, needs=world)
+        return {}
+    os.makedirs(TPS_DIR, exist_ok=True)
+    t0 = time.time()
+    # the dry runs first, in the background: fake tensors, one process each
+    procs = _dryrun_start({"olmo": _tps_dry_flags(TPS_BATCH, TPS_CACHE)},
+                          ("cuda", "cpu"), arch=TPS_FULL_ARCH)
+    moe_procs = _dryrun_start({rows: _tps_dry_flags(TPS_BATCH, rows)
+                               for rows in TPS_MOE_CACHES},
+                              ("cuda", "cpu"), arch=TPS_MOE_ARCH)
+    ref = _tps_cpu_reference()
+    torch.save(ref, os.path.join(TPS_DIR, "cpu.pt"))
+    _ms_spawn(_tps_reduced_rank, world, device)
+    reduced_line = _tps_reduced_checks(world, ref)
+    log("tensor_parallel_serve_reduced", bound=SERVE_BOUND,
+        seconds=time.time() - t0, **reduced_line)
+    recs = _dryrun_jobs(None, None, procs)
+    _tp_check_dry(recs["olmo", "cuda"], recs["olmo", "cpu"])
+    dry = recs["olmo", "cuda"]
+    log("tensor_parallel_serve_prediction", arch=TPS_FULL_ARCH,
+        command="python -m repro_torch.launch.dryrun --arch olmo-1b "
+        "--shape decode_32k " + " ".join(_tps_dry_flags(TPS_BATCH,
+                                                        TPS_CACHE)[2:]),
+        peak_bytes=dry["peak_bytes"], fits=dry["fits"],
+        argument_bytes=dry["argument_bytes"])
+    check(dry["fits"], f"tensor_parallel_serve: olmo-1b decode_32k "
+          f"predicted at {dry['peak_bytes']} B a GPU")
+    t1 = time.time()
+    _ms_spawn(_tps_full_rank, world, device)
+    full = _tps_read("full", world)
+    line = _tps_decode_line("tensor_parallel_serve_olmo", full, dry)
+    engines = {}
+    for mode, _ in TPS_ENGINE_RUNS:
+        per = [p["engines"][mode] for p in full]
+        for p in per:
+            s = p["summary"]
+            check(s["completed"] == TPS_REQUESTS and s["rejected"] == 0 and
+                  s["dropped_in_flight"] == 0 and
+                  s["decode_cache_misses"] == 0 and
+                  s["prefill_cache_misses"] == 0,
+                  f"tensor_parallel_serve: olmo engine {mode} {s}")
+        for n in range(TPS_NODES):
+            a, b = per[n * TPS_K:(n + 1) * TPS_K]
+            check(a["tokens"] == b["tokens"], f"tensor_parallel_serve: "
+                  f"engine {mode} tokens differ on node group {n}")
+        engines[mode] = {k: [p["summary"][k] for p in per] for k in (
+            "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "latency_p50_ms",
+            "latency_p99_ms", "kv_bytes", "kv_dense_bytes", "completed",
+            "swaps_adopted")}
+        engines[mode]["wall_s"] = [p["wall_s"] for p in per]
+    for p in full:
+        e = p["engines"]
+        check(e["paged_chunked"]["tokens"] == e["chunked"]["tokens"],
+              "tensor_parallel_serve: paged != dense (chunked 128)")
+        first = {rid: t for rid, t in e["swap"]["tokens"].items()
+                 if t[1] == 1}
+        check(len(first) >= 8 and all(
+            t[0] == e["dense"]["tokens"][rid][0] for rid, t in
+            first.items()), "tensor_parallel_serve: the swap's first "
+            "lanes differ from the no-swap run")
+        check(sorted({t[1] for t in e["swap"]["tokens"].values()}) == [1, 2],
+              "tensor_parallel_serve: the swap served one generation")
+    agree = []
+    for p in full:
+        a, b = p["engines"]["dense"]["tokens"], p["one_gpu"]["tokens"]
+        same = sum(x == y for rid in a for x, y in zip(a[rid][0], b[rid][0]))
+        agree.append(same / sum(len(a[rid][0]) for rid in a))
+    log("tensor_parallel_serve_engine", arch=TPS_FULL_ARCH, slots=8,
+        requests=TPS_REQUESTS, prompt=TPS_PROMPT, new_tokens=TPS_NEW,
+        swap_after=TPS_SWAP_AFTER, seconds=time.time() - t1, **engines,
+        one_gpu_tokens_per_s=[p["one_gpu"]["summary"]["tokens_per_s"]
+                              for p in full],
+        one_gpu_greedy_agreement=agree)
+    launches = [p["launches"] for p in full]
+    moe = _dryrun_jobs(None, None, moe_procs)
+    for rows in TPS_MOE_CACHES:
+        _tp_check_dry(moe[rows, "cuda"], moe[rows, "cpu"])
+    rows = next((r for r in TPS_MOE_CACHES if moe[r, "cuda"]["fits"]),
+                None)
+    log("tensor_parallel_serve_moe_prediction", arch=TPS_MOE_ARCH,
+        predicted_bytes={r: moe[r, "cuda"]["peak_bytes"]
+                         for r in TPS_MOE_CACHES}, cache_rows=rows)
+    check(rows is not None, "tensor_parallel_serve: qwen3 fits no cache "
+          f"of {TPS_MOE_CACHES}")
+    t2 = time.time()
+    _ms_spawn(_tps_moe_rank, world, device, rows)
+    moe_full = _tps_read("moe", world)
+    _tps_decode_line("tensor_parallel_serve_qwen3", moe_full,
+                     moe[rows, "cuda"])
+    launches += [p["launches"] for p in moe_full]
+    check(all(sum(c.values()) == 0 for c in launches),
+          f"tensor_parallel_serve: serving launched kernels {launches}")
+    log("tensor_parallel_serve_done", seconds=time.time() - t0,
+        qwen3_seconds=time.time() - t2, olmo=line["decode_ms_steady"])
+    return {"tensor_parallel_serve": launches[0]}
+
+
 def phase_multi_shard() -> dict:
     """The node-mesh phases where the host has 2 or more GPUs; on one,
     the declared not-run line. -> {path: launches}."""
@@ -6856,12 +7591,15 @@ def kernels_line(records: dict, launches: dict, by_path: dict) -> list:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
-    ap.add_argument("--only", choices=["multi_shard", "dryrun"],
+    ap.add_argument("--only", choices=["multi_shard", "dryrun",
+                                       "tensor_parallel_serve"],
                     default=None,
                     help="run only these phases (multi_shard: the node "
                          "mesh's two phases, for a host with 2 or more "
                          "GPUs; dryrun: the phases whose peaks the dry run "
-                         "predicts, then the dry run); default: every "
+                         "predicts, then the dry run; "
+                         "tensor_parallel_serve: serving on 2 node groups "
+                         "of 2 GPUs, for a host with 4); default: every "
                          "phase")
     args = ap.parse_args(argv)
     # expandable segments, set before the allocator starts, as the port's
@@ -6896,15 +7634,17 @@ def main(argv=None) -> int:
     log("build", seconds=time.time() - t0,
         libraries=[str(build.library_path(n)) for n in build.KERNELS])
     if args.only is not None:
-        if args.only == "multi_shard":
+        if args.only in ("multi_shard", "tensor_parallel_serve"):
             records = phase_kernels()
             _fresh_memory()
-            by_path = phase_multi_shard()
-            if "tensor_parallel" in by_path:
+            by_path = phase_multi_shard() if args.only == "multi_shard" \
+                else phase_tensor_parallel_serve()
+            path = "tensor_parallel" if args.only == "multi_shard" \
+                else args.only
+            if path in by_path:
                 print(smi[0], flush=True)
                 print(json.dumps({"kernels": kernels_line(
-                    records, by_path["tensor_parallel"], by_path)}),
-                    flush=True)
+                    records, by_path[path], by_path)}), flush=True)
         else:
             _, main_records = phase_main_path()
             phase_scan_full_width(main_records)
@@ -6946,6 +7686,9 @@ def main(argv=None) -> int:
     serving.update(phase_zoo_train_full_width())
     serving.update(phase_zoo_serve_full_width())
     serving.update(phase_multi_shard())
+    # serving on a split node runs alone, on 4 GPUs
+    log("tensor_parallel_serve", ran=False, gpus=torch.cuda.device_count(),
+        needs=TPS_NODES * TPS_K, run="--only tensor_parallel_serve")
     kernels = kernels_line(records, counts, {
         "overlap_q8_geometric": counts, "blocking_q8": blocking, **remat,
         **baselines, **sched, **codecs, **transports, **scan, **serving})

@@ -25,7 +25,10 @@ With a model axis (a node split over K ranks) every rank also passes
 of an un-stacked leaf or None (``models/transformer.py`` ``param_split``): a
 save first all-gathers each split leaf over the node's K ranks, so rank
 0 writes the same one-shard file; a load gives each rank its node's row,
-cut to its own slice.
+cut to its own slice. Off a node mesh, a load with `shard` (one GPU of a
+node split over K, ``launch/mesh.py`` ``ModelShard``) and `split` gives
+that GPU its slice of every node's row, each leaf read on the host and
+cut there (a split node's serving follower, ``serve/source.py``).
 """
 from __future__ import annotations
 
@@ -204,13 +207,16 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def load_checkpoint(path: str, like: Any, mesh=None, split=None) -> Any:
+def load_checkpoint(path: str, like: Any, mesh=None, split=None,
+                    shard=None) -> Any:
     """Restore into the structure of `like` (a tree of tensors): each leaf
     shape-checked, cast to its `like` leaf's dtype and placed on its
     device. On a node `mesh` `like` is the rank's slab: each stored leaf
     must hold ``mesh.size`` of them along dim 0, and the rank reads its
     own, only its bytes; with a model axis (`split`) its node's slab, cut
-    to its own slice."""
+    to its own slice. With `shard` and `split` and no mesh, `like` is
+    `shard`'s slices of node-stacked leaves: each stored leaf is cut to
+    its slice on the host (the leading [n_nodes] dim whole)."""
     leaves_like, treedef = tree_flatten(like, tuples=True)
     restored = []
     if mesh is not None:
@@ -234,9 +240,22 @@ def load_checkpoint(path: str, like: Any, mesh=None, split=None) -> Any:
             restored.append(_tensor(slab).to(device=ref.device,
                                              dtype=ref.dtype))
         return tree_unflatten(treedef, restored)
+    dims = [None] * len(leaves_like)
+    if shard is not None:
+        from repro_torch.models.split import take_slice
+        dims = tree_flatten(split, tuples=True)[0]
+        if len(dims) != len(leaves_like):
+            raise ValueError(f"split has {len(dims)} leaves, the tree "
+                             f"{len(leaves_like)}")
     with np.load(path + ".npz") as data:
-        for i, ref in enumerate(leaves_like):
+        for i, (ref, d) in enumerate(zip(leaves_like, dims)):
             arr = data[f"leaf_{i}"]
+            if d is not None:
+                if arr.ndim < d + 2 or arr.shape[d + 1] % shard.size:
+                    raise ValueError(f"leaf {i}: shape {arr.shape} does "
+                                     f"not split {shard.size} ways at "
+                                     f"dim {d + 1}")
+                arr = take_slice(arr, d + 1, shard.size, shard.index)
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {i}: shape {arr.shape} != "
                                  f"{tuple(ref.shape)}")

@@ -31,15 +31,22 @@ shapes). The step is built by the drivers' own code:
   all-gathers (a MoE layer's experts split by expert) count into
   ``coll_bytes_per_dev`` (apart too: ``model_allreduce_bytes_per_dev``,
   ``model_allgather_bytes_per_dev``), priced at the model group's own
-  link. Dense and MoE archs and training shapes only; the rest raise,
-  naming their ROADMAP.md item. ``--layers N`` cuts the depth to N
-  layers (the widths stay);
+  link. Dense and MoE archs only; the rest raise, naming their
+  ROADMAP.md item. ``--layers N`` cuts the depth to N layers (the widths
+  stay);
 * a serving shape traces one GPU's prefill or decode step
   (``launch/serve.py`` ``make_serve_fns``) with its KV cache or SSM state.
-  The batch splits over the same GPUs, data-parallel replicas of the mean
-  model; batch 1 (``long_500k``) stays whole on one GPU (the reference
-  shards that cache's sequence over "data"; the port has no counterpart).
-  A pure full-attention arch gives the reference's ``skipped`` record for
+  The batch splits over the node groups, data-parallel replicas of the
+  mean model (the reference's ``batch_axes_for(role="serve")``: every
+  axis but "model"): ``global_batch / n_nodes`` sequences a node group,
+  and ``--batch`` gives that share. At ``--model-parallel K`` a node group
+  is K GPUs and the step is model index 0 of node 0 on ``fake_world``, its
+  parameters and cache that GPU's slices (the cache's kv heads
+  ``init_cache(..., tp=)``'s), and the model group's collectives
+  (all-reduces, the logits' all-gather) counted as in training. Batch 1
+  (``long_500k``) stays whole on one node group (the reference shards
+  that cache's sequence over "data"; the port has no counterpart). A
+  pure full-attention arch gives the reference's ``skipped`` record for
   ``long_500k``.
 
 On the card the step's tensors hold nothing, but torch's fake mode
@@ -115,15 +122,15 @@ def node_batch(shape: InputShape, n_nodes: int, H: int) -> int:
     return b_local
 
 
-def serve_batch(shape: InputShape, n_devices: int) -> int:
-    """Sequences one GPU serves: the batch split over the GPUs (whole on
-    one GPU for batch 1)."""
+def serve_batch(shape: InputShape, n_groups: int) -> int:
+    """Sequences one node group serves: the batch split over the groups
+    (whole on one group for batch 1)."""
     if shape.global_batch == 1:
         return 1
-    if shape.global_batch % n_devices:
+    if shape.global_batch % n_groups:
         raise ValueError(f"{shape.name}: global_batch {shape.global_batch} "
-                         f"does not split over {n_devices} GPUs")
-    return shape.global_batch // n_devices
+                         f"does not split over {n_groups} node groups")
+    return shape.global_batch // n_groups
 
 
 @functools.cache
@@ -258,37 +265,45 @@ def trace_train(cfg, argv: list, mesh=None) -> dict:
             "model_coll": model_coll}
 
 
-def trace_serve(cfg, kind: str, batch: int, seq: int, device: str) -> dict:
+def trace_serve(cfg, kind: str, batch: int, seq: int, device: str,
+                mesh=None) -> dict:
     """One GPU's prefill (`batch` prompts of `seq`) or decode step (`batch`
     tokens over a cache of `seq`) of ``launch/serve.py``
-    ``make_serve_fns`` under the fake mode; -> the counts."""
+    ``make_serve_fns`` under the fake mode (on `mesh`'s model axis this
+    GPU's slices and cache); -> the counts."""
     from repro_torch.launch.serve import make_generators, make_serve_fns
-    from repro_torch.models import init_cache, init_params
+    from repro_torch.models import init_cache, init_params, layers
     from repro_torch.models.multimodal import synth_prefix_embeds
-    prefill, decode_step = make_serve_fns(cfg)
+    tp = None if mesh is None else mesh.model_shard
+    prefill, decode_step = make_serve_fns(cfg, tp)
     gens = make_generators(0, device)
     counter = TraceCounter()
-    with fake_mode():
-        params = init_params(gens["init"], cfg, device)
-        if kind == "prefill":
-            inputs = [torch.zeros((batch, seq), dtype=torch.int32,
-                                  device=device)]
-            if cfg.frontend is not None:
-                inputs.append(synth_prefix_embeds(gens["prefix"], cfg, batch,
-                                                  device))
-            arg_bytes = counter.hold([params, inputs])
-            with _counting(counter) as fc:
-                prefill(params, *inputs)
-        else:
-            cache = init_cache(cfg, batch, seq, device=device)
-            tokens = torch.zeros((batch, 1), dtype=torch.int32,
-                                 device=device)
-            arg_bytes = counter.hold([params, cache, tokens])
-            with _counting(counter) as fc:
-                decode_step(params, cache, tokens)
+    try:
+        with fake_mode():
+            params = init_params(gens["init"], cfg, device, tp=tp)
+            if kind == "prefill":
+                inputs = [torch.zeros((batch, seq), dtype=torch.int32,
+                                      device=device)]
+                if cfg.frontend is not None:
+                    inputs.append(synth_prefix_embeds(gens["prefix"], cfg,
+                                                      batch, device))
+                arg_bytes = counter.hold([params, inputs])
+                layers.COLLECTIVES = model_coll = {}
+                with _counting(counter) as fc:
+                    prefill(params, *inputs)
+            else:
+                cache = init_cache(cfg, batch, seq, device=device, tp=tp)
+                tokens = torch.zeros((batch, 1), dtype=torch.int32,
+                                     device=device)
+                arg_bytes = counter.hold([params, cache, tokens])
+                layers.COLLECTIVES = model_coll = {}
+                with _counting(counter) as fc:
+                    decode_step(params, cache, tokens)
+    finally:
+        layers.COLLECTIVES = None
     return {"flops": float(fc.get_total_flops()), "argument_bytes": arg_bytes,
             "peak_bytes": counter.peak, "coll": dict(counter.coll),
-            "wire_bytes": None}
+            "wire_bytes": None, "model_coll": model_coll}
 
 
 def _device_allocated(device: str):
@@ -312,22 +327,18 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
     nodes in place of the reference's count; `model_parallel` K splits
     each node over K GPUs (``models/split.py``). `cfg` replaces the arch's
     config (tests pass reduced ones); `batch` and `seq` replace the
-    shape's per-node (training: a local step's) or per-GPU (serving)
-    batch and its sequence (decode: the cache's length)."""
+    shape's per-node (training: a local step's) or per-node-group
+    (serving) batch and its sequence (decode: the cache's length)."""
     cfg = cfg or get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     K = int(model_parallel)
     mesh_name = "one_card" if nodes_per_gpu else \
         f"{nodes}_gpus" if nodes else mesh_kind
     if K > 1:
-        from repro_torch.models.split import (NOT_ON_THE_MODEL_AXIS,
-                                              check_model_parallel)
+        from repro_torch.models.split import check_model_parallel
         if nodes_per_gpu:
             raise ValueError("--model-parallel splits a node over GPUs; "
                              "--nodes-per-gpu stacks nodes on one")
-        if shape.kind != "train":
-            raise ValueError(f"{shape_name}: "
-                             f"{NOT_ON_THE_MODEL_AXIS['serve']}")
         check_model_parallel(cfg, K)
         mesh_name += f"_tp{K}"
     head = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
@@ -358,30 +369,33 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *,
                    gossip=gossip_impl, quantize=quantize,
                    nonblocking=nonblocking or overlap, overlap=overlap, H=H,
                    h_mode=h_mode, h_traced=counts["h"],
-                   batch_per_node=b, model_parallel=K,
-                   model_allreduce_bytes_per_dev=2 * counts["model_coll"]
-                   .get("bytes", 0),
-                   model_allreduce_calls=counts["model_coll"].get("calls",
-                                                                  0),
-                   model_allgather_bytes_per_dev=counts["model_coll"]
-                   .get("gather_bytes", 0),
-                   model_allgather_calls=counts["model_coll"].get(
-                       "gather_calls", 0))
-        if K > 1:
-            from repro_torch.models.split import kv_deviation
-            rec.update(layout="node_over_gpus",
-                       kv_heads_whole=kv_deviation(cfg, K))
+                   batch_per_node=b)
     else:
-        n_dev = 1 if one_card or shape.global_batch == 1 else n_nodes
-        b = batch or serve_batch(shape, n_dev)
-        counts = trace_serve(cfg, shape.kind, b, seq, device)
+        groups = 1 if one_card or shape.global_batch == 1 else n_nodes
+        n_dev = groups * K
+        b = batch or serve_batch(shape, groups)
+        world = contextlib.nullcontext() if K == 1 \
+            else fake_world(groups, device, K)
+        with world as mesh:
+            counts = trace_serve(cfg, shape.kind, b, seq, device, mesh)
         g_shape = InputShape(shape.name, seq, b, shape.kind)
-        an_flops = A.serve_flops(cfg, g_shape)
-        an_bytes = A.serve_bytes(cfg, g_shape)
-        mf = model_flops(cfg, g_shape, shape.kind)
+        an_flops = A.serve_flops(cfg, g_shape) / K
+        an_bytes = A.serve_bytes(cfg, g_shape) / K
+        mf = model_flops(cfg, g_shape, shape.kind) / K
         rec.update(batch_per_dev=b)
         if shape.global_batch == 1 and not one_card:
             rec["note"] = NO_SEQ_SHARDING
+    model_coll = counts["model_coll"]
+    rec.update(model_parallel=K,
+               model_allreduce_bytes_per_dev=2 * model_coll.get("bytes", 0),
+               model_allreduce_calls=model_coll.get("calls", 0),
+               model_allgather_bytes_per_dev=model_coll.get("gather_bytes",
+                                                            0),
+               model_allgather_calls=model_coll.get("gather_calls", 0))
+    if K > 1:
+        from repro_torch.models.split import kv_deviation
+        rec.update(layout="node_over_gpus",
+                   kv_heads_whole=kv_deviation(cfg, K))
     t_trace = time.time() - t0
     flops = counts["flops"]
     coll = counts["coll"]
@@ -457,7 +471,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--h-max", type=int, default=8)
     ap.add_argument("--batch", type=int, default=None,
                     help="sequences a node takes a local step (training) "
-                         "or one GPU serves, in place of the shape's split")
+                         "or one node group serves, in place of the "
+                         "shape's split")
     ap.add_argument("--seq", type=int, default=None,
                     help="sequence (decode: cache) length in place of the "
                          "shape's")

@@ -31,6 +31,7 @@ import contextvars
 import hashlib
 import os
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import Any, Optional
 
 import torch
@@ -134,7 +135,8 @@ class NodeMesh:
 def init_node_mesh(device="cuda", *, rank: Optional[int] = None,
                    world_size: Optional[int] = None,
                    init_method: Optional[str] = None,
-                   model_parallel: int = 1) -> NodeMesh:
+                   model_parallel: int = 1,
+                   timeout: Optional[timedelta] = None) -> NodeMesh:
     """Join the node mesh: rank and size from the arguments or the usual
     ``RANK`` / ``WORLD_SIZE`` variables, the rendezvous from
     `init_method` or ``env://`` (``MASTER_ADDR`` / ``MASTER_PORT``). On
@@ -146,7 +148,9 @@ def init_node_mesh(device="cuda", *, rank: Optional[int] = None,
     With `model_parallel` K > 1 the world is ``n_nodes x K`` ranks: every
     rank makes every model group and node group (``dist.new_group`` in
     the same order everywhere) and keeps its own two, and each group's
-    first call is an all-reduce, model group then node group."""
+    first call is an all-reduce, model group then node group. `timeout`
+    bounds every collective's wait (torch's default without it), so a
+    rank whose peer never posts raises instead of waiting on."""
     dev = torch.device(device)
     rank = int(os.environ["RANK"]) if rank is None else int(rank)
     world_size = int(os.environ["WORLD_SIZE"]) if world_size is None \
@@ -177,23 +181,28 @@ def init_node_mesh(device="cuda", *, rank: Optional[int] = None,
         raise ValueError(f"a node mesh runs on cuda (NCCL) or cpu (gloo), "
                          f"got {device!r}")
     kw = {"device_id": dev} if backend == "nccl" else {}
+    if timeout is not None:
+        kw["timeout"] = timeout
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank, **kw)
     dist.all_reduce(torch.zeros((1,), device=dev))
     if K == 1:
         return NodeMesh(rank, world_size, dev)
-    return _model_axis_mesh(rank, world_size, K, dev)
+    return _model_axis_mesh(rank, world_size, K, dev, timeout)
 
 
 def _model_axis_mesh(rank: int, world_size: int, K: int,
-                     dev: torch.device) -> NodeMesh:
+                     dev: torch.device,
+                     timeout: Optional[timedelta] = None) -> NodeMesh:
     """Rank `rank`'s NodeMesh of `world_size // K` nodes of K ranks, its
     groups made (every rank makes every group, in one order) and each
     group's first call a collective."""
     n_nodes = world_size // K
-    model_groups = [dist.new_group(list(range(n * K, (n + 1) * K)))
+    model_groups = [dist.new_group(list(range(n * K, (n + 1) * K)),
+                                   timeout=timeout)
                     for n in range(n_nodes)]
-    node_groups = [dist.new_group(list(range(m, world_size, K)))
+    node_groups = [dist.new_group(list(range(m, world_size, K)),
+                                  timeout=timeout)
                    for m in range(K)]
     node, index = divmod(rank, K)
     mesh = NodeMesh(node, n_nodes, dev, node_groups[index], K, index,

@@ -31,6 +31,17 @@ driver exits 1 unless ``--device cpu`` is passed.
 Prompts, weights and samples come from three generators seeded from
 ``--seed`` (init and sampling on the device, prompts on the CPU), so a
 seed fixes a run; greedy decoding is deterministic whatever the seed.
+
+On a node mesh with a model axis (``launch/mesh.py`` ``init_node_mesh(...,
+model_parallel=K)``: n node groups of K GPUs) the library serves as the
+reference's serving mesh does: each node group holds one copy of the
+model, split by ``models/split.py`` (``params`` are the rank's slices),
+the prompt batch or the requests split over the n groups, and a group's
+collectives are the layers' own. The command line stays one GPU:
+
+  mesh = init_node_mesh("cuda", model_parallel=2)      # every rank
+  params = init_params(gen, cfg, mesh.device, tp=mesh.model_shard)
+  run_oneshot(cfg, args, params, gens, mesh=mesh)      # or run_continuous
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch.train import (
@@ -48,22 +60,26 @@ from repro_torch.launch.train import (
 )
 from repro_torch.models import (
     forward, init_cache, init_params, logits_head, param_template,
+    shard_template,
 )
+from repro_torch.models.layers import broadcast_from_model
 from repro_torch.tree import tree_map
 
 PROG = "repro_torch.launch.serve"
 
 
-def make_serve_fns(cfg):
+def make_serve_fns(cfg, tp=None):
+    """(prefill, decode_step), each -> (the whole vocabulary's logits, the
+    cache); on the model axis (`tp`) a GPU's: its slices, its cache."""
     def prefill(params, tokens, prefix_embeds=None):
         hidden, cache, _ = forward(cfg, params, tokens, mode="prefill",
-                                   prefix_embeds=prefix_embeds)
-        return logits_head(cfg, params, hidden[:, -1:]), cache
+                                   prefix_embeds=prefix_embeds, tp=tp)
+        return logits_head(cfg, params, hidden[:, -1:], tp), cache
 
     def decode_step(params, cache, tokens):
         hidden, cache, _ = forward(cfg, params, tokens, mode="decode",
-                                   cache=cache)
-        return logits_head(cfg, params, hidden), cache
+                                   cache=cache, tp=tp)
+        return logits_head(cfg, params, hidden, tp), cache
 
     return prefill, decode_step
 
@@ -100,51 +116,83 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def run_oneshot(cfg, args, params, gens, prompts=None, prefix=None) -> dict:
+def _node_rows(x, mesh):
+    """The rows of `x` (dim 0) a node group serves: its share of n equal
+    parts, all of them off a mesh."""
+    if mesh is None:
+        return x
+    n = x.shape[0] // mesh.size
+    if n * mesh.size != x.shape[0]:
+        raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                         f"{mesh.size} node groups")
+    return x[mesh.rank * n:(mesh.rank + 1) * n]
+
+
+def _gather_nodes(x, mesh):
+    """Every node group's rows `x`, in node order (`x` off a mesh)."""
+    if mesh is None or mesh.size == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    return torch.cat(parts)
+
+
+def run_oneshot(cfg, args, params, gens, prompts=None, prefix=None,
+                mesh=None) -> dict:
     """The one-shot batched path — the serving oracle the engine's tests
     compare against, and the path of a frontend arch. `prompts` ([batch,
     prompt_len] numpy) default to draws from ``gens["prompts"]``; a
     frontend's `prefix` ([batch, n_prefix, d_embed] numpy) to
-    ``synth_prefix_embeds`` from ``gens["prefix"]``. -> {"tokens": [batch,
-    gen] numpy, "finite": every logit finite, "prefill_ms",
-    "decode_ms_per_token"}."""
+    ``synth_prefix_embeds`` from ``gens["prefix"]``. On a node `mesh`
+    (``params`` the rank's slices with a model axis) each node group
+    serves its share of the batch and the tokens are gathered. ->
+    {"tokens": [batch, gen] numpy, "finite": every logit finite,
+    "prefill_ms", "decode_ms_per_token"}."""
     from repro_torch.models.multimodal import synth_prefix_embeds
     from repro_torch.serve.engine import grow_cache
-    prefill, decode_step = make_serve_fns(cfg)
+    tp = None if mesh is None else mesh.model_shard
+    prefill, decode_step = make_serve_fns(cfg, tp)
     device = args.device
     if prompts is None:
         prompts = make_prompts(cfg, args.batch, args.prompt_len,
                                gens["prompts"])
     tokens = torch.from_numpy(np.asarray(prompts)).to(device)
-    batch, plen = tokens.shape
     n_prefix = 0
     if cfg.frontend is not None:
         n_prefix = cfg.frontend.n_prefix
-        prefix = synth_prefix_embeds(gens["prefix"], cfg, batch, device) \
+        prefix = synth_prefix_embeds(gens["prefix"], cfg, tokens.shape[0],
+                                     device) \
             if prefix is None else torch.from_numpy(np.asarray(prefix)).to(
                 device)
+        prefix = _node_rows(prefix, mesh)
+    tokens = _node_rows(tokens, mesh)
+    batch, plen = tokens.shape
     _sync(device)
     t0 = time.time()
     logits, cache = prefill(params, tokens, prefix)
     # grow the cache to prefix+prompt+gen capacity (raises on any
     # structural mismatch — serve/engine.py)
     cache = grow_cache(init_cache(cfg, batch, n_prefix + plen + args.gen,
-                                  device=device), cache)
+                                  device=device, tp=tp), cache)
     _sync(device)
     t_prefill = time.time() - t0
 
-    tok = sample_token(logits, gens["sample"], args.temperature)[:, None]
+    def sample(lg):
+        return broadcast_from_model(sample_token(
+            lg, gens["sample"], args.temperature), tp)[:, None]
+    tok = sample(logits)
     out = [tok]
     finite = torch.isfinite(logits).all()
     t0 = time.time()
     for _ in range(args.gen - 1):
         logits, cache = decode_step(params, cache, tok)
-        tok = sample_token(logits, gens["sample"], args.temperature)[:, None]
+        tok = sample(logits)
         out.append(tok)
         finite = finite & torch.isfinite(logits).all()
     _sync(device)
     t_decode = time.time() - t0
-    gen = torch.cat(out, dim=1).cpu().numpy()
+    gen = _gather_nodes(torch.cat(out, dim=1), mesh).cpu().numpy()
+    batch = gen.shape[0]
     res = {"tokens": gen, "finite": bool(finite),
            "prefill_ms": t_prefill * 1e3,
            "decode_ms_per_token": t_decode / max(args.gen - 1, 1) * 1e3}
@@ -178,27 +226,33 @@ def engine_config(args):
     return EngineConfig(**kw)
 
 
-def run_continuous(cfg, args, gens, *, source, params=None):
+def run_continuous(cfg, args, gens, *, source, params=None, mesh=None):
     """Serve `args.requests` open-loop arrivals from `source` (and/or
-    `params` as generation 1); -> (completions, summary)."""
+    `params` as generation 1); -> (completions, summary). On a node
+    `mesh` (`source` and `params` the rank's slices with a model axis)
+    node group i serves requests i, i + n, ... and its K GPUs one
+    engine (``ServeEngine(..., tp=)``)."""
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.engine import serve_openloop
     engine = ServeEngine(cfg, engine_config(args), params=params,
-                         source=source, device=args.device)
+                         source=source, device=args.device,
+                         tp=None if mesh is None else mesh.model_shard)
     # block until the source delivers a first model (a follower pointed at
     # a run dir that hasn't checkpointed yet)
-    deadline = time.time() + args.wait_s
+    deadline = engine.clock() + args.wait_s
     while engine.swap.latest() is None:
         engine.poll_source()
         if engine.swap.latest() is not None:
             break
-        if time.time() > deadline:
+        if engine.clock() > deadline:
             raise TimeoutError(
                 f"no model from source after {args.wait_s}s "
                 f"(--source {args.source})")
         time.sleep(0.05)
-    completions = serve_openloop(engine, make_requests(cfg, args,
-                                                       gens["prompts"]))
+    requests = make_requests(cfg, args, gens["prompts"])
+    if mesh is not None:
+        requests = requests[mesh.rank::mesh.size]
+    completions = serve_openloop(engine, requests)
     summary = engine.metrics.summary()
     print(json.dumps({"serve": summary}), flush=True)
     for c in completions[: min(4, len(completions))]:
@@ -250,12 +304,14 @@ def run_live(cfg, args, gens):
     return engine.completions, summary
 
 
-def params_like(cfg):
-    """The model's parameter tree as meta tensors: shapes and dtypes."""
+def params_like(cfg, tp=None):
+    """The model's parameter tree as meta tensors: shapes and dtypes; on
+    the model axis (`tp`) a GPU's slices."""
     dtype = getattr(torch, cfg.dtype)
     return tree_map(lambda i: torch.empty(i.shape, dtype=dtype,
                                           device="meta"),
-                    param_template(cfg))
+                    param_template(cfg) if tp is None
+                    else shard_template(cfg, tp.size))
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -10,12 +10,13 @@ fails or times out gets an error record naming its cause.
       --dir results/dryrun_torch
 
 For each dense and MoE arch (``models/split.py``) the grid's
-``train_4k`` pairs are traced on the model axis too (``dryrun
---model-parallel K``): at the reference's own K, ``min(16, n_heads)`` (a
-node is a 16-chip "model" row where the heads allow it; skipped where the
-port refuses it, as granite-moe-3b-a800m's 24 heads at 16), and at the
-smallest K of MODEL_AXIS_KS whose trace fits one H100, tried in
-ascending order. The other archs wait for their ROADMAP.md items
+MODEL_AXIS_SHAPES pairs (``train_4k`` and the serving shapes
+``prefill_32k`` and ``decode_32k``) are traced on the model axis too
+(``dryrun --model-parallel K``): at the reference's own K, ``min(16,
+n_heads)`` (a node is a 16-chip "model" row where the heads allow it;
+skipped where the port refuses it, as granite-moe-3b-a800m's 24 heads at
+16), and at the smallest K of MODEL_AXIS_KS whose trace fits one H100,
+tried in ascending order. The other archs wait for their ROADMAP.md items
 (``models/split.py`` ``NOT_ON_THE_MODEL_AXIS``) and stay at one GPU a
 node. An existing record is kept, so a sweep into
 a directory that holds the one-GPU records adds only what is missing:
@@ -39,7 +40,7 @@ ARCHS = [
     "mamba2-780m", "qwen3-moe-30b-a3b",
 ]
 SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
-MODEL_AXIS_SHAPE = "train_4k"
+MODEL_AXIS_SHAPES = ("train_4k", "decode_32k", "prefill_32k")
 MODEL_AXIS_KS = (2, 4, 8, 16)
 SRC = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -71,24 +72,26 @@ def record_path(out: str, arch: str, shape: str, mesh: str,
     return os.path.join(out, tag + ".json")
 
 
-def run_model_axis(arch: str, mesh: str, out: str, device: str,
-                   timeout: int = 1800) -> bool:
-    """`arch`'s MODEL_AXIS_SHAPE pair at the reference's K (where the port
-    accepts it), then at each K in ascending order until one fits one
-    H100; -> whether every trace wrote a counted record."""
+def run_model_axis(arch: str, shape: str, mesh: str, out: str,
+                   device: str, timeout: int = 1800) -> bool:
+    """`arch`'s `shape` pair at the reference's K (where the port accepts
+    it), then at each K in ascending order until one fits one H100 (or
+    fails: a trace that times out at K times out beyond it); -> whether
+    every trace wrote a counted record."""
     ks = model_axis_ks(arch)
     if ks is None:
         return True
     k_ref, tries = ks
     ok = k_ref not in tries or run_pair(
-        arch, MODEL_AXIS_SHAPE, mesh, out, device,
-        ["--model-parallel", str(k_ref)], timeout, K=k_ref)
+        arch, shape, mesh, out, device, ["--model-parallel", str(k_ref)],
+        timeout, K=k_ref)
     for k in tries:
-        ok = run_pair(arch, MODEL_AXIS_SHAPE, mesh, out, device,
+        ok = run_pair(arch, shape, mesh, out, device,
                       ["--model-parallel", str(k)], timeout, K=k) and ok
-        with open(record_path(out, arch, MODEL_AXIS_SHAPE, mesh, k)) as f:
-            if json.load(f).get("fits"):
-                break
+        with open(record_path(out, arch, shape, mesh, k)) as f:
+            rec = json.load(f)
+        if rec.get("fits") or "error" in rec:
+            break                  # fits, or a larger K fails alike
     return ok
 
 
@@ -143,10 +146,10 @@ def main(argv=None) -> int:
              for s in args.shapes.split(",") for m in meshes]
     jobs = [lambda p=p: run_pair(*p, args.out, args.device,
                                  timeout=args.timeout) for p in pairs]
-    if MODEL_AXIS_SHAPE in args.shapes.split(","):
-        jobs += [lambda a=a, m=m: run_model_axis(a, m, args.out, args.device,
-                                                 args.timeout)
-                 for a in args.archs.split(",") for m in meshes]
+    jobs += [lambda a=a, s=s, m=m: run_model_axis(a, s, m, args.out,
+                                                  args.device, args.timeout)
+             for s in MODEL_AXIS_SHAPES if s in args.shapes.split(",")
+             for a in args.archs.split(",") for m in meshes]
     with ThreadPoolExecutor(max_workers=args.jobs) as pool:
         done = list(pool.map(lambda job: job(), jobs))
     print(f"done: {sum(done)} ok, {len(done) - sum(done)} failed",

@@ -15,7 +15,8 @@ split computation, :func:`reduce_from_model` (all-reduce forward,
 identity backward) where a split computation's partial sums leave it.
 Where each GPU computes whole rows of its own (a MoE layer's E/K
 experts), :func:`gather_from_model` (all-gather forward, the GPU's own
-rows of the gradient backward) joins them.
+rows of the gradient backward) joins them. Serving's host decisions
+(a sampled token) are model index 0's, :func:`broadcast_from_model`.
 ``tp=None`` is the one-GPU layer, unchanged.
 """
 from __future__ import annotations
@@ -238,6 +239,17 @@ def gather_from_model(x, tp):
     concatenated along dim 0 in model index order (`tp` None: `x`); its
     backward hands each GPU its own rows of the whole gradient."""
     return x if tp is None else _GatherFromModel.apply(x, tp.group, tp.index)
+
+
+def broadcast_from_model(x, tp):
+    """Model index 0's `x` on every GPU of the node, in place (`tp` None:
+    `x`); no gradient. Serving hands its sampled tokens through it, so
+    that a node's GPUs feed the same tokens to their next step."""
+    if tp is not None:
+        x = x.contiguous()
+        dist.broadcast(x, src=dist.get_global_rank(tp.group, 0),
+                       group=tp.group)
+    return x
 
 
 def max_over_model(x, tp):

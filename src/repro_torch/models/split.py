@@ -1,6 +1,7 @@
 """The model axis of a SwarmSGD node: how a node's parameters split over
-its K GPUs (counterpart of the sharding rules of ``repro/launch/specs.py``,
-restricted to the training path of the dense and MoE archs).
+its K GPUs (counterpart of the sharding rules of ``repro/launch/specs.py``
+for the dense and MoE archs, in training and in serving: the reference's
+``role="serve"`` takes the same parameter rules).
 
 In the reference's production layout a node is a tensor-parallel island
 of 16 chips whose mesh axis ``"model"`` carries the split;
@@ -36,6 +37,13 @@ replicated, and each GPU computes only the kv heads its own q heads read
 replicated weight summed over the node's GPUs. :func:`kv_deviation` names
 the cases.
 
+Serving caches the same heads (:func:`kv_heads_of`): each GPU's attention
+and sliding-window caches hold the kv heads its q heads read, the
+reference's ``cache_pspec(layout="headdim")`` with the kv heads on the
+model axis wherever K divides ``n_kv_heads``; where ``n_kv_heads < K``
+the reference cuts ``head_dim`` instead, and the port keeps a whole kv
+head, cached alike by the K / n_kv_heads GPUs that read it.
+
 What the model axis does not carry yet raises ``ValueError`` naming its
 ROADMAP.md Queue A item (:data:`NOT_ON_THE_MODEL_AXIS`).
 
@@ -57,8 +65,12 @@ NOT_ON_THE_MODEL_AXIS = {
             "the model axis wait for ROADMAP.md Queue A 12"),
     "big_model": ("the big_model layout (a node is a whole pod) waits for "
                   "ROADMAP.md Queue A 13"),
-    "serve": ("serving under the model axis (prefill, decode, chunk) waits "
-              "for ROADMAP.md Queue A 14"),
+    "serve": ("on the model axis serving keeps each GPU's kv heads in its "
+              "cache (the reference's cache_pspec layout 'headdim'); the "
+              "sequence-split decode (layout 'seqshard', a batch-1 "
+              "cache's sequence over the node axis), --weights serving "
+              "checkpoints on a split node and --source live on a mesh "
+              "wait for ROADMAP.md Queue A 18"),
     "run": ("on the model axis the swarm's blocking, non-blocking and "
             "overlapped supersteps run, on the gather or ppermute transport "
             "or its per-leaf oracle, exact or with the q8 lattice; the "
@@ -118,6 +130,14 @@ def kv_deviation(cfg, model_parallel: int) -> bool:
     """True where the port keeps ``wk`` / ``wv`` replicated and the
     reference cuts ``kv_x_dim`` over the model axis: n_kv_heads < K."""
     return model_parallel > 1 and cfg.n_kv_heads % model_parallel != 0
+
+
+def kv_heads_of(cfg, model_parallel: int, index: int):
+    """[lo, hi): the kv heads GPU `index` of a node over `model_parallel`
+    GPUs reads, its q heads' groups (every kv head at K 1)."""
+    nh = cfg.n_heads // model_parallel
+    group = cfg.n_heads // cfg.n_kv_heads
+    return (index * nh) // group, ((index + 1) * nh - 1) // group + 1
 
 
 def logical_rules(cfg, mesh: Dict[str, int]) -> Dict[Optional[str],

@@ -18,7 +18,7 @@ Entry points:
   loss_fn(cfg, params, batch)                chunked CE + router aux loss
   node_losses(cfg, params, batch)            every node's loss_fn (remat)
   init_cache(cfg, batch, cache_size, device=...)   KV / ring / SSM cache tree
-  logits_head(cfg, params, hidden)           fp32 logits
+  logits_head(cfg, params, hidden)           fp32 logits [B, S, V]
 
 On a node split over K GPUs (``tp``, ``launch/mesh.py`` ``ModelShard``;
 the parameters this GPU's slices, :func:`param_split` by the rules of
@@ -29,8 +29,12 @@ MoE layer's experts split by expert or by d_ff behind a whole router
 (``models/moe.py``), the embedding a masked lookup of the GPU's vocab
 rows summed over the model group, and the cross-entropy vocab-parallel
 (``models/layers.py``). Norms, ``q_norm`` / ``k_norm``, the router and
-the frontend's ``proj`` stay whole on every GPU. Serving under the model
-axis is refused.
+the frontend's ``proj`` stay whole on every GPU. Serving (prefill,
+decode, chunk) runs the same layers on the GPU's slices: its caches hold
+the kv heads its q heads read (``init_cache(..., tp=)``, ``models/split.py``
+``kv_heads_of``), and ``logits_head`` all-gathers a vocab-split table's
+logits over the model group, so that every GPU samples from the whole
+row. The sequence-split decode is refused (``NOT_ON_THE_MODEL_AXIS``).
 
 A cache's leaves carry the batch on their first axis after the stacked
 block axis (``blocks`` leaves [n_blocks, B, ...], ``tail`` leaves [B, ...]),
@@ -54,11 +58,13 @@ from repro_torch.models import multimodal as mm_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     ParamInfo, apply_mlp, apply_norm, apply_rope, chunked_softmax_xent,
-    copy_to_model, init_from_template, mlp_template, norm_template,
-    per_lane, reduce_from_model, rms_norm_simple, stack_template,
+    copy_to_model, gather_from_model, init_from_template, mlp_template,
+    norm_template, per_lane, reduce_from_model, rms_norm_simple,
+    stack_template,
 )
 from repro_torch.models.split import (
-    MODEL_AXIS, NOT_ON_THE_MODEL_AXIS, logical_rules, take_slice,
+    MODEL_AXIS, NOT_ON_THE_MODEL_AXIS, check_model_parallel, kv_heads_of,
+    logical_rules, take_slice,
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
@@ -232,11 +238,11 @@ def init_params(gen: torch.Generator, cfg, device, tp=None):
 
 
 def _layer_cache(cfg, mixer: str, batch: int, cache_size: int, dtype,
-                 device):
+                 device, n_kv: int):
     if mixer in ("attn", "swa"):
         rows = cache_size if mixer == "attn" \
             else min(cfg.sliding_window, cache_size)
-        shape = (batch, rows, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (batch, rows, n_kv, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if mixer == "mamba":
@@ -244,20 +250,41 @@ def _layer_cache(cfg, mixer: str, batch: int, cache_size: int, dtype,
     raise ValueError(mixer)
 
 
-def init_cache(cfg, batch: int, cache_size: int, dtype=None, *, device):
+def local_kv_heads(cfg, tp=None) -> int:
+    """The kv heads one GPU caches: all of them, or on the model axis
+    (`tp`) those its q heads read (``models/split.py`` ``kv_heads_of``)."""
+    if tp is None:
+        return cfg.n_kv_heads
+    lo, hi = kv_heads_of(cfg, tp.size, tp.index)
+    return hi - lo
+
+
+def init_cache(cfg, batch: int, cache_size: int, dtype=None, *, device,
+               tp=None, layout: str = "headdim"):
+    """The empty cache of `batch` sequences of `cache_size` rows; on the
+    model axis (`tp`) this GPU's: its attention and ring caches hold the
+    kv heads its q heads read, the reference's ``cache_pspec`` `layout`
+    "headdim" (the only one the port carries: "seqshard", the
+    sequence-split decode, is refused)."""
+    if layout != "headdim":
+        raise ValueError(f"layout={layout!r}: "
+                         f"{NOT_ON_THE_MODEL_AXIS['serve']}")
+    if tp is not None:
+        check_model_parallel(cfg, tp.size)
     dtype = dtype or getattr(torch, cfg.dtype)
+    n_kv = local_kv_heads(cfg, tp)
     cache: Dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32,
                                                 device=device)}
     if cfg.n_full_blocks > 0:
         one = {f"layer_{i}": _layer_cache(cfg, mx, batch, cache_size, dtype,
-                                          device)
+                                          device, n_kv)
                for i, (mx, _) in enumerate(cfg.pattern)}
         cache["blocks"] = tree_map(
             lambda x: x.expand((cfg.n_full_blocks,) + x.shape).clone(), one)
     if cfg.tail_pattern:
         cache["tail"] = {
             f"layer_{i}": _layer_cache(cfg, mx, batch, cache_size, dtype,
-                                       device)
+                                       device, n_kv)
             for i, (mx, _) in enumerate(cfg.tail_pattern)}
     return cache
 
@@ -277,10 +304,7 @@ def _local_kv(cfg, p, tp):
     hd = cfg.resolved_head_dim
     if tp is None or p["wk"].shape[-1] != cfg.n_kv_heads * hd:
         return p["wk"], p["wv"]
-    nh = cfg.n_heads // tp.size
-    group = cfg.n_heads // cfg.n_kv_heads
-    lo = (tp.index * nh) // group
-    hi = ((tp.index + 1) * nh - 1) // group + 1
+    lo, hi = kv_heads_of(cfg, tp.size, tp.index)
     return tuple(copy_to_model(p[k], tp)[..., lo * hd:hi * hd]
                  for k in ("wk", "wv"))
 
@@ -478,9 +502,11 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
     over its slots); otherwise the call's B*S tokens share the capacity.
 
     ``tp``: this GPU's share of a node split over the model axis
-    (``params`` its slices); training only."""
+    (``params`` its slices; in a serving mode ``cache`` and ``pools`` its
+    own, ``init_cache(..., tp=)``). An arch the axis does not carry
+    raises, naming its ROADMAP.md item."""
     if tp is not None and mode != "train":
-        raise ValueError(f"mode={mode!r}: {NOT_ON_THE_MODEL_AXIS['serve']}")
+        check_model_parallel(cfg, tp.size)
     x = _embed(cfg, params, tokens, prefix_embeds
                if mode in ("train", "prefill") else None, tp)
     B, S = x.shape[0], x.shape[1]
@@ -533,11 +559,17 @@ def forward(cfg, params, tokens, *, mode: str = "train", cache=None,
     return x, new_cache, aux_total
 
 
-def logits_head(cfg, params, hidden):
+def logits_head(cfg, params, hidden, tp=None):
+    """hidden [B,S,D] -> fp32 logits [B,S,V]. A vocab-split table (on the
+    model axis `tp`) gives this GPU's [B,S,V/K] rows, all-gathered along V
+    over the model group in model index order, so that every GPU holds
+    the whole row (a whole table needs no gather)."""
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,vd->bsv", hidden, table).to(torch.float32)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    if tp is not None and table.shape[0] != cfg.vocab_size:
+        logits = gather_from_model(logits.movedim(-1, 0), tp).movedim(0, -1)
     return logits
 
 

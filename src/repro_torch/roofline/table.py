@@ -11,12 +11,12 @@ terms are priced anew from each record's counts (``analysis.py``
 ``roofline_terms``), so a record written before a change of pricing
 reads as a new one would.
 
-A second table reads the ``train_4k`` records on the model axis
-(``dryrun --model-parallel K``, ``launch/sweep.py``): per arch and mesh,
-the peak a GPU at one GPU a node, at the reference's K (or its refusal,
-where the port splits heads whole and K does not divide them) and at the
-smallest K that fits; an arch that waits for its ROADMAP.md item says
-which.
+A table a shape of ``launch/sweep.py`` ``MODEL_AXIS_SHAPES`` reads its
+records on the model axis (``dryrun --model-parallel K``): per arch and
+mesh, the peak a GPU at one GPU a node, at the reference's K (or its
+refusal, where the port splits heads whole and K does not divide them)
+and at the smallest K that fits; an arch that waits for its ROADMAP.md
+item says which.
 """
 from __future__ import annotations
 
@@ -123,14 +123,14 @@ def run_flags(r) -> str:
         ("--quantize", r.get("quantize"))) if on)
 
 
-def model_axis_table(rows) -> str:
-    """The train_4k rows on the model axis, a line per (arch, mesh, run
+def model_axis_table(rows, shape: str = "train_4k") -> str:
+    """The `shape` rows on the model axis, a line per (arch, mesh, run
     flags): each peak in GiB a GPU beside the record's largest term."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.sweep import MODEL_AXIS_SHAPE, model_axis_ks
+    from repro_torch.launch.sweep import model_axis_ks
     from repro_torch.models.split import NOT_ON_THE_MODEL_AXIS
     ok = [r for r in rows if "error" not in r and "skipped" not in r
-          and r.get("shape") == MODEL_AXIS_SHAPE]
+          and r.get("shape") == shape]
     by = {}
     for r in ok:
         base = r["mesh"].split("_tp")[0]
@@ -178,8 +178,11 @@ def main(argv=None) -> None:
     if fl:
         print("\nFAILED:\n" + fl)
     print(f"\n{len(ok)} combinations traced OK.")
-    print("\nOn the model axis (train_4k):\n" +
-          model_axis_table(load(args.dir)))
+    from repro_torch.launch.sweep import MODEL_AXIS_SHAPES
+    rows = load(args.dir)
+    for shape in MODEL_AXIS_SHAPES:
+        print(f"\nOn the model axis ({shape}):\n" +
+              model_axis_table(rows, shape))
 
 
 if __name__ == "__main__":

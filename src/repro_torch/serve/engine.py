@@ -57,6 +57,26 @@ Sampling: greedy (temperature 0) is an argmax; temperature sampling draws
 from the engine's ``torch.Generator`` seeded with ``EngineConfig.seed``,
 one draw per dispatch, so a seed fixes the stream (the reference's
 ``jax.random`` draws cannot be reproduced in torch).
+
+On a node split over K GPUs (`tp`, ``launch/mesh.py`` ``ModelShard``;
+`params` and every source's models this GPU's slices) each GPU runs the
+same engine on its own cache bank and pools (its kv heads), and every
+dispatch's collectives pair with its peers' only if the K engines take
+the same host decisions in the same step. Model index 0 decides:
+
+* the clock (:meth:`ServeEngine.clock`): every decision in time (the
+  step's admissions' timestamps, an open loop's arrivals) reads index 0's;
+* the source: index 0 polls, and the others take the very checkpoint or
+  snapshot it took (``poll(tag=...)``, waiting up to SOURCE_WAIT_S);
+* the tokens: each GPU samples from the whole (gathered) logits and then
+  takes index 0's tokens (``models/layers.py`` ``broadcast_from_model``).
+
+Admissions, adoptions and retirements then follow from the same queue,
+lanes and allocator on every GPU. Before each dispatch, and at each clock
+and poll, the K GPUs all-gather one fixed-size row of their host state
+(the call's kind, the queue, the allocator, every lane) and raise on any
+difference, on every GPU at once: a GPU out of step fails this check and
+never pairs its collectives with another step's.
 """
 from __future__ import annotations
 
@@ -67,8 +87,10 @@ from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import forward, init_cache, logits_head
+from repro_torch.models.layers import broadcast_from_model
 from repro_torch.serve import paged as P
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.swap import HotSwap
@@ -123,6 +145,14 @@ def _signature(*trees) -> tuple:
                                    for x in leaves
                                    if isinstance(x, torch.Tensor))))
     return tuple(out)
+
+
+# what a split node's GPUs are about to do, the first entry of the row
+# they check against each other (ServeEngine._agree)
+_CLOCK, _POLL, _PREFILL, _CHUNK, _DECODE = range(5)
+
+#: seconds a split node's GPU waits for the model its model index 0 took
+SOURCE_WAIT_S = 60.0
 
 
 @dataclass(frozen=True)
@@ -206,11 +236,13 @@ class ServeEngine:
     `source` is any object with ``poll() -> Optional[ModelUpdate]``
     (serve/source.py); `params` seeds generation 1 directly when no source
     is used (the one-shot/oracle mode). At least one of the two must
-    provide a model before the first admission.
+    provide a model before the first admission. `tp`: this GPU's share of
+    a node split over the model axis (the module docstring); its source
+    also takes ``poll(tag=...)``.
     """
 
     def __init__(self, cfg, ecfg: EngineConfig, *, params=None, source=None,
-                 device="cuda"):
+                 device="cuda", tp=None):
         if cfg.frontend is not None:
             raise ValueError(
                 f"{cfg.name}: the continuous-batching engine serves "
@@ -219,6 +251,7 @@ class ServeEngine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.device = torch.device(device)
+        self.tp = tp
         self.source = source
         self.swap = HotSwap()
         self.metrics = ServeMetrics()
@@ -231,39 +264,86 @@ class ServeEngine:
         self._gen.manual_seed(ecfg.seed)
         self._decode_sigs: set = set()
         self._chunk_sigs: set = set()
+        self._steps = 0
         # paged is a no-op without full-attention layers (pure-SSM archs)
         self._paged = ecfg.paged and bool(P.attn_layer_entries(cfg))
         self.allocator = P.PageAllocator(ecfg.pool_pages) \
             if self._paged else None
         dtype = getattr(torch, cfg.dtype)
         self._pools = P.build_pools(cfg, ecfg.pool_pages, ecfg.page_size,
-                                    dtype, self.device) \
+                                    dtype, self.device, tp) \
             if self._paged else None
         self._caches = self._init_cache_bank()
         self._tokens = torch.zeros((ecfg.max_slots, 1), dtype=torch.int64,
                                    device=self.device)
         self.metrics.kv_pool_pages = ecfg.pool_pages if self._paged else 0
         self.metrics.kv_dense_bytes = P.dense_attn_bank_bytes(
-            cfg, ecfg.max_slots, ecfg.kv_capacity, dtype)
+            cfg, ecfg.max_slots, ecfg.kv_capacity, dtype, tp)
         self.metrics.kv_bytes = P.tree_num_bytes(self._pools) \
             if self._paged else self.metrics.kv_dense_bytes
         if params is not None:
             self.swap.publish(params, t_landed=time.time(), tag="init")
 
+    # -- a split node's agreement -----------------------------------------
+
+    def _state_row(self, kind: int, payload: int) -> list:
+        row = [kind, payload, self._steps, self.adopted_gen,
+               self.swap.generation, len(self.queue),
+               self.queue[0].rid if self.queue else -1,
+               self.allocator.free_count if self._paged else -1,
+               self.metrics.submitted, self.metrics.rejected,
+               len(self.completions)]
+        for ln in self.lanes:
+            row += [int(ln.active), ln.rid, ln.gen, int(ln.prefilling),
+                    ln.pos, ln.remaining]
+        return row
+
+    def _agree(self, kind: int, payload: int = 0) -> int:
+        """Model index 0's `payload`, once the node's GPUs have shown one
+        another the same host state before the same call `kind` (one
+        all-gather of a fixed-size int64 row over the model group; any
+        difference raises on every GPU). Without a model axis
+        `payload`."""
+        if self.tp is None:
+            return payload
+        row = torch.tensor(self._state_row(kind, payload), dtype=torch.int64,
+                           device=self.device)
+        rows = [torch.empty_like(row) for _ in range(self.tp.size)]
+        dist.all_gather(rows, row, group=self.tp.group)
+        rows = [r.tolist() for r in rows]
+        for i, r in enumerate(rows[1:], 1):
+            if r[:1] + r[2:] != rows[0][:1] + rows[0][2:]:
+                raise RuntimeError(
+                    f"serving engine: model index {i} is out of step with "
+                    f"index 0 (kind, payload, step, adopted, published, "
+                    f"queue, head, free pages, submitted, rejected, "
+                    f"completed, lanes: {r} != {rows[0]})")
+        return rows[0][1]
+
+    def clock(self) -> float:
+        """The engine's wall clock, seconds: ``time.time()``; on a split
+        node model index 0's."""
+        return self._agree(_CLOCK, time.time_ns()) / 1e9
+
     # -- the serving steps -------------------------------------------------
 
     def _sample(self, logits):
         """[slots, vocab] fp32 -> [slots] int64: argmax, or one draw from
-        the engine's generator."""
+        the engine's generator; on a split node model index 0's."""
         temp = self.ecfg.temperature
         if temp <= 0:
-            return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits / temp, dim=-1)
-        return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+            toks = torch.argmax(logits, dim=-1)
+        else:
+            probs = torch.softmax(logits / temp, dim=-1)
+            toks = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        return broadcast_from_model(toks, self.tp)
 
     def _prefill(self, params, tokens):
-        hidden, cache, _ = forward(self.cfg, params, tokens, mode="prefill")
-        logits = logits_head(self.cfg, params, hidden[:, -1:])  # [1,1,V]
+        self._agree(_PREFILL)
+        hidden, cache, _ = forward(self.cfg, params, tokens, mode="prefill",
+                                   tp=self.tp)
+        logits = logits_head(self.cfg, params, hidden[:, -1:],
+                             self.tp)                       # [1,1,V]
         return self._sample(logits[:, -1]), cache
 
     def _install(self, cache1, tok1, i: int):
@@ -304,10 +384,12 @@ class ServeEngine:
         caches, pools, tokens = self._caches, self._pools, self._tokens
         self._decode_sigs.add(_signature(params, caches, pools, tokens,
                                          commit))
+        self._agree(_DECODE)
         hidden, c2, _ = forward(self.cfg, params, tokens, mode="decode",
                                 cache=caches, pools=pools,
-                                moe_per_lane=True)
-        toks = self._sample(logits_head(self.cfg, params, hidden)[:, -1])
+                                moe_per_lane=True, tp=self.tp)
+        toks = self._sample(logits_head(self.cfg, params, hidden,
+                                        self.tp)[:, -1])
         c2, rows = P.split_new_rows(c2)
         self._caches = self._select(commit, c2, caches)
         if rows is not None:
@@ -324,13 +406,15 @@ class ServeEngine:
         caches, pools, tokens = self._caches, self._pools, self._tokens
         self._chunk_sigs.add(_signature(params, caches, pools, tokens,
                                         chunks, n_valid, commit, finish))
+        self._agree(_CHUNK)
         hidden, c2, _ = forward(self.cfg, params, chunks, mode="chunk",
                                 cache=caches, n_valid=n_valid, pools=pools,
-                                moe_per_lane=True)
+                                moe_per_lane=True, tp=self.tp)
         last = torch.clamp(n_valid.to(torch.int64) - 1, min=0)
         hidden = hidden[torch.arange(hidden.shape[0], device=self.device),
                         last][:, None]                        # [slots,1,D]
-        toks = self._sample(logits_head(self.cfg, params, hidden)[:, -1])
+        toks = self._sample(logits_head(self.cfg, params, hidden,
+                                        self.tp)[:, -1])
         c2, rows = P.split_new_rows(c2)
         self._caches = self._select(commit, c2, caches)
         if rows is not None:
@@ -363,7 +447,7 @@ class ServeEngine:
     def _init_cache_bank(self):
         ecfg = self.ecfg
         bank = init_cache(self.cfg, ecfg.max_slots, ecfg.kv_capacity,
-                          device=self.device)
+                          device=self.device, tp=self.tp)
         bank["len"] = torch.zeros((ecfg.max_slots,), dtype=torch.int32,
                                   device=self.device)
         if self._paged:
@@ -376,13 +460,36 @@ class ServeEngine:
     # -- model management --------------------------------------------------
 
     def poll_source(self):
-        """Pull at most one fresh model from the source into the swap."""
+        """Pull at most one fresh model from the source into the swap; on
+        a split node the one model index 0 pulls."""
         if self.source is None:
             return
-        upd = self.source.poll()
+        upd = self.source.poll() if self.tp is None else self._poll_agreed()
         if upd is not None:
             self.swap.publish(upd.params, t_landed=upd.t_landed,
                               tag=upd.tag)
+
+    def _poll_agreed(self):
+        """Model index 0 polls; the other GPUs take the checkpoint or
+        snapshot it took, by its tag."""
+        upd = self.source.poll() if self.tp.index == 0 else None
+        if not self._agree(_POLL, int(upd is not None)):
+            return None
+        tag = [None if upd is None else upd.tag]
+        dist.broadcast_object_list(
+            tag, src=dist.get_global_rank(self.tp.group, 0),
+            group=self.tp.group, device=self.device)
+        deadline = time.time() + SOURCE_WAIT_S
+        while upd is None:
+            upd = self.source.poll(tag=tag[0])
+            if upd is None and time.time() > deadline:
+                raise RuntimeError(
+                    f"serving engine: model index {self.tp.index} found no "
+                    f"model {tag[0]!r} (model index 0's) in "
+                    f"{SOURCE_WAIT_S} s")
+            if upd is None:
+                time.sleep(0.01)
+        return upd
 
     def _gens_in_use(self) -> set:
         return {ln.gen for ln in self.lanes if ln.active}
@@ -557,7 +664,7 @@ class ServeEngine:
         """One engine iteration: poll -> adopt -> admit -> per live
         generation one chunk dispatch (chunked prefill) + one decode
         dispatch -> harvest. Returns # tokens committed."""
-        now = time.time()
+        now = self.clock()
         if self.metrics.t_start is None:
             self.metrics.t_start = now
         self.poll_source()
@@ -595,6 +702,7 @@ class ServeEngine:
             if ln.active and not ln.prefilling and ln.remaining <= 0:
                 self._retire(i)
         self._gc_live()
+        self._steps += 1
         self.metrics.t_end = time.time()
         self.metrics.decode_cache_misses = max(0, len(self._decode_sigs) - 1)
         if self.ecfg.prefill_chunk > 0:
@@ -620,12 +728,14 @@ def serve_openloop(engine: ServeEngine, arrivals, *, settle_steps: int = 0):
     `arrivals` is a list of (t_offset_s, Request) relative to loop start.
     Arrivals are injected by wall clock regardless of engine progress (the
     open-loop property — load does not slow down when the server does);
-    returns the engine's completions once all work drains."""
-    t0 = time.time()
+    returns the engine's completions once all work drains. On a split
+    node every GPU drives its engine with the same `arrivals`, in model
+    index 0's time (``ServeEngine.clock``)."""
+    t0 = engine.clock()
     pending = sorted(arrivals, key=lambda a: a[0])
     i = 0
     while i < len(pending) or engine.queue or engine.active_count:
-        now = time.time() - t0
+        now = engine.clock() - t0
         while i < len(pending) and pending[i][0] <= now:
             engine.submit(pending[i][1])
             i += 1

@@ -25,7 +25,9 @@ twice.
 Layout: the engine runs its slots as one batch, so row trees carry the
 slot axis after the stacked block axis (``blocks`` rows [L, slots, T, kv,
 hd], ``tail`` rows [slots, T, kv, hd]), where the reference's vmap puts
-it first.
+it first. On a node split over K GPUs (`tp`) a GPU's pools hold its own
+kv heads (``models/transformer.py`` ``local_kv_heads``), and the byte
+counts are a GPU's.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.models.transformer import local_kv_heads
 from repro_torch.tree import tree_leaves
 
 
@@ -90,11 +93,13 @@ def attn_layer_entries(cfg) -> List[Tuple[str, str]]:
     return out
 
 
-def build_pools(cfg, n_pages: int, page: int, dtype, device) -> Dict[str, Any]:
+def build_pools(cfg, n_pages: int, page: int, dtype, device,
+                tp=None) -> Dict[str, Any]:
     """Global page pools, one {"k","v"} pair per full-attention layer;
     scanned block layers carry the leading [n_full_blocks] axis (each of
-    the stacked block copies is a distinct layer with its own pool)."""
-    shape = (n_pages, page, cfg.n_kv_heads, cfg.resolved_head_dim)
+    the stacked block copies is a distinct layer with its own pool). On
+    the model axis (`tp`) the GPU's kv heads."""
+    shape = (n_pages, page, local_kv_heads(cfg, tp), cfg.resolved_head_dim)
     pools: Dict[str, Any] = {}
     for group, key in attn_layer_entries(cfg):
         s = (cfg.n_full_blocks,) + shape if group == "blocks" else shape
@@ -195,10 +200,11 @@ def tree_num_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
-def dense_attn_bank_bytes(cfg, slots: int, capacity: int, dtype) -> int:
+def dense_attn_bank_bytes(cfg, slots: int, capacity: int, dtype,
+                          tp=None) -> int:
     """Device bytes the DENSE engine's full-attention KV bank costs — the
-    paged pool's baseline."""
-    per_row = cfg.n_kv_heads * cfg.resolved_head_dim * \
+    paged pool's baseline; on the model axis (`tp`) one GPU's."""
+    per_row = local_kv_heads(cfg, tp) * cfg.resolved_head_dim * \
         torch.empty((), dtype=dtype).element_size()
     n_layers = sum(cfg.n_full_blocks if g == "blocks" else 1
                    for g, _ in attn_layer_entries(cfg))

@@ -28,6 +28,16 @@ single-model param tree when (and only when) a newer one exists:
 
 Both deliver :class:`ModelUpdate` records carrying a monotone version and
 the wall-clock time the model *landed* (the time-to-fresh-model metric).
+
+On a node split over K GPUs each GPU's source delivers its own slices
+(``models/transformer.py`` ``param_split``): a follower built with `tp`
+and `split` reads each leaf of a checkpoint on the host and keeps only
+the GPU's slice of every node's row, so that no GPU holds the whole
+model; a live source is handed the rank's own slices. Both take
+``poll(tag=...)``: the update with that tag, the one the node's model
+index 0 took (``serve/engine.py``). A codec-encoded serving checkpoint
+on a split node is refused (``models/split.py``
+``NOT_ON_THE_MODEL_AXIS``).
 """
 from __future__ import annotations
 
@@ -55,7 +65,7 @@ class ModelUpdate:
     params: Any            # single-model param tree, serving dtype
     version: int           # monotone per source
     t_landed: float        # wall clock the model became available
-    tag: str = ""          # provenance (checkpoint path / "live")
+    tag: str = ""          # provenance (checkpoint path / "live:<n>")
 
 
 def _like(shape, dtype, device):
@@ -147,17 +157,20 @@ class CheckpointFollower:
     `params_like` is a single-model param tree (tensors, meta tensors
     allowed) fixing the serving structure and dtypes; `device` is where
     the model lands; `n_nodes` the swarm width of the followed run
-    (checked against the checkpoint's own metadata when present).
+    (checked against the checkpoint's own metadata when present). On a
+    node split over the model axis (`tp`) `params_like` is the GPU's
+    slices and `split` each leaf's split dimension (``param_split``).
     """
 
     def __init__(self, run_dir: str, params_like, n_nodes: int, *,
-                 device="cuda"):
+                 device="cuda", tp=None, split=None):
         self.run_dir = run_dir
         self.device = torch.device(device)
         self.params_like = tree_map(
             lambda x: _like(tuple(x.shape), x.dtype, self.device),
             params_like)
         self.n_nodes = n_nodes
+        self.tp, self.split = tp, split
         self._seen: set[str] = set()
         self._version = 0
 
@@ -182,8 +195,18 @@ class CheckpointFollower:
                 f"checkpoint {base}: trained with {meta['nodes']} nodes, "
                 f"follower configured for {self.n_nodes}")
         if "serving_spec" in meta:
+            if self.tp is not None:
+                from repro_torch.models.split import NOT_ON_THE_MODEL_AXIS
+                raise ValueError(f"serving checkpoint {base}: "
+                                 f"{NOT_ON_THE_MODEL_AXIS['serve']}")
             return load_serving_checkpoint(base, self.params_like)
         stacked = self._stacked_like()
+        if self.tp is not None:
+            # the params lead the flatten order of a codec-state
+            # checkpoint ({"params", "prev", "residual"}): only they are
+            # read, each cut to this GPU's slices
+            return mean_model_tree(load_checkpoint(
+                base, stacked, split=self.split, shard=self.tp))
         if "codec" in meta:
             # codec-state checkpoint: params ride beside the comm copy /
             # EF residual — only the params matter for serving
@@ -209,8 +232,12 @@ class CheckpointFollower:
             stacked = load_checkpoint(base, stacked)
         return mean_model_tree(stacked)
 
-    def poll(self) -> Optional[ModelUpdate]:
+    def poll(self, tag: Optional[str] = None) -> Optional[ModelUpdate]:
+        """The newest unseen checkpoint, or with `tag` that one (None
+        until it is complete), as the mean model."""
         fresh = [p for p in self._candidates() if p not in self._seen]
+        if tag is not None:
+            fresh = fresh[:fresh.index(tag) + 1] if tag in fresh else []
         if not fresh:
             return None
         base = fresh[-1]
@@ -242,7 +269,9 @@ class LiveSource:
     after one reduction — bitwise the checkpoint follower's
     ``mean_model_tree``), and node 0's lane is kept as the single serving
     model. ``poll()`` hands the newest unconsumed snapshot to the engine;
-    publishing twice between polls keeps only the newest."""
+    publishing twice between polls keeps only the newest. On a split
+    node the training loop publishes the rank's own slices, and the mean
+    is theirs."""
 
     def __init__(self, transport):
         self.transport = transport
@@ -255,9 +284,14 @@ class LiveSource:
         self._version += 1
         self._pending = ModelUpdate(single, self._version,
                                     t_landed if t_landed is not None
-                                    else time.time(), tag="live")
+                                    else time.time(),
+                                    tag=f"live:{self._version}")
         return self._version
 
-    def poll(self) -> Optional[ModelUpdate]:
+    def poll(self, tag: Optional[str] = None) -> Optional[ModelUpdate]:
+        """The newest unconsumed snapshot, or with `tag` only that one."""
+        if tag is not None and (self._pending is None or
+                                self._pending.tag != tag):
+            return None
         upd, self._pending = self._pending, None
         return upd

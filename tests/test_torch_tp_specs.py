@@ -362,12 +362,20 @@ def test_the_mesh_record():
 
 
 def test_serving_under_the_model_axis_is_refused():
+    """What serving on the model axis leaves out raises, naming its item:
+    a Mamba arch's decode (the SSM rules, Queue A 12) and the
+    sequence-split decode (the reference's cache layout "seqshard")."""
     from repro_torch.launch.mesh import ModelShard
-    from repro_torch.models import forward
+    from repro_torch.models import forward, init_cache
+    tp = ModelShard(2, 0, None)
+    mamba = reduced(get_config("mamba2-780m"), n_layers=1, d_model=32)
+    with pytest.raises(ValueError, match="Queue A 12"):
+        forward(mamba, {}, torch.zeros((1, 1), dtype=torch.int64),
+                mode="decode", cache={}, tp=tp)
+    item = re.search(r"Queue A \d+", MS.NOT_ON_THE_MODEL_AXIS["serve"])
     cfg = reduced(get_config("olmo-1b"), n_layers=1, d_model=32)
-    with pytest.raises(ValueError, match="Queue A 14"):
-        forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int64),
-                mode="prefill", tp=ModelShard(2, 0, None))
+    with pytest.raises(ValueError, match=item.group(0)):
+        init_cache(cfg, 1, 8, device="cpu", tp=tp, layout="seqshard")
 
 
 def test_a_model_axis_mesh_that_does_not_divide_is_refused():
@@ -411,8 +419,8 @@ def test_dry_run_on_the_model_axis():
 
 def test_dry_run_refuses_what_the_model_axis_does_not_carry():
     from repro_torch.launch import dryrun as D
-    with pytest.raises(ValueError, match="Queue A 14"):
-        D.run_one("gemma3-4b", "decode_32k", model_parallel=2,
+    with pytest.raises(ValueError, match="Queue A 12"):
+        D.run_one("mamba2-780m", "decode_32k", model_parallel=2,
                   device="cpu")
     with pytest.raises(ValueError, match="nodes-per-gpu"):
         D.run_one("gemma3-4b", "train_4k", nodes_per_gpu=2,
